@@ -11,17 +11,28 @@ nonzero:
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (each round of each cell below) plus ragged
    shapes, random reference masks and, for the survivor ordering, ties,
-   -0.0/+0.0, +inf and NaN. Centrality sums must agree within rtol 1e-5
-   (plus the l2 self-pair allowance, see ``_tolerance``); the ordering must
-   be bit-equal. Each kernel is timed with CUDA events beside its bound,
+   -0.0/+0.0, +inf and NaN. Centrality sums and pairwise blocks must agree
+   within rtol 1e-5 with a floor of 1e-5 of the largest value (plus the l2
+   self-pair allowance, see ``_tolerance``); the ordering must be
+   bit-equal. Each kernel is timed by CUDA-graph replay beside its bound,
    its plain version and, where one PyTorch call computes the same function,
-   that call (``library_ms``; the port never calls it);
-3. the main path at full size: ``repro_torch.api.find_medoid`` (corr_sh,
-   budget 30 per arm) on the five cells below with the kernel launch
-   counters zeroed just before each run and read just after. Each winner is
-   held against the ``reference`` backend's on the card with the same key,
-   and against the exact medoid (l1 at n=4096, d=512, the README command);
-   the planted cells must answer 0.
+   that call (``library_ms``; the port never calls it). The k-medoids
+   cells' shapes are checked and timed in phase 4, after their runs;
+3. the single-query main path at full size: ``repro_torch.api.find_medoid``
+   (corr_sh, budget 30 per arm) on the six cells below with the kernel
+   launch counters zeroed just before each run and read just after. Each
+   winner is held against the ``reference`` backend's on the card with the
+   same key, and against the exact medoid (l1 at n=4096, d=512, the README
+   command); the planted cells must answer 0;
+4. bandit k-medoids at full width: ``repro_torch.api.kmedoids`` with the
+   ``KMedoidsConfig`` defaults on the two cells below, counters zeroed just
+   before the first call and held against counts derived from the round
+   schedules and the refinement's bucket plan; the repeat must give the
+   same medoids, the pulls must stay below n^2/10, the ARI against the
+   planted labels must be >= 0.95, and the medoids and labels must equal
+   the ``reference`` backend's on the card with the same key (or the costs
+   agree to rtol 1e-5, both printed). Then one line of exact PAM at
+   n = 2048 (printed only).
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the rest
@@ -34,6 +45,7 @@ import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -53,7 +65,21 @@ CELLS = (
      "pallas_fused"),
     ("mnist_l2_topk", "mnist_zeros_like", 6424, 784, "l2",
      "pallas_fused_topk"),
+    ("planted_l2_pairwise", "planted", 20000, 784, "l2", "pallas_pairwise"),
 )
+
+# name, cluster dataset, n, d, k, metric, backend; KMedoidsConfig defaults
+# (BUILD 16, SWAP 16, refine 20 per arm, one sweep, at most 8 swap rounds).
+# n = 20000 at d = 784 is the MNIST scale of BanditPAM's experiments.
+KM_CELLS = (
+    ("kmedoids_mnist_l2_fused", "mnist_like", 20000, 784, 10, "l2",
+     "pallas_fused"),
+    ("kmedoids_rnaseq_l1_topk", "rnaseq_like", 20000, 1024, 8, "l1",
+     "pallas_fused_topk"),
+)
+KM_BUILD = KM_SWAP = 16
+KM_REFINE = 20
+KM_MIN_BUCKET = 8
 
 KERNELS = {   # name -> (source, TPU kernel it replaces)
     "dot_centrality": ("src/repro_torch/kernels/csrc/dot_centrality.cu",
@@ -64,7 +90,12 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                   f"{PALLAS}:355"),
     "topk_select": ("src/repro_torch/kernels/csrc/topk_smallest.cu",
                     f"{PALLAS}:366"),
+    "dot_pairwise": ("src/repro_torch/kernels/csrc/dot_pairwise.cu",
+                     f"{PALLAS}:82"),
+    "l1_pairwise": ("src/repro_torch/kernels/csrc/l1_pairwise.cu",
+                    f"{PALLAS}:121"),
 }
+PAIRWISE = ("dot_pairwise", "l1_pairwise")
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -124,6 +155,62 @@ class Ledger:
         return json.dumps({"kernels": out})
 
 
+def executed_rounds(n: int, budget: int) -> list:
+    """The rounds one run_halving executes for (n, budget)."""
+    from repro_torch.engine.schedule import round_schedule, stop_round
+
+    rounds = round_schedule(n, budget)
+    return rounds[: stop_round(rounds) + 1]
+
+
+def halving_plan(rounds, score_kern: str, topk: bool,
+                 masked: bool = False) -> list:
+    """The launches of one run_halving, as (kernel, C, R, masked): the score
+    kernel at each round's (s_r, t_r) and, on the topk backend, the
+    rank/select pair at each round before the output round."""
+    plan = []
+    for i, rd in enumerate(rounds):
+        plan.append((score_kern, rd.survivors, rd.num_refs, masked))
+        if topk and i < len(rounds) - 1:
+            plan += [("topk_rank", rd.survivors, 0, False),
+                     ("topk_select", rd.survivors, 0, False)]
+    return plan
+
+
+def medoid_plan(n: int, metric: str, backend: str) -> list:
+    """Every kernel launch of one find_medoid call (budget 30 per arm)."""
+    score = ("dot_pairwise" if backend == "pallas_pairwise" else
+             "l1_centrality" if metric == "l1" else "dot_centrality")
+    return halving_plan(executed_rounds(n, BUDGET_PER_ARM * n), score,
+                        backend == "pallas_fused_topk")
+
+
+def kmedoids_plan(n: int, k: int, metric: str, backend: str, buckets,
+                  executed: int, n_assign: int) -> list:
+    """Every kernel launch of one k-medoids call with the KMedoidsConfig
+    budgets, from the schedules: BUILD step 0 (find_medoid's program), BUILD
+    steps 1..k-1 with a (1, n) distance row after each winner (and one for
+    step 0 when k > 1), ``n_assign`` (n, k) assignment caches, the
+    refinement's (n_bucket, slots) buckets (masked references), and
+    ``executed`` SWAP rounds, each with its (1, n) verification row."""
+    cen = "l1_centrality" if metric == "l1" else "dot_centrality"
+    pair = "l1_pairwise" if metric == "l1" else "dot_pairwise"
+    topk = backend == "pallas_fused_topk"
+    rounds = executed_rounds(n, KM_BUILD * n)
+    row = [(pair, 1, n, False)]
+    plan = halving_plan(rounds, cen, topk) + (row if k > 1 else [])
+    for _ in range(1, k):
+        plan += halving_plan(rounds, pair, topk) + row
+    plan += [(pair, n, k, False)] * n_assign
+    for nb, slots in buckets:
+        plan += halving_plan(executed_rounds(nb, KM_REFINE * nb), cen, topk,
+                             masked=True) * slots
+    for _ in range(executed):
+        plan += halving_plan(executed_rounds(n, KM_SWAP * n), pair,
+                             topk) + row
+    return plan
+
+
 def main() -> int:
     import torch
 
@@ -133,17 +220,24 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT / "src"))
 
-    from repro_torch.api import find_medoid
+    import numpy as np
+
+    from repro_torch.api import find_medoid, kmedoids
+    from repro_torch.cluster import (adjusted_rand_index, make_direct_refiner,
+                                     pam_exact)
     from repro_torch.convert import data_from_numpy
+    from repro_torch.core.bucketing import next_pow2, plan_buckets
     from repro_torch.core.corr_sh import correlated_sequential_halving
     from repro_torch.core.exact import exact_medoid
-    from repro_torch.data.medoid_datasets import DATASETS, planted_medoid
+    from repro_torch.data.medoid_datasets import (CLUSTER_DATASETS, DATASETS,
+                                                  planted_medoid)
     from repro_torch.engine import rng
-    from repro_torch.engine.schedule import round_schedule, stop_round
+    from repro_torch.engine.schedule import schedule_pulls
     from repro_torch.kernels import build
     from repro_torch.kernels import ops
     from repro_torch.kernels import pairwise_distance as pk
 
+    script_t0 = time.perf_counter()
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -169,6 +263,9 @@ def main() -> int:
         name, ds, n, d = cell[:4]
         if ds not in arrays:
             arrays[ds] = DATASETS[ds][1](SEED, n, d)
+    km_labels = {}
+    for name, ds, n, d, k, metric, backend in KM_CELLS:
+        arrays[ds], km_labels[ds] = CLUSTER_DATASETS[ds][1](SEED, n, d, k)
     data = {ds: data_from_numpy(a, dev) for ds, a in arrays.items()}
     torch.cuda.synchronize()
     print(f"phase1 data: {time.perf_counter() - t0:.2f} s for "
@@ -201,17 +298,27 @@ def main() -> int:
         end.synchronize()
         return start.elapsed_time(end) / reps
 
-    def _tolerance(plain, metric, x, y, w):
-        # rtol 1e-5 on each sum (fp32 sums in another order), a floor of
-        # 1e-5 of the largest sum, and for l2 the self-pair allowance: the
+    def _tolerance(plain, metric, x, y, w, per_value_refs=None):
+        # rtol 1e-5 on each value (fp32 sums in another order), a floor of
+        # 1e-5 of the largest value, and for l2 the self-pair allowance: the
         # Gram trick's cancellation at a zero distance leaves ~|x| sqrt(eps)
-        # under the sqrt, so 1e-3 * max row norm per valid reference.
+        # under the sqrt, so 1e-3 * max row norm per valid reference (one
+        # per value for a pairwise block).
         tol = RTOL * plain.abs() + RTOL * plain.abs().max()
         if metric == "l2":
-            nref = float(w.sum()) if w is not None else y.shape[0]
+            nref = per_value_refs if per_value_refs is not None else (
+                float(w.sum()) if w is not None else y.shape[0])
             norm = max(float(x.norm(dim=1).max()), float(y.norm(dim=1).max()))
             tol = tol + 1e-3 * norm * nref
         return tol
+
+    def _agree(got, want, tol, what):
+        err = (got - want).abs()
+        _require(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+        _require(bool((err <= tol).all()),
+                 f"{what} disagrees: max err {float(err.max())}, tol "
+                 f"{float(tol.min())}")
+        return float(err.max())
 
     def centrality_inputs(metric, x, y):
         if metric == "cosine":
@@ -220,7 +327,7 @@ def main() -> int:
 
     def check_centrality(metric, x, y, w, reps=0):
         """Kernel vs plain on the card; returns (max_abs_err, ms, plain_ms,
-        bytes, ops) with times only when reps > 0."""
+        bytes, ops, library_ms) with times only when reps > 0."""
         xk, yk, xn2, yn2 = centrality_inputs(metric, x, y)
         if metric == "l1":
             def kern():
@@ -237,15 +344,10 @@ def main() -> int:
                                                metric=metric)
         got, want = kern(), plain()
         torch.cuda.synchronize()
-        err = (got - want).abs()
-        tol = _tolerance(want, metric, x, y, w)
-        _require(bool(torch.isfinite(got).all()), f"{metric}: non-finite")
-        _require(bool((err <= tol).all()),
-                 f"{metric} kernel disagrees at C={x.shape[0]} "
-                 f"R={y.shape[0]} d={x.shape[1]}: max err "
-                 f"{float(err.max())}, tol {float(tol.min())}")
         c, d = x.shape
         r = y.shape[0]
+        err = _agree(got, want, _tolerance(want, metric, x, y, w),
+                     f"{metric} centrality at C={c} R={r} d={d}")
         nbytes = 4 * (c * d + r * d + c)
         if metric in ("l2", "sql2"):
             nbytes += 4 * (c + r)
@@ -253,19 +355,174 @@ def main() -> int:
             nbytes += 4 * r
         nops = (3 if metric == "l1" else 2) * c * r * d
         if reps == 0:
-            return float(err.max()), 0.0, 0.0, nbytes, nops
-        return (float(err.max()), timed(kern, reps), timed(plain, max(1, reps // 4)),
-                nbytes, nops)
+            return err, 0.0, 0.0, nbytes, nops, None
+        return (err, timed(kern, reps), timed(plain, max(1, reps // 4)),
+                nbytes, nops, None)
+
+    def check_pairwise(name, x, y, reps=0):
+        """The pairwise kernel ``name`` vs its plain version on the card;
+        for dot_pairwise also the sql2/l2 blocks built from it (with the
+        self-pair allowance). Returns (max_abs_err, ms, plain_ms, bytes,
+        ops, library_ms) with times only when reps > 0."""
+        if name == "dot_pairwise":
+            kern, plain = pk.dot_pairwise, pk.dot_pairwise_plain
+
+            def library():
+                return x @ y.T                 # TF32 is off (above)
+        else:
+            kern, plain = pk.l1_pairwise, pk.l1_pairwise_plain
+
+            def library():
+                return torch.cdist(x, y, p=1)
+        got, want = kern(x, y), plain(x, y)
+        torch.cuda.synchronize()
+        c, d = x.shape
+        r = y.shape[0]
+        what = f"{name} at C={c} R={r} d={d}"
+        err = _agree(got, want, _tolerance(want, "block", x, y, None), what)
+        if name == "dot_pairwise":
+            sq = torch.clamp_min(ops._norms_sq(x)[:, None]
+                                 + ops._norms_sq(y)[None, :] - 2.0 * want, 0)
+            sq_tol = _tolerance(sq, "sql2", x, y, None)
+            # l2 is held as far as its square is: a square within e of a
+            # moves the root by at most max(sqrt(a + e) - sqrt(a),
+            # sqrt(a) - sqrt(a - e)), which is sqrt(e) at a = 0. At a
+            # self-pair the two Grams' rounding (~1e-6 of |x|^2 over
+            # d = 784, a serial cuBLAS sum against the kernel's grouped
+            # one) cancels to a square of ~5e-4 on MNIST rows, whose root
+            # exceeds the 1e-3 |x| self-pair allowance alone.
+            l2 = torch.sqrt(sq)
+            l2_tol = torch.maximum(
+                _tolerance(l2, "l2", x, y, None, 1),
+                torch.maximum(torch.sqrt(sq + sq_tol) - l2,
+                              l2 - torch.sqrt(torch.clamp_min(sq - sq_tol,
+                                                              0))))
+            for metric, plain_d, tol in (("sql2", sq, sq_tol),
+                                         ("l2", l2, l2_tol)):
+                got_d = ops.pairwise_kernel(metric)(x, y)
+                _agree(got_d, plain_d, tol, f"{metric} from {what}")
+        nbytes = 4 * (c * d + r * d + c * r)
+        nops = (2 if name == "dot_pairwise" else 3) * c * r * d
+        if reps == 0:
+            return err, 0.0, 0.0, nbytes, nops, None
+        return (err, timed(lambda: kern(x, y), reps),
+                timed(lambda: plain(x, y), max(1, reps // 4)), nbytes, nops,
+                timed(library, reps))
+
+    def check_topk(theta):
+        keys = ops.totalorder_keys(theta)
+        rank_k, rank_p = pk.topk_rank(keys), pk.topk_rank_plain(keys)
+        _require(torch.equal(rank_k, rank_p), "topk_rank disagrees")
+        c = theta.shape[0]
+        sel_k = pk.topk_select(rank_k, c)
+        sel_p = pk.topk_select_plain(rank_k, c)
+        lib = torch.argsort(keys, stable=True)
+        _require(torch.equal(sel_k, sel_p), "topk_select disagrees")
+        _require(torch.equal(sel_k, lib),
+                 "topk pair differs from a stable argsort")
+        return keys, rank_k
+
+    led = Ledger()
+    cache = {}
+
+    def shape_time(kern, ds, c, r=0, metric="", masked=False):
+        """Check and time ``kern`` once per shape on rows of dataset ``ds``
+        (random rows at the main path's shape; a random 0/1 reference mask
+        where the main path masks): the cached (err, ms, plain_ms, bytes,
+        ops, library_ms). The topk pair is keyed by C alone and returns
+        both kernels' tuples."""
+        if kern in ("topk_rank", "topk_select"):
+            ck = ("topk", c)
+            if ck not in cache:
+                keys, rank = check_topk(torch.rand(c, device=dev,
+                                                   generator=gen))
+                out = torch.empty(c, dtype=torch.int64, device=dev)
+                ar = torch.arange(c, device=dev)
+                rank_l = rank.long()
+                cache[ck] = {
+                    "topk_rank": (
+                        0.0, timed(lambda: pk.topk_rank(keys), 10),
+                        timed(lambda: pk.topk_rank_plain(keys), 3), 8 * c,
+                        c * c,
+                        timed(lambda: torch.argsort(keys, stable=True), 10)),
+                    "topk_select": (
+                        0.0, timed(lambda: pk.topk_select(rank, c), 10),
+                        timed(lambda: pk.topk_select_plain(rank, c), 10),
+                        12 * c, c,
+                        timed(lambda: out.scatter_(0, rank_l, ar), 10))}
+            return cache[ck][kern]
+        ck = (kern, ds, c, r, metric, masked)
+        if ck not in cache:
+            n = data[ds].shape[0]
+            x = data[ds][torch.randperm(n, device=dev, generator=gen)[:c]]
+            y = data[ds][torch.randperm(n, device=dev, generator=gen)[:r]]
+            if kern in PAIRWISE:
+                cache[ck] = check_pairwise(kern, x, y, reps=10)
+            else:
+                w = (torch.rand(r, device=dev, generator=gen) > 0.3).float() \
+                    if masked else None
+                cache[ck] = check_centrality(metric, x, y, w, reps=10)
+        return cache[ck]
+
+    def ledger_add(plan, ds, metric):
+        """Add one ledger entry per launch of ``plan`` (items (kernel, C,
+        R, masked)); returns per-kernel (ms, plain_ms, bound_ms, max err)."""
+        tot = {}
+        for kern, c, r, masked in plan:
+            err, ms, pms, nbytes, nops, lib = shape_time(kern, ds, c, r,
+                                                         metric, masked)
+            led.add(kern, ms, pms, nbytes, nops, err, library_ms=lib)
+            t = tot.setdefault(kern, [0.0, 0.0, 0.0, 0.0])
+            t[0] += ms
+            t[1] += pms
+            t[2] += max(_bound_s(nbytes, nops)) * 1e3
+            t[3] = max(t[3], err)
+        return tot
+
+    def fmt_tot(tot):
+        return "; ".join(f"{k} kernel {v[0]:.3f} ms, plain {v[1]:.3f} ms, "
+                         f"bound {v[2]:.4f} ms, max_abs_err {v[3]:.3g}"
+                         for k, v in sorted(tot.items()))
 
     def rounds_of(n):
-        rounds = round_schedule(n, BUDGET_PER_ARM * n)
-        return rounds[: stop_round(rounds) + 1]
+        return executed_rounds(n, BUDGET_PER_ARM * n)
+
+    def profiled(call):
+        """One call under torch.profiler: (device activities, device busy
+        ms, top five device operations by self device time), or None where
+        the profiler saw no device activity."""
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            call()
+            torch.cuda.synchronize()
+        spans = [e.time_range.elapsed_us() for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if not spans:
+            return None
+
+        def dev_us(a):
+            return getattr(a, "self_device_time_total",
+                           getattr(a, "self_cuda_time_total", 0.0))
+
+        top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:5]
+        return (len(spans), sum(spans) / 1e3,
+                [(a.key[:60], a.count, dev_us(a) / 1e3) for a in top])
+
+    def busy_note(busy, steady_s):
+        if busy is None:
+            return ("device busy: not measured (the profiler saw no device "
+                    "activity)")
+        top = ", ".join(f"{k} x{c} {ms:.2f} ms" for k, c, ms in busy[2])
+        return (f"profiled call: {busy[0]} device activities, busy "
+                f"{busy[1]:.2f} ms = {busy[1] / (steady_s * 1e3):.1%} of the "
+                f"unprofiled repeat; top device ops: {top}")
 
     def _breakdown(x, key, n, metric, backend):
         """Where a steady call's time goes: (host ms of the random draws
-        alone — the same splits and permutations, nothing else; device busy
-        ms of one call under torch.profiler, or None where the profiler saw
-        no device activity)."""
+        alone — the same splits and permutations, nothing else; the
+        profiled call, see ``profiled``)."""
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         k = key
@@ -275,21 +532,11 @@ def main() -> int:
                 rng.permutation(sub, n)
         torch.cuda.synchronize()
         draws_ms = (time.perf_counter() - t0) * 1e3
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            find_medoid(x, key, metric=metric, backend=backend,
-                        budget_per_arm=BUDGET_PER_ARM)
-            torch.cuda.synchronize()
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not spans:
-            return draws_ms, None
-        return draws_ms, (len(spans), sum(spans) / 1e3)
+        return draws_ms, profiled(lambda: find_medoid(
+            x, key, metric=metric, backend=backend,
+            budget_per_arm=BUDGET_PER_ARM))
 
     # ------------------------------------------------ phase 2: kernels
-    led = Ledger()
     # ragged shapes (no tile multiple) and random reference masks
     for (c, r, d) in ((1, 1, 1), (77, 131, 300), (130, 65, 257),
                       (333, 1234, 784), (333, 1234, 2048), (97, 1234, 4096),
@@ -305,44 +552,16 @@ def main() -> int:
                              else "dot_centrality", err)
     print("phase2 ragged shapes and masks: l1/l2/sql2/cosine agree",
           flush=True)
-
-    cache = {}
-    for name, ds, n, d, metric, backend in CELLS:
-        kern = "l1_centrality" if metric == "l1" else "dot_centrality"
-        xall = data[ds]
-        tot = {"ms": 0.0, "plain": 0.0, "bound": 0.0, "err": 0.0}
-        for rd in rounds_of(n):
-            c, r = rd.survivors, rd.num_refs
-            ck = (kern, ds, c, r, metric)
-            if ck not in cache:
-                idx = torch.randperm(n, device=dev, generator=gen)[:c]
-                refs = torch.randperm(n, device=dev, generator=gen)[:r]
-                cache[ck] = check_centrality(metric, xall[idx].contiguous(),
-                                             xall[refs].contiguous(), None,
-                                             reps=10)
-            err, ms, pms, nbytes, nops = cache[ck]
-            led.add(kern, ms, pms, nbytes, nops, err)
-            tot["ms"] += ms
-            tot["plain"] += pms
-            tot["bound"] += max(_bound_s(nbytes, nops)) * 1e3
-            tot["err"] = max(tot["err"], err)
-        print(f"phase2 {kern} {name}: {len(rounds_of(n))} round shapes, "
-              f"kernel {tot['ms']:.3f} ms, plain {tot['plain']:.3f} ms, "
-              f"bound {tot['bound']:.4f} ms, max_abs_err {tot['err']:.3g}",
-              flush=True)
-
-    def check_topk(theta):
-        keys = ops.totalorder_keys(theta)
-        rank_k, rank_p = pk.topk_rank(keys), pk.topk_rank_plain(keys)
-        _require(torch.equal(rank_k, rank_p), "topk_rank disagrees")
-        c = theta.shape[0]
-        sel_k = pk.topk_select(rank_k, c)
-        sel_p = pk.topk_select_plain(rank_k, c)
-        lib = torch.argsort(keys, stable=True)
-        _require(torch.equal(sel_k, sel_p), "topk_select disagrees")
-        _require(torch.equal(sel_k, lib),
-                 "topk pair differs from a stable argsort")
-        return keys, rank_k
+    for (c, r, d) in ((1, 1, 1), (1, 20000, 784), (20000, 1, 784),
+                      (20000, 10, 784), (77, 131, 300), (1, 20000, 1024),
+                      (20000, 8, 1024), (65, 64, 257)):
+        x = torch.randn(c, d, device=dev, generator=gen)
+        y = torch.randn(r, d, device=dev, generator=gen)
+        y[: min(c, r, 3)] = x[: min(c, r, 3)]          # self-pairs
+        for name in PAIRWISE:
+            led.note_err(name, check_pairwise(name, x, y)[0])
+    print("phase2 ragged shapes: dot_pairwise (and sql2/l2 from it) and "
+          "l1_pairwise agree", flush=True)
 
     for c in (1, 2, 3, 129, 1000, 4097, 20000):
         theta = torch.randn(c, device=dev, generator=gen)
@@ -355,37 +574,9 @@ def main() -> int:
     print("phase2 topk ties, -0.0/+0.0, +inf, nan: bit-equal", flush=True)
 
     for name, ds, n, d, metric, backend in CELLS:
-        if backend != "pallas_fused_topk":
-            continue
-        tot = [0.0, 0.0, 0.0, 0.0]
-        pre_output = rounds_of(n)[:-1]        # the output round takes argmin
-        for rd in pre_output:
-            c = rd.survivors
-            ck = ("topk", c)
-            if ck not in cache:
-                keys, rank = check_topk(torch.rand(c, device=dev,
-                                                   generator=gen))
-                out = torch.empty(c, dtype=torch.int64, device=dev)
-                ar = torch.arange(c, device=dev)
-                rank_l = rank.long()
-                cache[ck] = (
-                    timed(lambda: pk.topk_rank(keys), 10),
-                    timed(lambda: pk.topk_rank_plain(keys), 3),
-                    timed(lambda: torch.argsort(keys, stable=True), 10),
-                    timed(lambda: pk.topk_select(rank, c), 10),
-                    timed(lambda: pk.topk_select_plain(rank, c), 10),
-                    timed(lambda: out.scatter_(0, rank_l, ar), 10))
-            rk, rp, rl, sk, sp, sl = cache[ck]
-            led.add("topk_rank", rk, rp, 8 * c, c * c, 0.0, library_ms=rl)
-            led.add("topk_select", sk, sp, 12 * c, c, 0.0, library_ms=sl)
-            tot[0] += rk
-            tot[1] += sk
-            tot[2] += rl
-            tot[3] += rp + sp
-        print(f"phase2 topk {name}: {len(pre_output)} orderings, rank "
-              f"{tot[0]:.3f} ms + select {tot[1]:.3f} ms, plain "
-              f"{tot[3]:.3f} ms, torch.argsort(stable) {tot[2]:.3f} ms",
-              flush=True)
+        tot = ledger_add(medoid_plan(n, metric, backend), ds, metric)
+        print(f"phase2 {name}: {len(rounds_of(n))} round shapes: "
+              f"{fmt_tot(tot)}", flush=True)
 
     # ---------------------------------------------- phase 3: main path
     for name, ds, n, d, metric, backend in CELLS:
@@ -403,10 +594,7 @@ def main() -> int:
         counts = dict(pk.LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
         nrounds = len(res.rounds)
-        kern = "l1_centrality" if metric == "l1" else "dot_centrality"
-        want = {kern: nrounds}
-        if backend == "pallas_fused_topk":
-            want.update(topk_rank=nrounds - 1, topk_select=nrounds - 1)
+        want = dict(Counter(k for k, *_ in medoid_plan(n, metric, backend)))
         _require(counts == want, f"{name}: launches {counts}, expected {want}")
         for k, v in counts.items():
             led.rows[k]["launches"] += v
@@ -426,6 +614,9 @@ def main() -> int:
         gap = float(theta[1] - theta[0]) if theta.numel() > 1 else float("inf")
         ref_winner = int(ref.medoid)
         if res.medoid != ref_winner:
+            _require(backend != "pallas_pairwise",
+                     f"{name}: winner {res.medoid} != reference "
+                     f"{ref_winner}")
             _require(gap <= 2 * RTOL * float(theta[0].abs()),
                      f"{name}: winner {res.medoid} != reference "
                      f"{ref_winner} with output-round gap {gap}")
@@ -452,14 +643,133 @@ def main() -> int:
               f"{peak / 2 ** 20:.1f} MiB = {resident / 2 ** 20:.1f} MiB "
               f"resident before the call + {(peak - resident) / 2 ** 20:.1f} "
               f"MiB of its own", flush=True)
-        busy_note = ("device busy: not measured (the profiler saw no device "
-                     "activity)" if busy is None else
-                     f"profiled call: {busy[0]} device activities, busy "
-                     f"{busy[1]:.2f} ms = {busy[1] / (steady * 1e3):.1%} of "
-                     f"the unprofiled repeat")
         print(f"phase3 {name} breakdown: random draws alone "
-              f"{draws_ms:.1f} ms; {busy_note}", flush=True)
+              f"{draws_ms:.1f} ms; {busy_note(busy, steady)}", flush=True)
 
+    # ------------------------------------------- phase 4: k-medoids
+    for name, ds, n, d, k, metric, backend in KM_CELLS:
+        x = data[ds]
+        key = rng.fold_in(rng.key(SEED, dev), 1)
+        direct = make_direct_refiner(metric=metric, backend=backend,
+                                     budget_per_arm=KM_REFINE,
+                                     min_bucket=KM_MIN_BUCKET)
+        sizes = []
+
+        def refiner(arrays, rkey):
+            sizes.append([a.shape[0] for a in arrays])
+            return direct(arrays, rkey)
+
+        def call(backend=backend, refiner=refiner):
+            return kmedoids(x, k, key, metric=metric, backend=backend,
+                            refiner=refiner)
+
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        res = call()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(pk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        for kk, v in counts.items():
+            led.rows[kk]["launches"] += v
+
+        # the counts the schedules and the bucket plan give
+        _require(len(sizes) == 1, f"{name}: {len(sizes)} refinement sweeps")
+        buckets = [(nb, next_pow2(len(idxs))) for nb, idxs in
+                   plan_buckets(sizes[0], KM_MIN_BUCKET).items()]
+        per_swap = schedule_pulls(n, KM_SWAP * n) + n
+        _require(res.swap_pulls % per_swap == 0,
+                 f"{name}: swap pulls {res.swap_pulls}")
+        executed = res.swap_pulls // per_swap
+        n_assign = 1 + (res.refine_updates > 0)
+        plan = kmedoids_plan(n, k, metric, backend, buckets, executed,
+                             n_assign)
+        want = dict(Counter(kk for kk, *_ in plan))
+        _require(counts == want, f"{name}: launches {counts}, expected {want}")
+
+        t0 = time.perf_counter()
+        again = call()
+        torch.cuda.synchronize()
+        steady = time.perf_counter() - t0
+        _require(again.medoids == res.medoids, f"{name}: rerun differs")
+        t0 = time.perf_counter()
+        busy = profiled(call)
+        prof_s = time.perf_counter() - t0
+
+        _require(res.pulls < n * n / 10, f"{name}: pulls {res.pulls}")
+        ari = adjusted_rand_index(res.labels, km_labels[ds])
+        _require(ari >= 0.95, f"{name}: ARI {ari} against the planted labels")
+        t0 = time.perf_counter()
+        ref = call(backend="reference", refiner=None)
+        ref_s = time.perf_counter() - t0
+        same = (ref.medoids == res.medoids
+                and np.array_equal(ref.labels, res.labels))
+        if not same:
+            print(f"phase4 {name}: medoids {res.medoids} cost {res.cost!r} "
+                  f"vs reference {ref.medoids} cost {ref.cost!r}", flush=True)
+            _require(abs(ref.cost - res.cost) <= RTOL * abs(ref.cost),
+                     f"{name}: cost differs from the reference backend's")
+        print(f"phase4 {name} n={n} d={d} k={k} {metric} {backend}: "
+              f"medoids {res.medoids} (reference backend equal: {same}), "
+              f"cost {res.cost:.6g}, ARI {ari:.4f}, swaps {res.swaps} in "
+              f"{executed} rounds, refine_updates {res.refine_updates}, "
+              f"pulls {res.pulls} (build {res.build_pulls}, assign "
+              f"{res.assign_pulls}, refine {res.refine_pulls}, swap "
+              f"{res.swap_pulls}; n^2/10 = {n * n // 10}), buckets "
+              f"(n_bucket, slots) {buckets}, wall {wall:.3f} s first / "
+              f"{steady:.3f} s again, launches {counts}, "
+              f"max_memory_allocated {peak / 2 ** 20:.1f} MiB = "
+              f"{resident / 2 ** 20:.1f} MiB resident before the call + "
+              f"{(peak - resident) / 2 ** 20:.1f} MiB of its own", flush=True)
+        print(f"phase4 {name} breakdown: {busy_note(busy, steady)}; "
+              f"the profiled call took {prof_s:.1f} s, the reference "
+              f"backend's {ref_s:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        tot = ledger_add(plan, ds, metric)
+        print(f"phase4 {name} kernels over the run's {len(plan)} launches "
+              f"({time.perf_counter() - t0:.1f} s to check and time them): "
+              f"{fmt_tot(tot)}", flush=True)
+        # the pairwise kernel's launches by shape class (times from above)
+        pair = "l1_pairwise" if metric == "l1" else "dot_pairwise"
+        by_class = {}
+        for kern, c, r, masked in plan:
+            if kern != pair:
+                continue
+            cls = ("(1, n) rows" if (c, r) == (1, n) else
+                   "(n, k) caches" if (c, r) == (n, k) else "halving rounds")
+            _, ms, pms, nbytes, nops, lib = shape_time(kern, ds, c, r, metric,
+                                                       masked)
+            b, o = _bound_s(nbytes, nops)
+            v = by_class.setdefault(cls, [0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0])
+            for i, add in enumerate((1, ms, b * 1e3, o * 1e3, pms, lib)):
+                v[i] += add
+            v[6] += max(b, o) * 1e3
+        print(f"phase4 {name} {pair} by shape: " + "; ".join(
+            f"{cls}: {v[0]} launches, kernel {v[1]:.3f} ms, bound {v[6]:.4f} "
+            f"ms ({'bytes' if v[2] >= v[3] else 'operations'}), plain "
+            f"{v[4]:.3f} ms, library {v[5]:.3f} ms"
+            for cls, v in by_class.items()), flush=True)
+
+    t0 = time.perf_counter()
+    arr, labels = CLUSTER_DATASETS["mnist_like"][1](SEED, 2048, 784, 10)
+    small = data_from_numpy(arr, dev)
+    res = kmedoids(small, 10, rng.fold_in(rng.key(SEED, dev), 1),
+                   metric="l2", backend="pallas_fused")
+    pam = pam_exact(small, 10, "l2")
+    print(f"phase4 pam_exact mnist_like n=2048 d=784 k=10 l2: bandit "
+          f"(pallas_fused) cost {res.cost:.6g} pulls {res.pulls}, PAM cost "
+          f"{pam.cost:.6g} pulls {pam.pulls} swaps {pam.swaps}, cost_vs_pam "
+          f"{res.cost / pam.cost:.6f}, ARI vs PAM "
+          f"{adjusted_rand_index(res.labels, pam.labels):.4f}, ARI vs "
+          f"planted: bandit {adjusted_rand_index(res.labels, labels):.4f} / "
+          f"PAM {adjusted_rand_index(pam.labels, labels):.4f} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+
+    print(f"chip_smoke: {time.perf_counter() - script_t0:.1f} s in all",
+          flush=True)
     print(led.line())
     print(_smi())
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,14 @@
-"""The public facade of the port, the counterpart of ``repro/api.py`` for one
-query::
+"""The public facade of the port, the counterpart of ``repro/api.py``::
 
-    from repro_torch.api import MedoidConfig, find_medoid
+    from repro_torch.api import (KMedoidsConfig, MedoidConfig, find_medoid,
+                                 find_medoids_batch, find_medoids_ragged,
+                                 kmedoids)
 
     res = find_medoid(data, key)                          # MedoidResult
     res = find_medoid(data, key, backend="pallas_fused", budget_per_arm=32)
+    meds = find_medoids_batch(batch, key)                 # (B,) indices
+    meds = find_medoids_ragged([q1, q2, q3], key=key)     # any sizes
+    clust = kmedoids(data, k=8, key=key)                  # KMedoidsResult
 
 ``data`` is a torch tensor (it keeps its device) or anything numpy takes (it
 goes to CUDA); ``device=`` overrides both, and ``device="cpu"`` runs the
@@ -13,9 +17,11 @@ input raises. ``key`` is a :class:`repro_torch.engine.rng.Key`
 (``rng.key(seed)``, or :func:`repro_torch.convert.key_from_jax_data` for a
 JAX key); ``None`` means ``rng.key(config.seed)``.
 
-Ported so far: ``algo="corr_sh"`` (the paper's Algorithm 1) and
-``algo="exact"``, fp32 only, without telemetry. The other algorithms and
-options raise ``ValueError`` naming the ROADMAP queue that holds them.
+Ported so far: ``algo="corr_sh"`` (the paper's Algorithm 1) for one query,
+a batch and ragged queries, ``algo="exact"``, and bandit k-medoids with the
+in-process refiner; fp32 only, without telemetry. The other algorithms and
+options (``meddit``/``rand``, telemetry, quantized precision, the service
+refiner) raise ``ValueError`` naming the ROADMAP item that holds them.
 """
 from __future__ import annotations
 
@@ -26,31 +32,50 @@ from typing import Optional
 import torch
 
 from repro_torch.convert import data_from_numpy, resolve_device
-from repro_torch.core.corr_sh import _medoid_impl
+from repro_torch.core.bucketing import (DEFAULT_MIN_BUCKET, bucket_n,
+                                        pack_queries)
+from repro_torch.core.corr_sh import _batch_impl, _medoid_impl, ragged_medoids
 from repro_torch.core.exact import exact_medoid
 from repro_torch.engine import rng
 from repro_torch.engine.schedule import round_schedule, stop_round
 
 ALGOS = ("corr_sh", "meddit", "rand", "exact")
 
-__all__ = ["ALGOS", "MedoidConfig", "MedoidResult", "find_medoid"]
+__all__ = ["ALGOS", "KMedoidsConfig", "MedoidConfig", "MedoidResult",
+           "find_medoid", "find_medoids_batch", "find_medoids_ragged",
+           "kmedoids"]
 
 
 @dataclass(frozen=True)
 class MedoidConfig:
     """How a medoid query runs; the fields of ``repro.api.MedoidConfig``.
-    ``budget = budget_per_arm * n``. ``min_bucket`` and
-    ``quant_error_model`` belong to the ragged and quantized paths, which
-    are not ported yet."""
+    ``budget = budget_per_arm * n`` (``n`` is the power-of-two bucket for
+    ragged traffic). ``quant_error_model`` belongs to the quantized path,
+    which is not ported yet."""
     metric: str = "l2"
     backend: str = "reference"
     budget_per_arm: int = 24
     algo: str = "corr_sh"
-    min_bucket: int = 8
+    min_bucket: int = DEFAULT_MIN_BUCKET
     seed: int = 0          # key when the caller passes none
     telemetry: bool = False
     precision: str = "fp32"
     quant_error_model: str = "probe"
+
+
+@dataclass(frozen=True)
+class KMedoidsConfig:
+    """How a k-medoids job runs (BUILD -> ragged per-cluster refinement ->
+    bandit SWAP); the fields and defaults of ``repro.api.KMedoidsConfig``."""
+    metric: str = "l2"
+    backend: str = "reference"
+    build_budget_per_arm: int = 16
+    swap_budget_per_arm: int = 16
+    refine_budget_per_arm: int = 20
+    refine_sweeps: int = 1
+    max_swap_rounds: int = 8
+    min_bucket: int = DEFAULT_MIN_BUCKET
+    seed: int = 0
 
 
 @dataclass(frozen=True)
@@ -70,11 +95,21 @@ class MedoidResult:
     hardness: Optional[dict] = None
 
 
-def _resolve(config, overrides):
-    cfg = config if config is not None else MedoidConfig()
-    if not isinstance(cfg, MedoidConfig):
-        raise TypeError(f"config must be a MedoidConfig, got {type(cfg)!r}")
+def _resolve(config, overrides, cls=MedoidConfig):
+    cfg = config if config is not None else cls()
+    if not isinstance(cfg, cls):
+        raise TypeError(f"config must be a {cls.__name__}, got {type(cfg)!r}")
     return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def _tensor(data, dev: torch.device) -> torch.Tensor:
+    if isinstance(data, torch.Tensor):
+        return data.to(device=dev, dtype=torch.float32).contiguous()
+    return data_from_numpy(data, dev)
+
+
+def _key(key: Optional[rng.Key], seed: int, dev: torch.device) -> rng.Key:
+    return rng.key(seed, dev) if key is None else key.to(dev)
 
 
 def _check_ported(cfg: MedoidConfig) -> None:
@@ -101,14 +136,11 @@ def find_medoid(data, key: Optional[rng.Key] = None, *,
     cfg = _resolve(config, overrides)
     _check_ported(cfg)
     dev = resolve_device(device, data)
-    if isinstance(data, torch.Tensor):
-        data = data.to(device=dev, dtype=torch.float32).contiguous()
-    else:
-        data = data_from_numpy(data, dev)
+    data = _tensor(data, dev)
     if data.ndim != 2:
         raise ValueError(f"expected (n, d) data, got shape {tuple(data.shape)}")
     n = int(data.shape[0])
-    key = rng.key(cfg.seed, dev) if key is None else key.to(dev)
+    key = _key(key, cfg.seed, dev)
     budget = cfg.budget_per_arm * n
 
     if cfg.algo == "exact":
@@ -128,3 +160,90 @@ def find_medoid(data, key: Optional[rng.Key] = None, *,
                         backend=cfg.backend,
                         rounds=tuple((r.survivors, r.num_refs)
                                      for r in executed))
+
+
+def _check_multi(cfg: MedoidConfig, mode: str) -> None:
+    if cfg.algo != "corr_sh":
+        raise ValueError(f"{mode} mode requires algo='corr_sh', "
+                         f"got {cfg.algo!r}")
+    _check_ported(cfg)
+
+
+def find_medoids_batch(data, key: Optional[rng.Key] = None, *,
+                       config: Optional[MedoidConfig] = None, device=None,
+                       **overrides) -> torch.Tensor:
+    """Answer a ``(B, n, d)`` batch of independent medoid queries (one
+    shared schedule, per-query reference draws). Returns the ``(B,)`` int64
+    medoid indices on the data's device."""
+    cfg = _resolve(config, overrides)
+    _check_multi(cfg, "batched")
+    dev = resolve_device(device, data)
+    data = _tensor(data, dev)
+    n = int(data.shape[1]) if data.ndim == 3 else 0
+    return _batch_impl(data, _key(key, cfg.seed, dev),
+                       budget=cfg.budget_per_arm * max(n, 1),
+                       metric=cfg.metric, backend=cfg.backend)
+
+
+def find_medoids_ragged(data, lengths=None, key: Optional[rng.Key] = None, *,
+                        config: Optional[MedoidConfig] = None, device=None,
+                        **overrides) -> torch.Tensor:
+    """Answer mixed-size medoid queries: a list of ``(n_i, d)`` arrays
+    (packed into power-of-two buckets here), or a pre-packed
+    ``(B, n_max, d)`` array with per-query ``lengths (B,)``. The budget is
+    ``budget_per_arm * n_bucket``; padding is masked inside every round,
+    and a query that fills its bucket gets the single-query answer. Returns
+    the ``(B,)`` int64 indices, each below its query's length."""
+    cfg = _resolve(config, overrides)
+    _check_multi(cfg, "ragged")
+    if isinstance(data, (list, tuple)):
+        if lengths is not None:
+            raise ValueError("pass lengths only with pre-packed array data")
+        if not data:
+            raise ValueError("pack_queries needs at least one query")
+        dev = resolve_device(device, data[0])
+        data, lengths = pack_queries([_tensor(a, dev) for a in data],
+                                     min_bucket=cfg.min_bucket)
+    elif lengths is None:
+        raise ValueError("pre-packed array data needs explicit lengths")
+    else:
+        dev = resolve_device(device, data)
+        data = _tensor(data, dev)
+    n_bucket = bucket_n(int(data.shape[1]) if data.ndim == 3 else 1,
+                        cfg.min_bucket)
+    return ragged_medoids(data, lengths, _key(key, cfg.seed, dev),
+                          budget=cfg.budget_per_arm * n_bucket,
+                          metric=cfg.metric, backend=cfg.backend,
+                          min_bucket=cfg.min_bucket)
+
+
+def kmedoids(data, k: int, key: Optional[rng.Key] = None, *,
+             config: Optional[KMedoidsConfig] = None, refiner=None,
+             device=None, **overrides):
+    """Bandit k-medoids (BUILD -> ragged refinement -> bandit SWAP) on the
+    port's engine. Returns a :class:`repro_torch.cluster.KMedoidsResult`
+    (point indices, labels, cost, scheduled pull counters). ``refiner``
+    replaces the in-process refiner of the per-cluster subproblems; the
+    service refiner is not ported (``repro_torch.cluster.
+    kmedoids_via_service`` raises). ``telemetry=True`` and a quantized
+    ``precision`` raise ``ValueError`` naming their ROADMAP item, like the
+    ``quant_*`` backends."""
+    from repro_torch.cluster.kmedoids import _kmedoids_impl
+
+    if overrides.pop("telemetry", False):
+        raise ValueError("kmedoids telemetry=True is not ported to "
+                         "repro_torch yet: see ROADMAP Queue 1 item 10")
+    precision = overrides.pop("precision", "fp32")
+    if precision != "fp32":
+        raise ValueError(f"kmedoids precision={precision!r} is not ported to "
+                         "repro_torch yet: see ROADMAP Queue 1 item 9")
+    cfg = _resolve(config, overrides, KMedoidsConfig)
+    dev = resolve_device(device, data)
+    return _kmedoids_impl(
+        _tensor(data, dev), k, _key(key, cfg.seed, dev), metric=cfg.metric,
+        backend=cfg.backend, build_budget_per_arm=cfg.build_budget_per_arm,
+        swap_budget_per_arm=cfg.swap_budget_per_arm,
+        refine_budget_per_arm=cfg.refine_budget_per_arm,
+        refine_sweeps=cfg.refine_sweeps,
+        max_swap_rounds=cfg.max_swap_rounds,
+        min_bucket=cfg.min_bucket, refiner=refiner)

@@ -9,19 +9,25 @@ and a reference block ``y: (R, d)``. Registered backends:
 ``reference``
     Plain torch distances (:mod:`repro_torch.core.distances`), the ground
     truth; ℓ1 centrality is chunked to bound memory.
+``pallas_pairwise``
+    The pairwise kernels (``dot_pairwise`` under l2, sql2 and cosine,
+    ``l1_pairwise`` for l1) for the (C, R) block; centrality is the row sum
+    of that block outside the kernel, so the block goes through device
+    memory.
 ``pallas_fused``
     The fused centrality kernels — ``l1_centrality`` for l1 and
     ``dot_centrality`` for l2, sql2 and cosine — hand-written CUDA on the
-    card; the (C, R) block never reaches device memory.
+    card; the (C, R) block never reaches device memory. Its ``pairwise``
+    (the k-medoids estimators and caches) is the pairwise kernels'.
 ``pallas_fused_topk``
     ``pallas_fused`` plus the ``topk_smallest`` rank/select kernel pair as
     the halving step's survivor ordering: stable, in the IEEE total order,
     like the JAX backend of that name (the default sort differs only on
     signed zeros and NaNs, see ``engine.halving.resolve_order_fn``).
 
-The fused backends keep the JAX names although no Pallas runs here. The
-``pallas_pairwise`` and ``quant_*`` backends are not ported yet; asking for
-them raises ``ValueError`` naming the ROADMAP queue that holds them.
+The backends keep the JAX names although no Pallas runs here. The
+``quant_*`` backends are not ported yet; asking for them raises
+``ValueError`` naming the ROADMAP queue that holds them.
 """
 from __future__ import annotations
 
@@ -38,7 +44,6 @@ CentralityFn = Callable[..., torch.Tensor]
 
 # Backend names of the JAX package that this port does not register yet.
 NOT_PORTED = {
-    "pallas_pairwise": "ROADMAP Queue 2 items 4-5 (k-medoids slice)",
     "quant_bf16": "ROADMAP Queue 1 item 9 (quantized paths)",
     "quant_int8": "ROADMAP Queue 1 item 9 (quantized paths)",
     "quant_bf16_fused": "ROADMAP Queue 1 item 9 (quantized paths)",
@@ -100,9 +105,13 @@ def _reference_centrality(metric: str) -> CentralityFn:
     return fn
 
 
-def _no_pairwise_kernel(metric: str) -> PairwiseFn:
-    raise ValueError("the pairwise kernels (dot_pairwise, l1_pairwise) are "
-                     "not ported yet: see ROADMAP Queue 2 items 4-5")
+def _pairwise_rowsum_centrality(metric: str) -> CentralityFn:
+    kernel = kops.pairwise_kernel(metric)
+
+    def fn(x: torch.Tensor, y: torch.Tensor,
+           ref_mask: torch.Tensor | None = None) -> torch.Tensor:
+        return distances.masked_rowsum(kernel(x, y), ref_mask)
+    return fn
 
 
 def _order_epilogue(theta: torch.Tensor) -> torch.Tensor:
@@ -116,18 +125,24 @@ register_backend(DistanceBackend(
     centrality_sums=_reference_centrality,
 ))
 
+register_backend(DistanceBackend(
+    name="pallas_pairwise",
+    pairwise=kops.pairwise_kernel,
+    centrality_sums=_pairwise_rowsum_centrality,
+))
+
 _FUSED_ESTIMATORS = {"medoid_centrality": kops.centrality_kernel}
 
 register_backend(DistanceBackend(
     name="pallas_fused",
-    pairwise=_no_pairwise_kernel,
+    pairwise=kops.pairwise_kernel,
     centrality_sums=kops.centrality_kernel,
     fused_estimators=_FUSED_ESTIMATORS,
 ))
 
 register_backend(DistanceBackend(
     name="pallas_fused_topk",
-    pairwise=_no_pairwise_kernel,
+    pairwise=kops.pairwise_kernel,
     centrality_sums=kops.centrality_kernel,
     survivor_order=_order_epilogue,
     fused_estimators=_FUSED_ESTIMATORS,

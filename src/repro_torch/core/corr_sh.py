@@ -1,12 +1,13 @@
 """Correlated Sequential Halving (Algorithm 1 of the paper) — engine adapters,
-the counterpart of ``repro/core/corr_sh.py`` for one query.
+the counterpart of ``repro/core/corr_sh.py``.
 
 * :func:`correlated_sequential_halving` — the research-level function that
   returns the full :class:`CorrSHResult` (medoid, pulls, rounds, final
   estimates);
-* ``_medoid_impl`` — what the facade's ``find_medoid`` dispatches: the
-  memoized program of :mod:`repro_torch.engine.programs` for this
-  (budget, metric, backend).
+* ``_medoid_impl`` / ``_batch_impl`` / :func:`ragged_medoids` — what the
+  facade dispatches: the memoized programs of
+  :mod:`repro_torch.engine.programs` for this (bucket, budget, metric,
+  backend).
 """
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.bucketing import DEFAULT_MIN_BUCKET, bucket_n
 from repro_torch.engine import instrument, programs, rng
 from repro_torch.engine.estimators import medoid_centrality
 from repro_torch.engine.halving import HalvingProblem, run_halving
@@ -58,3 +60,60 @@ def _medoid_impl(data: torch.Tensor, key: rng.Key, *, budget: int,
     fn = programs.medoid_program(budget=budget, metric=metric,
                                  backend=backend)
     return fn(data, key)
+
+
+def _batch_impl(data: torch.Tensor, key: rng.Key, *, budget: int,
+                metric: str = "l2",
+                backend: str = "reference") -> torch.Tensor:
+    """Batched medoid: ``data (B, n, d) -> (B,)`` int64 indices, one shared
+    schedule and an independent reference draw per query."""
+    if data.ndim != 3:
+        raise ValueError(f"expected (B, n, d) batch, got shape "
+                         f"{tuple(data.shape)}")
+    instrument.note_dispatch("batch")
+    fn = programs.batch_program(budget=budget, metric=metric,
+                                backend=backend)
+    return fn(data, key)
+
+
+def ragged_compile_count() -> int:
+    """Ragged programs built so far (the ``"ragged"`` trace odometer): at
+    most one per bucket and configuration."""
+    return instrument.trace_count("ragged")
+
+
+def ragged_medoids(data: torch.Tensor, lengths, key: rng.Key, *,
+                   budget: int, metric: str = "l2",
+                   backend: str = "reference",
+                   min_bucket: int = DEFAULT_MIN_BUCKET) -> torch.Tensor:
+    """Ragged multi-query medoid: ``data (B, n_max, d)`` + per-query
+    ``lengths (B,)`` -> ``(B,)`` int64 indices, each below its query's
+    length. ``n_max`` is padded up to its power-of-two bucket and one
+    schedule runs for ``(n_bucket, budget)``; padded arms are masked out of
+    every round. A query with ``length == n_bucket`` gets
+    ``find_medoid(data[i], split_many(key, B)[i])``'s answer.
+
+    Raises ``ValueError`` on a length below 1 or above ``n_max``, before
+    any work."""
+    if data.ndim != 3:
+        raise ValueError(f"expected (B, n_max, d) batch, got shape "
+                         f"{tuple(data.shape)}")
+    lengths = torch.as_tensor(lengths, dtype=torch.int32)
+    if tuple(lengths.shape) != (data.shape[0],):
+        raise ValueError(f"lengths must be ({data.shape[0]},), got "
+                         f"{tuple(lengths.shape)}")
+    lens = lengths.cpu().numpy()
+    if (lens < 1).any():
+        raise ValueError("all-padding query rejected: every query needs "
+                         f"length >= 1, got lengths={lens.tolist()}")
+    if (lens > data.shape[1]).any():
+        raise ValueError(f"length exceeds padded arm count {data.shape[1]}: "
+                         f"lengths={lens.tolist()}")
+    n_bucket = bucket_n(data.shape[1], min_bucket)
+    if data.shape[1] < n_bucket:
+        data = torch.nn.functional.pad(data,
+                                       (0, 0, 0, n_bucket - data.shape[1]))
+    instrument.note_dispatch("ragged")
+    fn = programs.ragged_program(n_bucket=n_bucket, budget=budget,
+                                 metric=metric, backend=backend)
+    return fn(data, lengths.to(data.device), key)

@@ -20,9 +20,21 @@ summation order, stable ties broken toward the smaller buffer position — and
 skips the band's padded work (up to 2.3x the scheduled pulls). Only an exact
 tie that summation order breaks differently could select differently.
 
-The ragged engine's ``arm_mask``/``ref_mask`` and the quantized path's
-``widen`` belong to later slices and are not here. The loop never reads a
-device value back to the host.
+**Masks** (the ragged engine and k-medoids). ``arm_mask`` marks the arms
+that may survive and win: an arm outside it gets ``+inf`` before every
+ordering and in the output round. ``ref_mask`` marks the points that may
+serve as references: each round draws the valid-first stable partition of
+``permutation(sub, n)`` (:func:`sample_refs_masked`), cut to ``t_r``, weights
+the drawn references by ``ref_mask[refs]`` and divides by
+``max(sum(weights), 1)``. JAX gives its dead buffer slots the same ``+inf``
+as masked arms, with the dead slots behind every live position, and breaks
+ties by buffer position; so the first ``s_{r+1}`` slots of its sorted buffer
+are the arms this loop keeps, and its weighted ``t_r``-prefix of the same
+partition is this loop's reference set. Without masks the loop is the plain
+one above, operation for operation.
+
+The quantized path's ``widen`` belongs to a later slice and is not here.
+The loop reads no device value back to the host.
 """
 from __future__ import annotations
 
@@ -45,6 +57,19 @@ def sample_refs(key: rng.Key, n: int, t: int) -> torch.Tensor:
     if t >= n:
         return torch.arange(n, device=key.device)
     return rng.permutation(key, n)[:t]
+
+
+def sample_refs_masked(key: rng.Key, n: int, t: int,
+                       valid: torch.Tensor) -> torch.Tensor:
+    """t reference indices, valid points first: a uniform permutation of
+    ``[0, n)`` stably partitioned so the indices with ``valid`` true come
+    first, still in random order. With every point valid this is
+    :func:`sample_refs`."""
+    if t >= n:
+        return torch.arange(n, device=key.device)
+    perm = rng.permutation(key, n)
+    order = torch.argsort(torch.where(valid[perm], 0, 1), stable=True)
+    return perm[order][:t]
 
 
 def default_order(theta: torch.Tensor) -> torch.Tensor:
@@ -75,9 +100,14 @@ def _mean(sums: torch.Tensor, count: int) -> torch.Tensor:
 @dataclass(frozen=True)
 class HalvingProblem:
     """One bandit-argmin instance: ``data (n, d)`` — row i is both arm i and
-    reference i — and the estimator that scores a reference batch per arm."""
+    reference i — the estimator that scores a reference batch per arm, and
+    optional ``(n,)`` bool masks of the arms that may win (``arm_mask``) and
+    of the points that may serve as references (``ref_mask``); ``None``
+    means all."""
     data: torch.Tensor
     estimator: ArmEstimator
+    arm_mask: Optional[torch.Tensor] = None
+    ref_mask: Optional[torch.Tensor] = None
 
 
 @dataclass(frozen=True)
@@ -110,20 +140,28 @@ def run_halving(problem: HalvingProblem, schedule: Sequence[Round],
     order_fn = survivor_order if survivor_order is not None \
         else resolve_order_fn(backend)
     data, est = problem.data, problem.estimator
+    arm_mask, ref_mask = problem.arm_mask, problem.ref_mask
     n = data.shape[0]
     r_stop = stop_round(list(sched))
     idx = torch.arange(n, device=data.device)
-    for r in range(r_stop):
+    for r in range(r_stop + 1):
         t = sched[r].num_refs
         key, sub = rng.split(key)
-        refs = rng.permutation(sub, n)[:t]        # t < n before r_stop
-        sums, _ = est.score(data[idx], data[refs], refs=refs)
-        idx = idx[order_fn(_mean(sums, t))][:sched[r + 1].survivors]
+        if ref_mask is None:
+            refs = sample_refs(sub, n, t)
+            sums, aux = est.score(data[idx], data[refs], refs=refs)
+            theta = _mean(sums, refs.shape[0])
+        else:
+            refs = sample_refs_masked(sub, n, t, ref_mask)
+            w = ref_mask[refs].float()
+            sums, aux = est.score(data[idx], data[refs], refs=refs,
+                                  ref_mask=w)
+            theta = sums / torch.clamp_min(w.sum(), 1.0)
+        if arm_mask is not None:
+            theta = torch.where(arm_mask[idx], theta, torch.inf)
+        if r < r_stop:
+            idx = idx[order_fn(theta)][:sched[r + 1].survivors]
 
-    key, sub = rng.split(key)
-    refs = sample_refs(sub, n, sched[r_stop].num_refs)
-    sums, aux = est.score(data[idx], data[refs], refs=refs)
-    theta = _mean(sums, refs.shape[0])
     pos = torch.argmin(theta)
     return HalvingOutcome(winner=idx[pos], winner_pos=pos, survivors=idx,
                           theta=theta, aux=aux, r_stop=r_stop)

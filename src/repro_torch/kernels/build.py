@@ -26,7 +26,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("dot_centrality", "l1_centrality", "topk_smallest")
+SOURCES = ("dot_centrality", "l1_centrality", "topk_smallest",
+           "dot_pairwise", "l1_pairwise")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -40,6 +41,8 @@ SIGNATURES = {
                              (_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P)),
     "topk_rank_launch": ("topk_smallest", (_P, _P, _I, _P)),
     "topk_select_launch": ("topk_smallest", (_P, _P, _I, _I, _P)),
+    "dot_pairwise_launch": ("dot_pairwise", (_P, _P, _P, _LL, _LL, _LL, _P)),
+    "l1_pairwise_launch": ("l1_pairwise", (_P, _P, _P, _LL, _LL, _LL, _P)),
 }
 
 _LOCK = threading.Lock()

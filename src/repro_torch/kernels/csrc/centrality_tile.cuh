@@ -1,5 +1,8 @@
 // Shared tiling of the two fused centrality kernels (dot_centrality.cu and
-// l1_centrality.cu): S[c] = sum_{r valid} w[r] * f(sum_k op(x[c,k], y[r,k])).
+// l1_centrality.cu): S[c] = sum_{r valid} w[r] * f(sum_k op(x[c,k], y[r,k])),
+// and of the two pairwise kernels (dot_pairwise.cu, l1_pairwise.cu), which
+// write the (C, R) block of d sums D[c, r] = sum_k op(x[c,k], y[r,k]) itself
+// through the same tile loop (tile_dsums, pairwise_kernel below).
 //
 // Shapes on the main path decide the design. One correlated-SH round scores
 // C surviving arms against R drawn references, and over a run (C, R) goes
@@ -25,6 +28,10 @@
 // Rows past C or R and d columns past d load as zeros and are never
 // written or counted, so no caller pads to tile multiples. Offsets are
 // 64-bit (an n = 100k, d = 28k matrix exceeds 2^31 elements).
+//
+// The pairwise grid is one dimension over all (C tile, R tile) pairs, so
+// neither a (20000, 1) nor a (1, 20000) block meets the 65535 limit of a
+// second grid dimension.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -45,9 +52,85 @@ constexpr int SPLIT_GROUP = 16;
 static_assert(BC == BR, "one loop stages both tiles");
 static_assert(BC * BK % NT == 0, "staging loop has no remainder");
 
-// Op::pair(acc, a, b) accumulates one d column; Op::finish(s, xa, yb) maps a
-// complete d sum to the pair's distance, given per-row and per-reference
-// auxiliaries (squared norms for the Gram metrics, unused by l1).
+// The d-sum operations: pair(acc, a, b) accumulates one d column.
+struct GramPair {
+  static __device__ __forceinline__ float pair(float acc, float a, float b) {
+    return fmaf(a, b, acc);
+  }
+};
+
+struct L1Pair {
+  static __device__ __forceinline__ float pair(float acc, float a, float b) {
+    return acc + fabsf(a - b);
+  }
+};
+
+// Complete d sums of one tile pair: acc[i][j] = sum_k Op::pair over
+// x row c0 + ty + TY * i and y row r0 + tx + TX * j, staged through xs/ys
+// in BK-wide slabs and summed in groups of GROUP_SLABS slabs.
+template <class Op>
+__device__ __forceinline__ void tile_dsums(const float* __restrict__ x,
+                                           const float* __restrict__ y,
+                                           int64_t c0, int64_t r0, int64_t C,
+                                           int64_t R, int64_t d,
+                                           float (&xs)[BK][BC + 1],
+                                           float (&ys)[BK][BR + 1],
+                                           float (&acc)[TM][TN]) {
+  const int tid = threadIdx.x;
+  const int tx = tid % TX;
+  const int ty = tid / TX;
+  float grp[TM][TN];
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = grp[i][j] = 0.f;
+
+  int64_t slab = 0;
+  for (int64_t k0 = 0; k0 < d; k0 += BK, ++slab) {
+#pragma unroll
+    for (int s = 0; s < BC * BK / NT; ++s) {
+      const int e = tid + s * NT;
+      const int row = e / BK;
+      const int kk = e % BK;
+      const int64_t k = k0 + kk;
+      const int64_t c = c0 + row;
+      const int64_t r = r0 + row;
+      xs[kk][row] = (c < C && k < d) ? x[c * d + k] : 0.f;
+      ys[kk][row] = (r < R && k < d) ? y[r * d + k] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kk = 0; kk < BK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + TY * i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = ys[kk][tx + TX * j];
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) grp[i][j] = Op::pair(grp[i][j], a[i], b[j]);
+    }
+    __syncthreads();
+    if (slab % GROUP_SLABS == GROUP_SLABS - 1) {
+#pragma unroll
+      for (int i = 0; i < TM; ++i)
+#pragma unroll
+        for (int j = 0; j < TN; ++j) {
+          acc[i][j] += grp[i][j];
+          grp[i][j] = 0.f;
+        }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < TM; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] += grp[i][j];
+}
+
+// Op (a Pair above plus finish(s, xa, yb)) maps a complete d sum to the
+// pair's distance, given per-row and per-reference auxiliaries (squared
+// norms for the Gram metrics, unused by l1).
 template <class Op>
 __global__ void __launch_bounds__(NT)
 partial_sums_kernel(const float* __restrict__ x, const float* __restrict__ y,
@@ -77,53 +160,8 @@ partial_sums_kernel(const float* __restrict__ x, const float* __restrict__ y,
 
   for (int64_t rt = blockIdx.y; rt < n_rtiles; rt += splits) {
     const int64_t r0 = rt * BR;
-    float acc[TM][TN], grp[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] = grp[i][j] = 0.f;
-
-    int64_t slab = 0;
-    for (int64_t k0 = 0; k0 < d; k0 += BK, ++slab) {
-#pragma unroll
-      for (int s = 0; s < BC * BK / NT; ++s) {
-        const int e = tid + s * NT;
-        const int row = e / BK;
-        const int kk = e % BK;
-        const int64_t k = k0 + kk;
-        const int64_t c = c0 + row;
-        const int64_t r = r0 + row;
-        xs[kk][row] = (c < C && k < d) ? x[c * d + k] : 0.f;
-        ys[kk][row] = (r < R && k < d) ? y[r * d + k] : 0.f;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[TM], b[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = xs[kk][ty + TY * i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = ys[kk][tx + TX * j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) grp[i][j] = Op::pair(grp[i][j], a[i], b[j]);
-      }
-      __syncthreads();
-      if (slab % GROUP_SLABS == GROUP_SLABS - 1) {
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) {
-            acc[i][j] += grp[i][j];
-            grp[i][j] = 0.f;
-          }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] += grp[i][j];
+    float acc[TM][TN];
+    tile_dsums<Op>(x, y, c0, r0, C, R, d, xs, ys, acc);
 
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
@@ -145,6 +183,34 @@ partial_sums_kernel(const float* __restrict__ x, const float* __restrict__ y,
     for (int off = TX / 2; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off, TX);
     const int64_t c = c0 + ty + TY * i;
     if (tx == 0 && c < C) partial[(int64_t)blockIdx.y * C + c] = v;
+  }
+}
+
+// One block per (C tile, R tile) pair, tile = ct * n_rtiles + rt: the d sums
+// go straight to out[c * R + r]; threads of a warp write adjacent r.
+template <class Op>
+__global__ void __launch_bounds__(NT)
+pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                float* __restrict__ out, int64_t C, int64_t R, int64_t d,
+                int64_t n_rtiles) {
+  __shared__ float xs[BK][BC + 1];
+  __shared__ float ys[BK][BR + 1];
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
+  const int64_t tile = blockIdx.x;
+  const int64_t c0 = (tile / n_rtiles) * BC;
+  const int64_t r0 = (tile % n_rtiles) * BR;
+  float acc[TM][TN];
+  tile_dsums<Op>(x, y, c0, r0, C, R, d, xs, ys, acc);
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int64_t c = c0 + ty + TY * i;
+    if (c >= C) continue;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int64_t r = r0 + tx + TX * j;
+      if (r < R) out[c * R + r] = acc[i][j];
+    }
   }
 }
 
@@ -177,6 +243,20 @@ inline int launch(const float* x, const float* y, const float* xaux,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   reduce_splits_kernel<<<(unsigned)((C + 255) / 256), 256, 0, stream>>>(partial, out, C, splits);
+  return (int)cudaGetLastError();
+}
+
+// Launches the pairwise kernel on `stream` for C, R >= 1 and returns
+// cudaGetLastError() as an int (an invalid configuration when the tile
+// count exceeds the grid's 2^31 - 1 blocks).
+template <class Op>
+inline int launch_pairwise(const float* x, const float* y, float* out,
+                           int64_t C, int64_t R, int64_t d,
+                           cudaStream_t stream) {
+  const int64_t n_rtiles = (R + BR - 1) / BR;
+  const int64_t tiles = ((C + BC - 1) / BC) * n_rtiles;
+  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
+  pairwise_kernel<Op><<<(unsigned)tiles, NT, 0, stream>>>(x, y, out, C, R, d, n_rtiles);
   return (int)cudaGetLastError();
 }
 

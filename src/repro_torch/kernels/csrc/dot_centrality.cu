@@ -23,10 +23,7 @@ namespace {
 enum Metric { kSql2 = 0, kL2 = 1, kCosine = 2 };
 
 template <int M>
-struct DotOp {
-  static __device__ __forceinline__ float pair(float acc, float a, float b) {
-    return fmaf(a, b, acc);
-  }
+struct DotOp : centrality::GramPair {
   static __device__ __forceinline__ float finish(float g, float xn2, float yn2) {
     if (M == kCosine) return 1.f - g;
     const float sq = fmaxf(xn2 + yn2 - 2.f * g, 0.f);

@@ -16,10 +16,7 @@
 
 namespace {
 
-struct L1Op {
-  static __device__ __forceinline__ float pair(float acc, float a, float b) {
-    return acc + fabsf(a - b);
-  }
+struct L1Op : centrality::L1Pair {
   static __device__ __forceinline__ float finish(float s, float, float) {
     return s;
   }

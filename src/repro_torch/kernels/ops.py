@@ -1,7 +1,8 @@
 """Glue around the kernels, the counterpart of ``repro/kernels/ops.py``:
 norms and unit rows for the Gram metrics, reference-mask weights, the
-estimate-to-key transform of the survivor ordering, and ``centrality_kernel``
-for the backend registry.
+estimate-to-key transform of the survivor ordering, the pairwise metrics
+built on the pairwise kernels, and ``centrality_kernel`` /
+``pairwise_kernel`` for the backend registry.
 
 No tile padding is needed: the CUDA kernels guard their own edges. Every
 function here runs the kernel on a CUDA tensor and its plain version on a CPU
@@ -39,6 +40,35 @@ def _ref_weights(ref_mask: Optional[torch.Tensor],
         raise ValueError(f"ref_mask has {m.shape[0]} entries for {r} "
                          f"references")
     return m
+
+
+def kernel_dot(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Pairwise inner products by the ``dot_pairwise`` kernel:
+    (C, d) x (R, d) -> (C, R)."""
+    return pk.dot_pairwise(x.float().contiguous(), y.float().contiguous())
+
+
+def kernel_l1(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Pairwise l1 distances by the ``l1_pairwise`` kernel."""
+    return pk.l1_pairwise(x.float().contiguous(), y.float().contiguous())
+
+
+def kernel_sql2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``max(|x|^2 + |y|^2 - 2 G, 0)`` around the ``dot_pairwise`` Gram."""
+    g = kernel_dot(x, y)
+    return torch.clamp_min(_norms_sq(x)[:, None] + _norms_sq(y)[None, :]
+                           - 2.0 * g, 0.0)
+
+
+def kernel_l2(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(kernel_sql2(x, y))
+
+
+def kernel_cosine(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``1 - G`` of the unit rows (normalised before the product, as in the
+    JAX package; ``distances.pairwise_cosine`` divides G by the norms
+    instead, which rounds differently)."""
+    return 1.0 - kernel_dot(_unit_rows(x), _unit_rows(y))
 
 
 def kernel_centrality_sums(x: torch.Tensor, y: torch.Tensor, *,
@@ -102,3 +132,19 @@ def centrality_kernel(metric: str):
     if metric not in METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     return functools.partial(kernel_centrality_sums, metric=metric)
+
+
+_KERNELS = {
+    "l1": kernel_l1,
+    "l2": kernel_l2,
+    "sql2": kernel_sql2,
+    "cosine": kernel_cosine,
+}
+
+
+def pairwise_kernel(metric: str):
+    """Kernel-backed counterpart of ``distances.pairwise(metric)``."""
+    try:
+        return _KERNELS[metric]
+    except KeyError:
+        raise ValueError(f"unknown metric {metric!r}") from None

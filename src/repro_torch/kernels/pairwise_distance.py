@@ -12,7 +12,10 @@ Wrapper, the TPU kernel it replaces in that file, and its CUDA source in
 * ``topk_rank``: ``topk_smallest`` / ``_topk_rank_kernel``,
   ``topk_smallest.cu``;
 * ``topk_select``: ``topk_smallest`` / ``_topk_select_kernel``,
-  ``topk_smallest.cu``.
+  ``topk_smallest.cu``;
+* ``dot_pairwise``: ``dot_pairwise`` / ``_dot_kernel``, ``dot_pairwise.cu``;
+* ``l1_pairwise``: ``l1_pairwise`` / ``_l1_pairwise_kernel``,
+  ``l1_pairwise.cu``.
 
 A wrapper checks device, dtype, shape and contiguity, then:
 
@@ -42,6 +45,8 @@ from repro_torch.kernels import build
 LAUNCHES: Counter = Counter()
 
 _TILE = 64                     # BC == BR in csrc/centrality_tile.cuh
+_MAX_BLOCKS = 2 ** 31 - 1      # the pairwise kernels' one-dimensional grid
+_PLAIN_BLOCK = 1 << 24         # elements of l1_pairwise_plain's broadcast
 _RANK_TILE = 1024              # RANK_TILE in csrc/topk_smallest.cu
 DOT_METRICS = {"sql2": 0, "l2": 1, "cosine": 2}
 
@@ -290,3 +295,68 @@ def topk_select(rank: torch.Tensor, keep: int) -> torch.Tensor:
     build.check("topk_select_launch", code)
     LAUNCHES["topk_select"] += 1
     return out
+
+
+# ---------------------------- dot_pairwise / l1_pairwise ---------------------
+
+def dot_pairwise_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``G = x @ y.T`` in full fp32."""
+    return _gram(x, y)
+
+
+def l1_pairwise_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``D[c, r] = sum_k |x[c,k] - y[r,k]|``, a block of rows at a time."""
+    c, d = x.shape
+    r = y.shape[0]
+    step = max(1, _PLAIN_BLOCK // max(1, r * d))
+    out = torch.empty((c, r), dtype=torch.float32, device=x.device)
+    for c0 in range(0, c, step):
+        out[c0:c0 + step] = (x[c0:c0 + step, None, :]
+                             - y[None, :, :]).abs().sum(-1)
+    return out
+
+
+def _pairwise(name: str, x: torch.Tensor, y: torch.Tensor,
+              plain) -> torch.Tensor:
+    if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
+        raise ValueError(f"{name}: bad shapes {tuple(x.shape)}, "
+                         f"{tuple(y.shape)}")
+    c, d = x.shape
+    r = y.shape[0]
+    for t, shape in ((x, (c, d)), (y, (r, d))):
+        _check(name, t, torch.float32, shape)
+    if not _on_cuda(name, x, y):
+        return plain(x, y)
+    if -(-c // _TILE) * -(-r // _TILE) > _MAX_BLOCKS:
+        raise ValueError(f"{name}: ({c}, {r}) needs more than "
+                         f"{_MAX_BLOCKS} tiles")
+    out = torch.empty((c, r), dtype=torch.float32, device=x.device)
+    if c == 0 or r == 0:
+        return out
+    fn = build.function(f"{name}_launch")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), c, r, d,
+                  stream)
+    build.check(f"{name}_launch", code)
+    LAUNCHES[name] += 1
+    return out
+
+
+def dot_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Pairwise inner products: x (C, d), y (R, d) float32 -> (C, R)
+    float32, fp32 accumulation.
+
+    Replaces ``dot_pairwise`` (``src/repro/kernels/pairwise_distance.py``).
+    Bound: the bytes of the long operand on every k-medoids shape
+    (``csrc/dot_pairwise.cu``)."""
+    return _pairwise("dot_pairwise", x, y, dot_pairwise_plain)
+
+
+def l1_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Pairwise l1 distances: x (C, d), y (R, d) float32 -> (C, R) float32.
+
+    Replaces ``l1_pairwise`` (``src/repro/kernels/pairwise_distance.py``).
+    Bound: the bytes of the long operand on every k-medoids shape
+    (``csrc/l1_pairwise.cu``)."""
+    return _pairwise("l1_pairwise", x, y, l1_pairwise_plain)

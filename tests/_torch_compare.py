@@ -16,9 +16,14 @@ import jax
 import numpy as np
 import torch
 
+import repro.api as japi
+from repro_torch import api as tapi
 from repro_torch.convert import key_from_jax_data
 
 RTOL = 1e-5
+KMEDOIDS_FIELDS = ("medoids", "swaps", "pulls", "build_pulls",
+                   "assign_pulls", "refine_pulls", "swap_pulls",
+                   "refine_updates", "k", "metric", "backend")
 
 
 def jax_key(seed: int):
@@ -55,3 +60,16 @@ def assert_close(got, want, metric: str, rows: np.ndarray,
     err = np.abs(got.astype(np.float64) - want.astype(np.float64))
     tol = tolerance(want, metric, rows, per_value_refs)
     assert (err <= tol).all(), (float(err.max()), float(tol.min()))
+
+
+def kmedoids_same_as_jax(x: np.ndarray, k: int, jkey, **kw):
+    """Run k-medoids in both packages on the same data and key; medoids,
+    labels, swaps and every pull counter must be equal and the cost within
+    RTOL. Returns the port's result."""
+    want = japi.kmedoids(x, k, jkey, **kw)
+    got = tapi.kmedoids(x, k, torch_key(jkey), device="cpu", **kw)
+    assert {f: getattr(got, f) for f in KMEDOIDS_FIELDS} == \
+        {f: getattr(want, f) for f in KMEDOIDS_FIELDS}
+    np.testing.assert_array_equal(got.labels, np.asarray(want.labels))
+    assert abs(got.cost - want.cost) <= RTOL * abs(want.cost)
+    return got

@@ -81,7 +81,7 @@ def test_small_n_and_config():
 
 @pytest.mark.parametrize("overrides", [
     {"algo": "meddit"}, {"algo": "rand"}, {"telemetry": True},
-    {"precision": "bf16"}, {"backend": "pallas_pairwise"},
+    {"precision": "bf16"}, {"backend": "quant_bf16_fused"},
     {"backend": "quant_int8"}])
 def test_unported_options_raise_with_roadmap_pointer(overrides):
     with pytest.raises(ValueError, match="ROADMAP"):

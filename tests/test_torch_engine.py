@@ -16,6 +16,7 @@ from repro_torch.engine import halving as thalving
 from repro_torch.engine import estimators as t_est
 from repro_torch.engine import programs, rng
 from repro_torch.engine import schedule as tsched
+from repro_torch.kernels import ops as tops
 
 pytestmark = pytest.mark.torch_port
 
@@ -78,18 +79,20 @@ def test_run_halving_rejects_empty_schedule():
 def test_backend_registry_and_unported_names():
     assert set(BACKENDS) <= set(tbackend.list_backends())
     assert tbackend.get_backend(None).name == "reference"
+    assert tbackend.get_backend("pallas_pairwise").name == "pallas_pairwise"
     assert tbackend.get_backend("pallas_fused_topk").survivor_order \
         is not None
     assert thalving.resolve_order_fn("pallas_fused") is \
         thalving.default_order
-    for name in ("pallas_pairwise", "quant_bf16", "quant_int8"):
+    for name in ("quant_bf16", "quant_int8", "quant_bf16_fused"):
         with pytest.raises(ValueError, match="ROADMAP"):
             tbackend.get_backend(name)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tbackend.get_backend("pallas_fused").pairwise("l2")
+    for name in ("pallas_fused", "pallas_fused_topk"):
+        assert tbackend.get_backend(name).pairwise("l2") is tops.kernel_l2
     with pytest.raises(ValueError):
         tbackend.get_backend("no_such_backend")
-    assert t_est.list_estimators() == ("medoid_centrality",)
+    assert t_est.list_estimators() == ("build_delta", "medoid_centrality",
+                                       "swap_delta")
 
 
 def test_medoid_program_is_memoized():

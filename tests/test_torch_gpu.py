@@ -78,3 +78,42 @@ def test_find_medoid_on_card_matches_cpu(cuda):
         want = tapi.find_medoid(x, rng.key(4), backend=backend, metric="l1",
                                 device="cpu")
         assert got.medoid == want.medoid
+
+
+@pytest.mark.parametrize("shape", ((1, 1, 1), (77, 131, 300), (1, 3000, 784),
+                                   (3000, 1, 784), (2000, 10, 257)))
+def test_pairwise_kernels_match_plain(cuda, shape):
+    c, r, d = shape
+    g = torch.Generator(device=cuda).manual_seed(c + r + d)
+    x = torch.randn(c, d, device=cuda, generator=g)
+    y = torch.randn(r, d, device=cuda, generator=g)
+    for name, kern, plain in (
+            ("dot_pairwise", pk.dot_pairwise, pk.dot_pairwise_plain),
+            ("l1_pairwise", pk.l1_pairwise, pk.l1_pairwise_plain)):
+        before = pk.LAUNCHES[name]
+        got = kern(x, y)
+        want = plain(x, y)
+        torch.cuda.synchronize()
+        assert pk.LAUNCHES[name] == before + 1
+        # rtol 1e-5 with a floor of 1e-5 of the largest magnitude
+        tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
+        assert bool(((got - want).abs() <= tol).all()), name
+
+
+def test_kmedoids_on_card_matches_cpu(cuda):
+    from repro_torch.data.medoid_datasets import planted_clusters
+
+    x, _ = planted_clusters(0, 600, 24, 4)
+    for backend, metric in (("pallas_fused", "l2"),
+                            ("pallas_fused_topk", "l1"),
+                            ("pallas_pairwise", "cosine")):
+        pk.reset_launches()
+        got = tapi.kmedoids(x, 4, rng.key(6, cuda), backend=backend,
+                            metric=metric, device=cuda)
+        pair = "l1_pairwise" if metric == "l1" else "dot_pairwise"
+        assert pk.LAUNCHES[pair] > 0
+        want = tapi.kmedoids(x, 4, rng.key(6), backend=backend,
+                             metric=metric, device="cpu")
+        assert (got.medoids, got.swaps, got.pulls) == \
+            (want.medoids, want.swaps, want.pulls)
+        np.testing.assert_array_equal(got.labels, want.labels)
