@@ -17,7 +17,11 @@ nonzero:
    bit-equal. Each kernel is timed by CUDA-graph replay beside its bound,
    its plain version and, where one PyTorch call computes the same function,
    that call (``library_ms``; the port never calls it). The k-medoids
-   cells' shapes are checked and timed in phase 4, after their runs;
+   cells' shapes are checked and timed in phase 4, after their runs. The
+   pairwise kernels are also checked on both sides of their crossover
+   ``PAIRWISE_S``, at d % 4 != 0, on a view that starts 4 bytes past a
+   16-byte boundary and for bit-equal repeats, and both of their paths are
+   timed on either side of the crossover;
 3. the single-query main path at full size: ``repro_torch.api.find_medoid``
    (corr_sh, budget 30 per arm) on the six cells below with the kernel
    launch counters zeroed just before each run and read just after. Each
@@ -31,8 +35,10 @@ nonzero:
    same medoids, the pulls must stay below n^2/10, the ARI against the
    planted labels must be >= 0.95, and the medoids and labels must equal
    the ``reference`` backend's on the card with the same key (or the costs
-   agree to rtol 1e-5, both printed). Then one line of exact PAM at
-   n = 2048 (printed only).
+   agree to rtol 1e-5, both printed). Each cell's pairwise launches are
+   split by shape class (kernel against library) and by path, and the main
+   path must take both paths. Then one line of exact PAM at n = 2048
+   (printed only).
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the rest
@@ -374,11 +380,12 @@ def main() -> int:
 
             def library():
                 return torch.cdist(x, y, p=1)
-        got, want = kern(x, y), plain(x, y)
+        got, again, want = kern(x, y), kern(x, y), plain(x, y)
         torch.cuda.synchronize()
         c, d = x.shape
         r = y.shape[0]
         what = f"{name} at C={c} R={r} d={d}"
+        _require(torch.equal(got, again), f"{what}: two launches differ")
         err = _agree(got, want, _tolerance(want, "block", x, y, None), what)
         if name == "dot_pairwise":
             sq = torch.clamp_min(ops._norms_sq(x)[:, None]
@@ -487,6 +494,15 @@ def main() -> int:
     def rounds_of(n):
         return executed_rounds(n, BUDGET_PER_ARM * n)
 
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    paths = Counter()     # (pairwise kernel, path) -> main-path launches
+
+    def path_counts(plan, d):
+        """The pairwise launches of ``plan`` by the path pairwise_plan
+        gives them."""
+        return Counter((kern, pk.pairwise_plan(c, r, d, sms)[0])
+                       for kern, c, r, _ in plan if kern in PAIRWISE)
+
     def profiled(call):
         """One call under torch.profiler: (device activities, device busy
         ms, top five device operations by self device time), or None where
@@ -552,16 +568,56 @@ def main() -> int:
                              else "dot_centrality", err)
     print("phase2 ragged shapes and masks: l1/l2/sql2/cosine agree",
           flush=True)
+    s_cross = pk.PAIRWISE_S
     for (c, r, d) in ((1, 1, 1), (1, 20000, 784), (20000, 1, 784),
                       (20000, 10, 784), (77, 131, 300), (1, 20000, 1024),
-                      (20000, 8, 1024), (65, 64, 257)):
+                      (20000, 8, 1024), (65, 64, 257), (s_cross, 20000, 784),
+                      (s_cross + 1, 5000, 784), (157, 135, 784),
+                      (1250, 17, 784), (17, 1250, 784), (3000, 3, 257)):
         x = torch.randn(c, d, device=dev, generator=gen)
         y = torch.randn(r, d, device=dev, generator=gen)
         y[: min(c, r, 3)] = x[: min(c, r, 3)]          # self-pairs
         for name in PAIRWISE:
             led.note_err(name, check_pairwise(name, x, y)[0])
-    print("phase2 ragged shapes: dot_pairwise (and sql2/l2 from it) and "
-          "l1_pairwise agree", flush=True)
+    for (c, r, d) in ((5, 3000, 784), (3000, 5, 784), (157, 135, 784)):
+        # a contiguous view 4 bytes past a 16-byte boundary: scalar loads
+        buf = torch.randn(c * d + 1, device=dev, generator=gen)
+        x = buf[1:].view(c, d)
+        _require(x.data_ptr() % 16 != 0, "the view is 16-byte aligned")
+        y = torch.randn(r, d, device=dev, generator=gen)
+        for name in PAIRWISE:
+            led.note_err(name, check_pairwise(name, x, y)[0])
+            led.note_err(name, check_pairwise(name, y, x)[0])
+    print(f"phase2 ragged, crossover (S = {s_cross}), d % 4 != 0 and "
+          "misaligned shapes: dot_pairwise (and sql2/l2 from it) and "
+          "l1_pairwise agree, two launches bit-equal", flush=True)
+    # both pairwise paths, each checked and timed, on either side of the
+    # crossover at round shapes of 16 pulls per arm at n = 20000 (C R ~
+    # 21333); a crossover of 32 forces the stream path, 0 the tile path
+    t0 = time.perf_counter()
+    cross = []
+    for d in (784, 1024):
+        for m in (8, 12, 16, 20, 24):
+            for (c, r) in ((m, 21333 // m), (21333 // m, m)):
+                x = torch.randn(c, d, device=dev, generator=gen)
+                y = torch.randn(r, d, device=dev, generator=gen)
+                for name in PAIRWISE:
+                    want = getattr(pk, f"{name}_plain")(x, y)
+                    tol = _tolerance(want, "block", x, y, None)
+                    us = []
+                    for forced in (32, 0):
+                        plan = pk.pairwise_plan(c, r, d, sms,
+                                                crossover=forced)
+                        _agree(pk.launch_pairwise(name, x, y, plan), want,
+                               tol, f"{name} {plan} at ({c}, {r}, {d})")
+                        us.append(1e3 * timed(
+                            lambda plan=plan: pk.launch_pairwise(
+                                name, x, y, plan), 10))
+                    cross.append(f"{name[:2]} ({c}, {r}, {d}) stream "
+                                 f"{us[0]:.2f} / tile {us[1]:.2f} us")
+    print(f"phase2 pairwise crossover, both paths checked and timed "
+          f"({time.perf_counter() - t0:.1f} s): " + "; ".join(cross),
+          flush=True)
 
     for c in (1, 2, 3, 129, 1000, 4097, 20000):
         theta = torch.randn(c, device=dev, generator=gen)
@@ -574,9 +630,13 @@ def main() -> int:
     print("phase2 topk ties, -0.0/+0.0, +inf, nan: bit-equal", flush=True)
 
     for name, ds, n, d, metric, backend in CELLS:
-        tot = ledger_add(medoid_plan(n, metric, backend), ds, metric)
+        plan = medoid_plan(n, metric, backend)
+        tot = ledger_add(plan, ds, metric)
+        counts = path_counts(plan, d)
+        paths.update(counts)
         print(f"phase2 {name}: {len(rounds_of(n))} round shapes: "
-              f"{fmt_tot(tot)}", flush=True)
+              f"{fmt_tot(tot)}" + (f"; pairwise paths {dict(counts)}"
+                                   if counts else ""), flush=True)
 
     # ---------------------------------------------- phase 3: main path
     for name, ds, n, d, metric, backend in CELLS:
@@ -749,9 +809,20 @@ def main() -> int:
             v[6] += max(b, o) * 1e3
         print(f"phase4 {name} {pair} by shape: " + "; ".join(
             f"{cls}: {v[0]} launches, kernel {v[1]:.3f} ms, bound {v[6]:.4f} "
-            f"ms ({'bytes' if v[2] >= v[3] else 'operations'}), plain "
-            f"{v[4]:.3f} ms, library {v[5]:.3f} ms"
+            f"ms ({'bytes' if v[2] >= v[3] else 'operations'}, "
+            f"{v[6] / v[1]:.1%} of it), plain {v[4]:.3f} ms, library "
+            f"{v[5]:.3f} ms, kernel / library {v[1] / v[5]:.2f}"
             for cls, v in by_class.items()), flush=True)
+        counts = path_counts(plan, d)
+        paths.update(counts)
+        print(f"phase4 {name} {pair} by path: {dict(counts)}", flush=True)
+
+    taken = {p for _, p in paths}
+    _require(taken == {pk.STREAM, pk.TILE},
+             f"the main path took the pairwise paths {sorted(taken)} only")
+    print(f"phase4 pairwise launches by path over the main path: "
+          f"{ {f'{k} {p}': v for (k, p), v in sorted(paths.items())} }",
+          flush=True)
 
     t0 = time.perf_counter()
     arr, labels = CLUSTER_DATASETS["mnist_like"][1](SEED, 2048, 784, 10)

@@ -1,8 +1,7 @@
 // Shared tiling of the two fused centrality kernels (dot_centrality.cu and
-// l1_centrality.cu): S[c] = sum_{r valid} w[r] * f(sum_k op(x[c,k], y[r,k])),
-// and of the two pairwise kernels (dot_pairwise.cu, l1_pairwise.cu), which
-// write the (C, R) block of d sums D[c, r] = sum_k op(x[c,k], y[r,k]) itself
-// through the same tile loop (tile_dsums, pairwise_kernel below).
+// l1_centrality.cu): S[c] = sum_{r valid} w[r] * f(sum_k op(x[c,k], y[r,k])).
+// The d-sum operations GramPair and L1Pair below are also those of the two
+// pairwise kernels, whose own tiling is in pairwise_tile.cuh.
 //
 // Shapes on the main path decide the design. One correlated-SH round scores
 // C surviving arms against R drawn references, and over a run (C, R) goes
@@ -28,10 +27,6 @@
 // Rows past C or R and d columns past d load as zeros and are never
 // written or counted, so no caller pads to tile multiples. Offsets are
 // 64-bit (an n = 100k, d = 28k matrix exceeds 2^31 elements).
-//
-// The pairwise grid is one dimension over all (C tile, R tile) pairs, so
-// neither a (20000, 1) nor a (1, 20000) block meets the 65535 limit of a
-// second grid dimension.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -186,34 +181,6 @@ partial_sums_kernel(const float* __restrict__ x, const float* __restrict__ y,
   }
 }
 
-// One block per (C tile, R tile) pair, tile = ct * n_rtiles + rt: the d sums
-// go straight to out[c * R + r]; threads of a warp write adjacent r.
-template <class Op>
-__global__ void __launch_bounds__(NT)
-pairwise_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                float* __restrict__ out, int64_t C, int64_t R, int64_t d,
-                int64_t n_rtiles) {
-  __shared__ float xs[BK][BC + 1];
-  __shared__ float ys[BK][BR + 1];
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const int64_t tile = blockIdx.x;
-  const int64_t c0 = (tile / n_rtiles) * BC;
-  const int64_t r0 = (tile % n_rtiles) * BR;
-  float acc[TM][TN];
-  tile_dsums<Op>(x, y, c0, r0, C, R, d, xs, ys, acc);
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int64_t c = c0 + ty + TY * i;
-    if (c >= C) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int64_t r = r0 + tx + TX * j;
-      if (r < R) out[c * R + r] = acc[i][j];
-    }
-  }
-}
-
 // out[c] = sum over s of partial[s, c] in a fixed order: groups of
 // SPLIT_GROUP consecutive splits, then the group sums.
 __global__ void reduce_splits_kernel(const float* __restrict__ partial,
@@ -243,20 +210,6 @@ inline int launch(const float* x, const float* y, const float* xaux,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return (int)err;
   reduce_splits_kernel<<<(unsigned)((C + 255) / 256), 256, 0, stream>>>(partial, out, C, splits);
-  return (int)cudaGetLastError();
-}
-
-// Launches the pairwise kernel on `stream` for C, R >= 1 and returns
-// cudaGetLastError() as an int (an invalid configuration when the tile
-// count exceeds the grid's 2^31 - 1 blocks).
-template <class Op>
-inline int launch_pairwise(const float* x, const float* y, float* out,
-                           int64_t C, int64_t R, int64_t d,
-                           cudaStream_t stream) {
-  const int64_t n_rtiles = (R + BR - 1) / BR;
-  const int64_t tiles = ((C + BC - 1) / BC) * n_rtiles;
-  if (tiles > 0x7fffffffLL) return (int)cudaErrorInvalidConfiguration;
-  pairwise_kernel<Op><<<(unsigned)tiles, NT, 0, stream>>>(x, y, out, C, R, d, n_rtiles);
   return (int)cudaGetLastError();
 }
 

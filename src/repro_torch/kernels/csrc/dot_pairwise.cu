@@ -7,19 +7,26 @@
 // repro/kernels/ops.py.
 //
 // Bound on an H100: the call moves 4 * (C d + R d + C R) bytes and does
-// 2 C R d flops. On the k-medoids path every shape is skinny: the BUILD and
-// SWAP rounds run from (n, 1-2) to (2-3, n), the assignment cache is (n, k)
-// with k <= 10, and each BUILD d1 row and SWAP verification is (1, n). All
-// of them are bound by the bytes of the long operand. This first version
-// keeps the 64 x 64 FFMA tile of centrality_tile.cuh (full fp32, no TF32: a
-// TF32 Gram keeps about three decimal digits, and the d sum in groups of 256
-// columns for the accuracy the centrality kernels needed) and writes the
-// tile instead of reducing it. On a (1, n) row it wastes 63 of every 64
-// multiply-adds; a shape-adaptive tile is later work.
-#include "centrality_tile.cuh"
+// 2 C R d flops, and on the k-medoids path the bytes or the launch latency
+// bound every shape:
+//  * (n, k <= 10) assignment caches, (1, n) BUILD d1 rows and SWAP
+//    verifications, and the outer halving rounds, (n, 1) to (n / 16, 17)
+//    and (20, ~n / 20) to (2, n) at 16 pulls per arm: the bytes of the
+//    long operand (62.7 MB, 18.7 us, for a (1, 20000) row at d = 784). The
+//    stream path of pairwise_tile.cuh reads them once, 16 bytes a lane,
+//    against short rows held in shared memory.
+//  * the middle rounds, (625, 34) to (40, 533) at 16 pulls per arm:
+//    a few MB each, so latency. The tile path splits d across a cluster of
+//    blocks to put 100-160 blocks on the 132 SMs and sums the partial
+//    tiles through distributed shared memory.
+// Full fp32 FFMA: a TF32 Gram keeps about three decimal digits, and the
+// tensor cores would buy nothing on shapes that are not bound by flops.
+#include "pairwise_tile.cuh"
 
 extern "C" int dot_pairwise_launch(const float* x, const float* y, float* out,
                                    long long C, long long R, long long d,
+                                   int path, int grid, int splits,
                                    cudaStream_t stream) {
-  return centrality::launch_pairwise<centrality::GramPair>(x, y, out, C, R, d, stream);
+  return pairwise::launch<centrality::GramPair>(x, y, out, C, R, d, path, grid, splits,
+                                                stream);
 }

@@ -7,16 +7,22 @@
 // cores.
 //
 // Bound on an H100: the call moves 4 * (C d + R d + C R) bytes and does
-// 3 C R d operations. The k-medoids shapes are skinny ((n, 1-2) to
-// (2-3, n) rounds, the (n, k) assignment cache, (1, n) rows), so the bytes
-// of the long operand bound every one of them. The tile, the grouped d sum
-// and the one-dimensional grid are those of centrality_tile.cuh; the tile
-// is written to the output instead of reduced. A 64 x 64 tile wastes up to
-// 64x of its arithmetic on a (1, n) row.
-#include "centrality_tile.cuh"
+// 3 C R d operations. The k-medoids shapes are skinny, and the bytes or the
+// launch latency bound each class:
+//  * (n, k <= 10) caches, (1, n) rows and the outer halving rounds: the
+//    bytes of the long operand (81.9 MB, 24.5 us, for a (1, 20000) row at
+//    d = 1024). The stream path of pairwise_tile.cuh reads them once,
+//    16 bytes a lane, against short rows held in shared memory.
+//  * the middle rounds, where both sides exceed the crossover S: latency.
+//    The tile path splits d across a thread-block cluster so that a round
+//    of 25 output tiles still runs on 100-160 SMs, and sums the partial
+//    tiles through distributed shared memory in rank order.
+#include "pairwise_tile.cuh"
 
 extern "C" int l1_pairwise_launch(const float* x, const float* y, float* out,
                                   long long C, long long R, long long d,
+                                  int path, int grid, int splits,
                                   cudaStream_t stream) {
-  return centrality::launch_pairwise<centrality::L1Pair>(x, y, out, C, R, d, stream);
+  return pairwise::launch<centrality::L1Pair>(x, y, out, C, R, d, path, grid, splits,
+                                              stream);
 }

@@ -1,0 +1,497 @@
+// The two pairwise kernels (dot_pairwise.cu, l1_pairwise.cu): the (C, R)
+// block of d sums D[c, r] = sum_k op(x[c,k], y[r,k]), op a GramPair or
+// L1Pair of centrality_tile.cuh, written to out[c * R + r].
+//
+// Shapes on the k-medoids path decide the design. The BUILD and SWAP
+// halvings run rounds from (n, 1) to (2, n) with about 20k-40k pairs each;
+// the assignment caches are (n, k <= 10) and the BUILD d1 rows and SWAP
+// verifications (1, n). Every one of them is bound by bytes or by latency,
+// never by arithmetic (the largest middle round, (157, 135, 784), is 33
+// MFLOP: half a microsecond of fp32 FFMA). A fixed square tile wastes up to
+// 63/64 of its work on the skinny shapes and leaves most SMs idle on the
+// middle ones, so the wrapper picks one of two paths from (C, R, d)
+// (pairwise_plan in pairwise_distance.py; S = its crossover):
+//
+//  * stream path, min(C, R) <= S. The M = min(C, R) rows of the short
+//    operand stay in shared memory (in d slabs when M * d * 4 bytes exceed
+//    the block's budget); each warp takes rows of the long operand with a
+//    grid stride and reads each byte of it once, 16 bytes a lane
+//    (ld.global.nc.L1::no_allocate, 32 values of a row in flight per
+//    lane), keeping one accumulator per short row. A shuffle tree that
+//    halves the live values at each step leaves the complete sum for short
+//    row m in lane m. Bound: the long operand's bytes.
+//  * tile path, both C and R > S. One 32 x 32 output tile per thread-block
+//    cluster; the cluster's blocks (2-8, along d) each own a contiguous run
+//    of d columns, streamed through a ring of cp.async slabs so that later
+//    slabs' loads overlap the current slab's FFMA. The partial tiles are
+//    summed through distributed shared memory in rank order and rank 0
+//    writes the tile. The d split is what fills the card: a (157, 135, 784)
+//    round has 25 tiles, run as 125 blocks in 5-block clusters. Bound:
+//    latency, then the bytes of both operands.
+//
+// Both paths: full fp32 FFMA on the CUDA cores (no TF32, no tensor cores);
+// no running sum spans more than 256 d terms before it joins a sum of group
+// sums (see centrality_tile.cuh); no atomics and a fixed summation order, so
+// two launches on the same input are bit-equal; 64-bit offsets; rows past C
+// or R and columns past d are zeros or guarded, never written. 16-byte
+// loads need d % 4 == 0 and 16-byte-aligned bases (a contiguous view may
+// start at any element), else both paths load 4 bytes at a time.
+#pragma once
+
+#include <cooperative_groups.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+#include "centrality_tile.cuh"
+
+namespace pairwise {
+
+namespace cg = cooperative_groups;
+
+constexpr int PATH_STREAM = 0;
+constexpr int PATH_TILE = 1;
+
+// stream path
+constexpr int S_WARPS = 8;                 // warps per block
+constexpr int S_THREADS = 32 * S_WARPS;
+constexpr int S_ROWS_WIDE = 4;             // rows a warp pass: MS 8-16, long N
+constexpr int S_CHUNK = 1024;              // values a warp loads a pass, 32 a lane
+constexpr int S_MAX_SHORT = 32;            // the largest S the plan may take
+constexpr int S_SMEM = 112 * 1024;         // short-row bytes per block (2 a SM)
+constexpr int S_SLAB_ALIGN = 128;          // 32 lanes x 4 columns
+
+// tile path
+constexpr int T_TILE = 32;                 // output tile, C and R
+constexpr int T_BK = 32;                   // d columns per slab
+constexpr int T_STAGES = 8;                // cp.async ring depth
+constexpr int T_PAD = T_BK + 4;            // row stride (floats) in shared
+constexpr int T_THREADS = 256;             // 16 x 16 threads, 2 x 2 each
+constexpr int T_GROUP_SLABS = 256 / T_BK;  // 256 d columns per group sum
+constexpr int T_MAX_CLUSTER = 8;
+constexpr int T_SMEM = 2 * T_STAGES * T_TILE * T_PAD * (int)sizeof(float);
+
+template <int VW>
+struct Vec;
+template <>
+struct Vec<4> {
+  using T = float4;
+};
+template <>
+struct Vec<1> {
+  using T = float;
+};
+
+// Read-only streaming loads that do not allocate in L1: each byte of the
+// long operand is read once.
+__device__ __forceinline__ float4 load_stream(const float4* p) {
+  float4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.f32 {%0, %1, %2, %3}, [%4];"
+      : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+      : "l"(p));
+  return v;
+}
+__device__ __forceinline__ float load_stream(const float* p) {
+  float v;
+  asm("ld.global.nc.L1::no_allocate.f32 %0, [%1];" : "=f"(v) : "l"(p));
+  return v;
+}
+
+template <class Op>
+__device__ __forceinline__ float pair_vec(float acc, float4 a, float4 b) {
+  acc = Op::pair(acc, a.x, b.x);
+  acc = Op::pair(acc, a.y, b.y);
+  acc = Op::pair(acc, a.z, b.z);
+  return Op::pair(acc, a.w, b.w);
+}
+template <class Op>
+__device__ __forceinline__ float pair_vec(float acc, float a, float b) {
+  return Op::pair(acc, a, b);
+}
+
+__device__ __forceinline__ float4 vzero(float4) { return make_float4(0.f, 0.f, 0.f, 0.f); }
+__device__ __forceinline__ float vzero(float) { return 0.f; }
+
+// Reduce v[0..MS) over the warp's 32 lanes: butterfly sums while the offset
+// is at least MS, then steps that each halve the values a lane keeps
+// (31 shuffles for MS = 32 instead of 160). Every index is a compile-time
+// constant, so v stays in registers. Afterwards lane l holds the total of
+// v[l % MS] in v[0]. The order of every addition is fixed.
+template <int MS, int OFF>
+__device__ __forceinline__ void warp_sums(float (&v)[MS], int lane) {
+  if constexpr (OFF >= 1) {
+    if constexpr (OFF >= MS) {
+#pragma unroll
+      for (int i = 0; i < MS; ++i) v[i] += __shfl_xor_sync(0xffffffffu, v[i], OFF);
+    } else {
+      const bool upper = (lane & OFF) != 0;
+#pragma unroll
+      for (int i = 0; i < OFF; ++i) {
+        const float send = upper ? v[i] : v[i + OFF];
+        const float keep = upper ? v[i + OFF] : v[i];
+        v[i] = keep + __shfl_xor_sync(0xffffffffu, send, OFF);
+      }
+    }
+    warp_sums<MS, OFF / 2>(v, lane);
+  }
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
+               "r"(valid ? 4 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Stream path. short_x: x (C rows) is the short operand, else y (R rows).
+// MS: the short row count rounded up to a power of two. VW: 4 for float4
+// loads, 1 for scalar ones. A warp takes L long rows a pass, so each
+// shared-memory read of a short value feeds L rows (registers about
+// L * (MS + 8)); 4 rows pay off only where every warp still gets whole
+// passes. `slab` d columns of the short rows sit in shared memory at a time;
+// a later slab adds its sums to what the same lane wrote for the earlier
+// ones (a sum of slab sums, in slab order). Within a slab a lane sums at
+// most 256 d terms per pair before the warp reduces them into `total`.
+template <class Op, int MS, int L, int VW>
+__global__ void __launch_bounds__(S_THREADS, 2)
+stream_kernel(const float* __restrict__ x, const float* __restrict__ y,
+              float* __restrict__ out, int64_t C, int64_t R, int64_t d,
+              int64_t slab, bool short_x) {
+  using V = typename Vec<VW>::T;
+  constexpr int U = S_CHUNK / (32 * VW * L);   // loads per row per lane
+  constexpr int FOLD = 256 / (U * VW);         // chunks per group sum
+  extern __shared__ __align__(16) float sh[];
+  const float* __restrict__ sp = short_x ? x : y;
+  const float* __restrict__ lp = short_x ? y : x;
+  const int M = (int)(short_x ? C : R);
+  const int64_t N = short_x ? R : C;
+  const int lane = threadIdx.x & 31;
+  const int64_t warp0 = (int64_t)blockIdx.x * S_WARPS + (threadIdx.x >> 5);
+  const int64_t nwarps = (int64_t)gridDim.x * S_WARPS;
+
+  // d == 0 runs one empty slab, which writes zeros.
+  for (int64_t k0 = 0; k0 == 0 || k0 < d; k0 += slab) {
+    const int kw = (int)(d - k0 < slab ? d - k0 : slab);
+    const int kv = kw / VW;
+    __syncthreads();   // the previous slab's readers are done
+    // every copy of the slab in flight at once, then one wait
+    for (int e = threadIdx.x; e < M * kv; e += S_THREADS) {
+      const int m = e / kv;
+      const int j = e - m * kv;
+      const float* g = sp + (int64_t)m * d + k0 + (int64_t)j * VW;
+      if (VW == 4)
+        cp_async16(sh + (m * kv + j) * VW, g, true);
+      else
+        cp_async4(sh + (m * kv + j) * VW, g, true);
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+    const V* shv = reinterpret_cast<const V*>(sh);
+
+    for (int64_t n0 = warp0 * L; n0 < N; n0 += nwarps * L) {
+      float acc[L][MS], total[L];
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        total[l] = 0.f;
+#pragma unroll
+        for (int m = 0; m < MS; ++m) acc[l][m] = 0.f;
+      }
+      for (int j0 = 0, ch = 1; j0 < kv; j0 += 32 * U, ++ch) {
+        V v[L][U];
+#pragma unroll
+        for (int l = 0; l < L; ++l) {
+          const V* row = reinterpret_cast<const V*>(lp + (n0 + l) * d + k0);
+#pragma unroll
+          for (int u = 0; u < U; ++u) {
+            const int j = j0 + u * 32 + lane;
+            v[l][u] = n0 + l < N && j < kv ? load_stream(row + j) : vzero(V());
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < U; ++u) {
+          const int j = j0 + u * 32 + lane;
+          if (j < kv) {
+#pragma unroll
+            for (int m = 0; m < MS; ++m) {
+              if (m >= M) break;   // a uniform branch, not MS - M idle steps
+              const V sv = shv[m * kv + j];
+#pragma unroll
+              for (int l = 0; l < L; ++l) acc[l][m] = pair_vec<Op>(acc[l][m], v[l][u], sv);
+            }
+          }
+        }
+        if (ch % FOLD == 0 && j0 + 32 * U < kv) {   // d > 8192: a group is full
+#pragma unroll
+          for (int l = 0; l < L; ++l) {
+            warp_sums<MS, 16>(acc[l], lane);
+            total[l] += acc[l][0];
+#pragma unroll
+            for (int m = 0; m < MS; ++m) acc[l][m] = 0.f;
+          }
+        }
+      }
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        warp_sums<MS, 16>(acc[l], lane);
+        total[l] += acc[l][0];
+        const int64_t n = n0 + l;
+        if (lane < M && n < N) {
+          const int64_t idx = short_x ? (int64_t)lane * N + n : n * M + lane;
+          out[idx] = k0 == 0 ? total[l] : out[idx] + total[l];
+        }
+      }
+    }
+  }
+}
+
+// Copy one T_TILE x T_BK slab of rows [row0, row0 + T_TILE) x columns
+// [k, k + T_BK) of a (rows, d) matrix into dst; rows past `rows` and
+// columns past `kend` are zero-filled.
+template <int VW>
+__device__ __forceinline__ void load_slab(float (*dst)[T_PAD], const float* __restrict__ src,
+                                          int64_t row0, int64_t rows, int64_t d,
+                                          int64_t k, int64_t kend) {
+  constexpr int PER_ROW = T_BK / VW;
+  constexpr int N = T_TILE * PER_ROW;
+  static_assert(N % T_THREADS == 0, "whole copies per thread");
+#pragma unroll
+  for (int s = 0; s < N / T_THREADS; ++s) {
+    const int e = (int)threadIdx.x + s * T_THREADS;
+    const int row = e / PER_ROW;
+    const int col = (e % PER_ROW) * VW;
+    const int64_t r = row0 + row;
+    const int64_t kk = k + col;
+    const bool valid = r < rows && kk < kend;
+    const float* g = valid ? src + r * d + kk : src;
+    if (VW == 4)
+      cp_async16(&dst[row][col], g, valid);
+    else
+      cp_async4(&dst[row][col], g, valid);
+  }
+}
+
+// Tile path. A cluster of `splits` consecutive blocks shares one output
+// tile; block rank q sums d columns [q * run, min(d, (q + 1) * run)).
+template <class Op, int VW>
+__global__ void __launch_bounds__(T_THREADS)
+tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
+            float* __restrict__ out, int64_t C, int64_t R, int64_t d,
+            int64_t n_rtiles, int64_t run) {
+  extern __shared__ __align__(16) float ring[];   // T_SMEM bytes
+  auto xs = reinterpret_cast<float (*)[T_TILE][T_PAD]>(ring);
+  auto ys = reinterpret_cast<float (*)[T_TILE][T_PAD]>(ring + T_STAGES * T_TILE * T_PAD);
+  __shared__ float part[T_TILE][T_TILE + 1];
+  cg::cluster_group cluster = cg::this_cluster();
+  const unsigned rank = cluster.block_rank();
+  const unsigned splits = cluster.num_blocks();
+  const int tx = threadIdx.x % 16;
+  const int ty = threadIdx.x / 16;
+  const int64_t tile = (int64_t)(blockIdx.x / splits);
+  const int64_t c0 = (tile / n_rtiles) * T_TILE;
+  const int64_t r0 = (tile % n_rtiles) * T_TILE;
+  const int64_t kbeg = (int64_t)rank * run;
+  const int64_t kend = kbeg + run < d ? kbeg + run : d;
+  const int nslabs = kend > kbeg ? (int)((kend - kbeg + T_BK - 1) / T_BK) : 0;
+
+  float acc[2][2], grp[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) acc[i][j] = grp[i][j] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < T_STAGES - 1; ++s) {
+    if (s < nslabs) {
+      load_slab<VW>(xs[s], x, c0, C, d, kbeg + s * T_BK, kend);
+      load_slab<VW>(ys[s], y, r0, R, d, kbeg + s * T_BK, kend);
+    }
+    cp_async_commit();
+  }
+  for (int i = 0; i < nslabs; ++i) {
+    cp_async_wait<T_STAGES - 2>();   // slab i has landed for this thread
+    __syncthreads();                 // ... for all; slab i - 1 is consumed
+    const int nxt = i + T_STAGES - 1;
+    if (nxt < nslabs) {
+      load_slab<VW>(xs[nxt % T_STAGES], x, c0, C, d, kbeg + (int64_t)nxt * T_BK, kend);
+      load_slab<VW>(ys[nxt % T_STAGES], y, r0, R, d, kbeg + (int64_t)nxt * T_BK, kend);
+    }
+    cp_async_commit();
+    const int st = i % T_STAGES;
+#pragma unroll
+    for (int k = 0; k < T_BK; k += 4) {
+      float4 a[2], b[2];
+#pragma unroll
+      for (int t = 0; t < 2; ++t) {
+        a[t] = *reinterpret_cast<const float4*>(&xs[st][ty + 16 * t][k]);
+        b[t] = *reinterpret_cast<const float4*>(&ys[st][tx + 16 * t][k]);
+      }
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) grp[ii][jj] = pair_vec<Op>(grp[ii][jj], a[ii], b[jj]);
+    }
+    if (i % T_GROUP_SLABS == T_GROUP_SLABS - 1) {
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          acc[ii][jj] += grp[ii][jj];
+          grp[ii][jj] = 0.f;
+        }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 2; ++jj) {
+      acc[ii][jj] += grp[ii][jj];
+      part[ty + 16 * ii][tx + 16 * jj] = acc[ii][jj];
+    }
+
+  cluster.sync();   // every rank's partial tile is in its shared memory
+  if (rank == 0) {
+    for (unsigned q = 1; q < splits; ++q) {
+      const float* rp = cluster.map_shared_rank(&part[0][0], q);
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj)
+          acc[ii][jj] += rp[(ty + 16 * ii) * (T_TILE + 1) + tx + 16 * jj];
+    }
+#pragma unroll
+    for (int ii = 0; ii < 2; ++ii) {
+      const int64_t c = c0 + ty + 16 * ii;
+      if (c >= C) continue;
+#pragma unroll
+      for (int jj = 0; jj < 2; ++jj) {
+        const int64_t r = r0 + tx + 16 * jj;
+        if (r < R) out[c * R + r] = acc[ii][jj];
+      }
+    }
+  }
+  cluster.sync();   // no block leaves while rank 0 may read its tile
+}
+
+template <class Op, int MS, int L, int VW>
+inline cudaError_t launch_stream_kernel(const float* x, const float* y, float* out, int64_t C,
+                                        int64_t R, int64_t d, int64_t slab, int grid,
+                                        bool short_x, cudaStream_t stream) {
+  const int64_t M = short_x ? C : R;
+  const size_t smem = (size_t)(M * (slab < d ? slab : d)) * sizeof(float);
+  if (smem > 48 * 1024) {
+    // Above 48 KB only after an opt-in, made once per kernel (and so never
+    // inside a CUDA-graph capture that follows an eager first call).
+    static const cudaError_t err = cudaFuncSetAttribute(
+        stream_kernel<Op, MS, L, VW>, cudaFuncAttributeMaxDynamicSharedMemorySize, S_SMEM);
+    if (err != cudaSuccess) return err;
+  }
+  stream_kernel<Op, MS, L, VW><<<grid, S_THREADS, smem, stream>>>(x, y, out, C, R, d, slab,
+                                                                  short_x);
+  return cudaGetLastError();
+}
+
+// 4 long rows a pass for MS 8 and 16 with 16-byte loads, where the long
+// side gives every warp of the grid at least one such pass; else 2.
+template <class Op, int MS>
+inline cudaError_t launch_stream_ms(const float* x, const float* y, float* out, int64_t C,
+                                    int64_t R, int64_t d, int64_t slab, int grid, bool vec,
+                                    bool short_x, cudaStream_t stream) {
+  if (!vec)
+    return launch_stream_kernel<Op, MS, 2, 1>(x, y, out, C, R, d, slab, grid, short_x, stream);
+  if constexpr (MS == 8 || MS == 16) {
+    const int64_t N = short_x ? R : C;
+    if (N >= (int64_t)S_ROWS_WIDE * S_WARPS * grid)
+      return launch_stream_kernel<Op, MS, S_ROWS_WIDE, 4>(x, y, out, C, R, d, slab, grid,
+                                                          short_x, stream);
+  }
+  return launch_stream_kernel<Op, MS, 2, 4>(x, y, out, C, R, d, slab, grid, short_x, stream);
+}
+
+template <class Op>
+inline cudaError_t launch_stream(const float* x, const float* y, float* out, int64_t C,
+                                 int64_t R, int64_t d, int64_t slab, int grid, bool vec,
+                                 cudaStream_t stream) {
+  const bool short_x = C <= R;
+  const int64_t M = short_x ? C : R;
+  auto go = [&](auto ms) {   // MS = the short row count's power of two
+    return launch_stream_ms<Op, decltype(ms)::value>(x, y, out, C, R, d, slab, grid, vec,
+                                                     short_x, stream);
+  };
+  if (M <= 1) return go(std::integral_constant<int, 1>{});
+  if (M <= 2) return go(std::integral_constant<int, 2>{});
+  if (M <= 4) return go(std::integral_constant<int, 4>{});
+  if (M <= 8) return go(std::integral_constant<int, 8>{});
+  if (M <= 16) return go(std::integral_constant<int, 16>{});
+  return go(std::integral_constant<int, 32>{});
+}
+
+// Launches one path on `stream` for C, R >= 1 and returns the launch's
+// error code as an int. path, grid and splits come from pairwise_plan:
+// stream path, `grid` blocks and `splits` d slabs; tile path, `grid` =
+// tiles * splits blocks in clusters of `splits` along d.
+template <class Op>
+inline int launch(const float* x, const float* y, float* out, int64_t C, int64_t R,
+                  int64_t d, int path, int grid, int splits, cudaStream_t stream) {
+  const bool vec = d % 4 == 0 && ((uintptr_t)x % 16) == 0 && ((uintptr_t)y % 16) == 0;
+  if (C < 1 || R < 1 || d < 0 || grid < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  if (path == PATH_STREAM) {
+    const int64_t M = C <= R ? C : R;
+    if (M > S_MAX_SHORT) return (int)cudaErrorInvalidValue;
+    // slab: ceil(d / splits) rounded up to whole lane passes of 4 columns
+    // (at least one, so that the slab loop advances when d == 0)
+    int64_t slab = (d + splits - 1) / splits;
+    slab = (slab + S_SLAB_ALIGN - 1) / S_SLAB_ALIGN * S_SLAB_ALIGN;
+    if (slab < S_SLAB_ALIGN) slab = S_SLAB_ALIGN;
+    if (slab < d && M * slab * (int64_t)sizeof(float) > S_SMEM) return (int)cudaErrorInvalidValue;
+    if (d <= slab && M * d * (int64_t)sizeof(float) > S_SMEM) return (int)cudaErrorInvalidValue;
+    return (int)launch_stream<Op>(x, y, out, C, R, d, slab, grid, vec, stream);
+  }
+  if (path != PATH_TILE || splits > T_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  const int64_t n_rtiles = (R + T_TILE - 1) / T_TILE;
+  const int64_t tiles = ((C + T_TILE - 1) / T_TILE) * n_rtiles;
+  if (tiles * splits != (int64_t)grid) return (int)cudaErrorInvalidValue;
+  const int64_t nsl = (d + T_BK - 1) / T_BK;
+  const int64_t run = (nsl + splits - 1) / splits * T_BK;
+  {   // the ring's dynamic shared memory, opted into once per kernel
+    static const cudaError_t e4 = cudaFuncSetAttribute(
+        tile_kernel<Op, 4>, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
+    static const cudaError_t e1 = cudaFuncSetAttribute(
+        tile_kernel<Op, 1>, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
+    const cudaError_t err = vec ? e4 : e1;
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)grid);
+  cfg.blockDim = dim3(T_THREADS);
+  cfg.dynamicSmemBytes = T_SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  cudaError_t err = vec ? cudaLaunchKernelEx(&cfg, tile_kernel<Op, 4>, x, y, out, C, R, d,
+                                             n_rtiles, run)
+                        : cudaLaunchKernelEx(&cfg, tile_kernel<Op, 1>, x, y, out, C, R, d,
+                                             n_rtiles, run);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+}  // namespace pairwise

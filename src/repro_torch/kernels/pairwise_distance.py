@@ -15,7 +15,8 @@ Wrapper, the TPU kernel it replaces in that file, and its CUDA source in
   ``topk_smallest.cu``;
 * ``dot_pairwise``: ``dot_pairwise`` / ``_dot_kernel``, ``dot_pairwise.cu``;
 * ``l1_pairwise``: ``l1_pairwise`` / ``_l1_pairwise_kernel``,
-  ``l1_pairwise.cu``.
+  ``l1_pairwise.cu`` (both pairwise kernels take one of two paths of
+  ``pairwise_tile.cuh``, chosen by :func:`pairwise_plan`).
 
 A wrapper checks device, dtype, shape and contiguity, then:
 
@@ -316,6 +317,80 @@ def l1_pairwise_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# The pairwise kernels' two paths (csrc/pairwise_tile.cuh). PAIRWISE_S is
+# the crossover: the stream path takes every shape whose short side has at
+# most PAIRWISE_S rows, the tile path the rest. On an H100 the stream path
+# is faster up to 20 short rows and the tile path from 24 (chip_smoke.py
+# times both at 8-24, PERF.md).
+PAIRWISE_S = 20
+STREAM, TILE = "stream", "tile"
+_PATH_CODE = {STREAM: 0, TILE: 1}
+_STREAM_WARPS = 8              # S_WARPS
+_STREAM_ROWS = 2               # long rows a warp takes a pass, at least
+_STREAM_BLOCKS_PER_SM = 2      # S_SMEM allows two blocks a SM
+_STREAM_SMEM = 112 * 1024      # S_SMEM: short-row bytes a block
+_STREAM_SLAB_ALIGN = 128       # S_SLAB_ALIGN
+_STREAM_MAX_SHORT = 32         # S_MAX_SHORT
+_PAIR_TILE = 32                # T_TILE
+_PAIR_BK = 32                  # T_BK
+_MAX_CLUSTER = 8               # T_MAX_CLUSTER
+
+
+def pairwise_plan(c: int, r: int, d: int, sms: int, *,
+                  crossover: int = PAIRWISE_S) -> tuple[str, int, int]:
+    """``(path, grid, splits)`` of one pairwise launch on a card with ``sms``
+    multiprocessors, for ``c, r >= 1``.
+
+    * ``"stream"`` when ``min(c, r) <= crossover``: ``grid`` blocks of
+      warps that stream the long operand's rows, ``splits`` d slabs of the
+      short rows in shared memory (one unless they exceed the block's
+      budget);
+    * ``"tile"`` otherwise: ``grid = tiles * splits`` blocks, 32 x 32
+      output tiles, each summed over d by a cluster of ``splits`` blocks
+      (at most 8), enough to put about one block on every SM, each block
+      with at least one 32-column slab of d.
+    """
+    if not 0 <= crossover <= _STREAM_MAX_SHORT:
+        raise ValueError(f"pairwise_plan: crossover {crossover} outside "
+                         f"[0, {_STREAM_MAX_SHORT}]")
+    if min(c, r) <= crossover:
+        m, n = min(c, r), max(c, r)
+        grid = max(1, min(-(-n // (_STREAM_WARPS * _STREAM_ROWS)),
+                          _STREAM_BLOCKS_PER_SM * sms))
+        if m * d * 4 <= _STREAM_SMEM:
+            return STREAM, grid, 1
+        units = _STREAM_SMEM // (m * 4 * _STREAM_SLAB_ALIGN)
+        return STREAM, grid, -(-d // (units * _STREAM_SLAB_ALIGN))
+    tiles = -(-c // _PAIR_TILE) * -(-r // _PAIR_TILE)
+    slabs = max(1, -(-d // _PAIR_BK))
+    splits = max(1, min(_MAX_CLUSTER, -(-sms // tiles), slabs))
+    splits = -(-slabs // -(-slabs // splits))  # no rank without a slab
+    return TILE, tiles * splits, splits
+
+
+def launch_pairwise(name: str, x: torch.Tensor, y: torch.Tensor,
+                    plan: tuple[str, int, int]) -> torch.Tensor:
+    """One launch of the pairwise kernel ``name`` on CUDA tensors x (C, d),
+    y (R, d) with ``plan``, a ``pairwise_plan`` result for (C, R, d): the
+    wrappers pass the default one, ``chip_smoke.py`` forces either path to
+    time both on each side of the crossover. Counts in ``LAUNCHES``."""
+    c, d = x.shape
+    r = y.shape[0]
+    kind, grid, splits = plan
+    if grid > _MAX_BLOCKS:
+        raise ValueError(f"{name}: ({c}, {r}) needs {grid} blocks, more "
+                         f"than {_MAX_BLOCKS}")
+    out = torch.empty((c, r), dtype=torch.float32, device=x.device)
+    fn = build.function(f"{name}_launch")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), c, r, d,
+                  _PATH_CODE[kind], grid, splits, stream)
+    build.check(f"{name}_launch", code)
+    LAUNCHES[name] += 1
+    return out
+
+
 def _pairwise(name: str, x: torch.Tensor, y: torch.Tensor,
               plain) -> torch.Tensor:
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
@@ -327,20 +402,10 @@ def _pairwise(name: str, x: torch.Tensor, y: torch.Tensor,
         _check(name, t, torch.float32, shape)
     if not _on_cuda(name, x, y):
         return plain(x, y)
-    if -(-c // _TILE) * -(-r // _TILE) > _MAX_BLOCKS:
-        raise ValueError(f"{name}: ({c}, {r}) needs more than "
-                         f"{_MAX_BLOCKS} tiles")
-    out = torch.empty((c, r), dtype=torch.float32, device=x.device)
     if c == 0 or r == 0:
-        return out
-    fn = build.function(f"{name}_launch")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), c, r, d,
-                  stream)
-    build.check(f"{name}_launch", code)
-    LAUNCHES[name] += 1
-    return out
+        return torch.empty((c, r), dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return launch_pairwise(name, x, y, pairwise_plan(c, r, d, sms))
 
 
 def dot_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -348,8 +413,9 @@ def dot_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     float32, fp32 accumulation.
 
     Replaces ``dot_pairwise`` (``src/repro/kernels/pairwise_distance.py``).
-    Bound: the bytes of the long operand on every k-medoids shape
-    (``csrc/dot_pairwise.cu``)."""
+    Bound: the long operand's bytes on the skinny k-medoids shapes (stream
+    path), launch latency on the middle halving rounds (tile path); see
+    ``csrc/dot_pairwise.cu``."""
     return _pairwise("dot_pairwise", x, y, dot_pairwise_plain)
 
 
@@ -357,6 +423,7 @@ def l1_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """Pairwise l1 distances: x (C, d), y (R, d) float32 -> (C, R) float32.
 
     Replaces ``l1_pairwise`` (``src/repro/kernels/pairwise_distance.py``).
-    Bound: the bytes of the long operand on every k-medoids shape
-    (``csrc/l1_pairwise.cu``)."""
+    Bound: the long operand's bytes on the skinny k-medoids shapes (stream
+    path), launch latency on the middle halving rounds (tile path); see
+    ``csrc/l1_pairwise.cu``."""
     return _pairwise("l1_pairwise", x, y, l1_pairwise_plain)

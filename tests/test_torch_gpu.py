@@ -80,21 +80,37 @@ def test_find_medoid_on_card_matches_cpu(cuda):
         assert got.medoid == want.medoid
 
 
+# both sides of the stream/tile crossover (from the plan's constant), the
+# middle rounds of a k-medoids halving at n = 20000, and d % 4 != 0
+S = pk.PAIRWISE_S
+
+
 @pytest.mark.parametrize("shape", ((1, 1, 1), (77, 131, 300), (1, 3000, 784),
-                                   (3000, 1, 784), (2000, 10, 257)))
-def test_pairwise_kernels_match_plain(cuda, shape):
+                                   (3000, 1, 784), (2000, 10, 257),
+                                   (S, 20000, 784), (S + 1, 5000, 784),
+                                   (157, 135, 784), (1250, 17, 784),
+                                   (17, 1250, 784), (3000, 3, 257)))
+@pytest.mark.parametrize("offset", (0, 1))
+def test_pairwise_kernels_match_plain(cuda, shape, offset):
+    """offset 1: x is a contiguous view 4 bytes past a 16-byte boundary,
+    ``buf[1:].view(c, d)``, which the kernels must read 4 bytes at a time.
+    Two launches on the same input must be bit-equal."""
     c, r, d = shape
     g = torch.Generator(device=cuda).manual_seed(c + r + d)
-    x = torch.randn(c, d, device=cuda, generator=g)
+    x = torch.randn(c * d + offset, device=cuda, generator=g)[offset:]
+    x = x.view(c, d)
     y = torch.randn(r, d, device=cuda, generator=g)
+    assert (x.data_ptr() % 16 == 0) == (offset == 0)
     for name, kern, plain in (
             ("dot_pairwise", pk.dot_pairwise, pk.dot_pairwise_plain),
             ("l1_pairwise", pk.l1_pairwise, pk.l1_pairwise_plain)):
         before = pk.LAUNCHES[name]
         got = kern(x, y)
+        again = kern(x, y)
         want = plain(x, y)
         torch.cuda.synchronize()
-        assert pk.LAUNCHES[name] == before + 1
+        assert pk.LAUNCHES[name] == before + 2
+        assert torch.equal(got, again), name
         # rtol 1e-5 with a floor of 1e-5 of the largest magnitude
         tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
         assert bool(((got - want).abs() <= tol).all()), name
