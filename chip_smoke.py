@@ -21,7 +21,11 @@ nonzero:
    pairwise kernels are also checked on both sides of their crossover
    ``PAIRWISE_S``, at d % 4 != 0, on a view that starts 4 bytes past a
    16-byte boundary and for bit-equal repeats, and both of their paths are
-   timed on either side of the crossover;
+   timed on either side of the crossover; so are ``l1_centrality``'s two
+   paths on either side of ``CENTRALITY_S`` (every centrality check also
+   holds two launches bit-equal), and ``topk_rank`` at each candidate tile
+   and cluster, checked bit-equal on all-equal and int32-extreme keys and
+   around its tile;
 3. the single-query main path at full size: ``repro_torch.api.find_medoid``
    (corr_sh, budget 30 per arm) on the six cells below with the kernel
    launch counters zeroed just before each run and read just after. Each
@@ -37,8 +41,11 @@ nonzero:
    the ``reference`` backend's on the card with the same key (or the costs
    agree to rtol 1e-5, both printed). Each cell's pairwise launches are
    split by shape class (kernel against library) and by path, and the main
-   path must take both paths. Then one line of exact PAM at n = 2048
-   (printed only).
+   path must take both paths; ``l1_centrality``'s launches likewise by
+   class (skinny R-short and C-short, middle, masked refinement) beside the
+   two-call yardstick ``cdist(p=1)`` and a row sum. Then ``topk_rank`` at
+   every C of the main path against ``argsort(stable=True)``, and one line
+   of exact PAM at n = 2048 (printed only).
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the rest
@@ -348,12 +355,13 @@ def main() -> int:
             def plain():
                 return pk.dot_centrality_plain(xk, yk, xn2, yn2, w,
                                                metric=metric)
-        got, want = kern(), plain()
+        got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
         c, d = x.shape
         r = y.shape[0]
-        err = _agree(got, want, _tolerance(want, metric, x, y, w),
-                     f"{metric} centrality at C={c} R={r} d={d}")
+        what = f"{metric} centrality at C={c} R={r} d={d}"
+        _require(torch.equal(got, again), f"{what}: two launches differ")
+        err = _agree(got, want, _tolerance(want, metric, x, y, w), what)
         nbytes = 4 * (c * d + r * d + c)
         if metric in ("l2", "sql2"):
             nbytes += 4 * (c + r)
@@ -362,6 +370,11 @@ def main() -> int:
         nops = (3 if metric == "l1" else 2) * c * r * d
         if reps == 0:
             return err, 0.0, 0.0, nbytes, nops, None
+        if metric == "l1":
+            # the two-call yardstick, kept out of library_ms
+            twocall[(c, r, d, w is not None)] = timed(
+                lambda: torch.cdist(xk, yk, p=1) @ w if w is not None
+                else torch.cdist(xk, yk, p=1).sum(1), reps)
         return (err, timed(kern, reps), timed(plain, max(1, reps // 4)),
                 nbytes, nops, None)
 
@@ -429,8 +442,21 @@ def main() -> int:
                  "topk pair differs from a stable argsort")
         return keys, rank_k
 
+    def tie_heavy(c):
+        """Estimates with ties, -0.0/+0.0, +-inf and NaNs of both signs."""
+        theta = torch.randn(c, device=dev, generator=gen)
+        theta[::7] = 0.0
+        theta[::11] = -0.0
+        theta[::13] = float("inf")
+        theta[::19] = -float("inf")
+        theta[::17] = float("nan")
+        theta[::23] = -float("nan")
+        theta[::5] = theta[0].clone()
+        return theta
+
     led = Ledger()
     cache = {}
+    twocall = {}   # (C, R, d, masked) -> ms of cdist(p=1) and a row sum
 
     def shape_time(kern, ds, c, r=0, metric="", masked=False):
         """Check and time ``kern`` once per shape on rows of dataset ``ds``
@@ -441,16 +467,18 @@ def main() -> int:
         if kern in ("topk_rank", "topk_select"):
             ck = ("topk", c)
             if ck not in cache:
+                check_topk(tie_heavy(c))
                 keys, rank = check_topk(torch.rand(c, device=dev,
                                                    generator=gen))
                 out = torch.empty(c, dtype=torch.int64, device=dev)
                 ar = torch.arange(c, device=dev)
                 rank_l = rank.long()
+                # topk_rank's bound: its 8 C bytes (keys in, ranks out)
                 cache[ck] = {
                     "topk_rank": (
                         0.0, timed(lambda: pk.topk_rank(keys), 10),
                         timed(lambda: pk.topk_rank_plain(keys), 3), 8 * c,
-                        c * c,
+                        0,
                         timed(lambda: torch.argsort(keys, stable=True), 10)),
                     "topk_select": (
                         0.0, timed(lambda: pk.topk_select(rank, c), 10),
@@ -494,8 +522,52 @@ def main() -> int:
     def rounds_of(n):
         return executed_rounds(n, BUDGET_PER_ARM * n)
 
+    def l1_classes(plan, ds, d):
+        """l1_centrality's launches of ``plan`` by shape class (times from
+        shape_time): skinny R-short and C-short (stream path), middle (tile
+        path), masked refinement (any path); with the two-call yardstick
+        ``cdist(x, y, p=1)`` and a row sum (or ``@ w``), and the launches
+        by path."""
+        by_class = {}
+        big = {}   # skinny rounds with C or R >= 2500: share of the bound
+        for kern, c, r, masked in plan:
+            if kern != "l1_centrality":
+                continue
+            path = pk.centrality_plan(c, r, d, sms)[0]
+            cls = ("masked refinement" if masked else
+                   "middle" if path == pk.TILE else
+                   "skinny C-short" if c <= r else "skinny R-short")
+            _, ms, pms, nbytes, nops, _ = shape_time(kern, ds, c, r, "l1",
+                                                     masked)
+            b, o = _bound_s(nbytes, nops)
+            if cls.startswith("skinny") and max(c, r) >= 2500:
+                big[(c, r)] = max(b, o) * 1e3 / ms
+            v = by_class.setdefault(cls, [0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
+                                          Counter()])
+            for i, add in enumerate((1, ms, b * 1e3, o * 1e3, pms,
+                                     twocall[(c, r, d, masked)])):
+                v[i] += add
+            v[6] += max(b, o) * 1e3
+            kind = (f"{path} {'C' if c <= r else 'R'}-short"
+                    if path == pk.STREAM else path)
+            v[7][kind] += 1
+            l1_paths[kind] += 1
+        return "; ".join(
+            f"{cls}: {v[0]} launches, kernel {v[1]:.3f} ms, bound {v[6]:.4f} "
+            f"ms ({'bytes' if v[2] >= v[3] else 'operations'}, "
+            f"{v[6] / v[1]:.1%} of it), plain {v[4]:.3f} ms, two calls "
+            f"(cdist(p=1), row sum) {v[5]:.3f} ms, kernel / two calls "
+            f"{v[1] / v[5]:.2f}, paths {dict(v[7])}"
+            for cls, v in sorted(by_class.items())) + (
+            f"; skinny shapes with C or R >= 2500: "
+            f"{sum(v >= 0.5 for v in big.values())} of {len(big)} at >= 50% "
+            f"of their bound, " + ", ".join(
+                f"({c}, {r}) {v:.1%}" for (c, r), v in sorted(big.items())))
+
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     paths = Counter()     # (pairwise kernel, path) -> main-path launches
+    rank_cs = Counter()   # C -> topk_rank launches of the main path
+    l1_paths = Counter()  # l1_centrality path -> main-path launches
 
     def path_counts(plan, d):
         """The pairwise launches of ``plan`` by the path pairwise_plan
@@ -619,15 +691,63 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s): " + "; ".join(cross),
           flush=True)
 
-    for c in (1, 2, 3, 129, 1000, 4097, 20000):
-        theta = torch.randn(c, device=dev, generator=gen)
-        theta[::7] = 0.0
-        theta[::11] = -0.0
-        theta[::13] = float("inf")
-        theta[::17] = float("nan")
-        theta[::5] = theta[0].clone()
-        check_topk(theta)
-    print("phase2 topk ties, -0.0/+0.0, +inf, nan: bit-equal", flush=True)
+    rt = pk.RANK_TILE
+    for c in (1, 2, 3, 129, 1000, 4097, 20000, rt - 1, rt, rt + 1,
+              2 * rt + 1):
+        check_topk(tie_heavy(c))
+        for keys in (torch.full((c,), 7, dtype=torch.int32, device=dev),
+                     torch.where(torch.rand(c, device=dev, generator=gen)
+                                 < 0.5, -2 ** 31, 2 ** 31 - 1).int()):
+            _require(torch.equal(pk.topk_rank(keys), pk.topk_rank_plain(keys)),
+                     f"topk_rank disagrees on all-equal or extreme keys at "
+                     f"C={c}")
+    print("phase2 topk ties, -0.0/+0.0, +-inf, +-nan, all-equal and int32 "
+          "extreme keys: bit-equal", flush=True)
+    # the rank kernel's tile: each candidate tile at the large C of the
+    # main path (one block below the tile, clusters of tiles above it)
+    tiles = []
+    for c in (2048, 4096, 6424, 8192, 10000, 20000):
+        keys = ops.totalorder_keys(torch.rand(c, device=dev, generator=gen))
+        want = pk.topk_rank_plain(keys)
+        us = []
+        plans = [pk.topk_rank_plan(c, sms, tile=tile)
+                 for tile in (512, 1024, 2048)]
+        plans += [(t, 8) for t, cl in plans if c > t and cl < 8]
+        for plan in plans:
+            tile = plan[0]
+            _require(torch.equal(pk.launch_topk_rank(keys, plan), want),
+                     f"topk_rank {plan} disagrees at C={c}")
+            us.append(f"{tile} {plan} "
+                      f"{1e3 * timed(lambda p=plan: pk.launch_topk_rank(keys, p), 10):.2f}")
+        tiles.append(f"C={c}: " + ", ".join(us) + " us")
+    print("phase2 topk_rank by tile (tile (tile, cluster) time): "
+          + "; ".join(tiles), flush=True)
+    # both l1_centrality paths, each checked and timed, on either side of
+    # the crossover at round shapes of the main path: 16 pulls per arm at
+    # n = 20000 (C R ~ 21333) for the k-medoids width, 30 (~40000) for
+    # rnaseq's; a crossover of 32 forces the stream path, 0 the tile path
+    t0 = time.perf_counter()
+    cross = []
+    for d, pulls in ((1024, 21333), (4096, 40000)):
+        for m in (8, 12, 16, 20, 24):
+            for (c, r) in ((m, pulls // m), (pulls // m, m)):
+                x = torch.rand(c, d, device=dev, generator=gen)
+                y = torch.rand(r, d, device=dev, generator=gen)
+                want = pk.l1_centrality_plain(x, y, None)
+                tol = _tolerance(want, "l1", x, y, None)
+                us = []
+                for forced in (32, 0):
+                    plan = pk.centrality_plan(c, r, d, sms, crossover=forced)
+                    _agree(pk.launch_l1_centrality(x, y, None, plan), want,
+                           tol, f"l1_centrality {plan} at ({c}, {r}, {d})")
+                    us.append(1e3 * timed(
+                        lambda plan=plan: pk.launch_l1_centrality(
+                            x, y, None, plan), 10))
+                cross.append(f"({c}, {r}, {d}) stream {us[0]:.2f} / tile "
+                             f"{us[1]:.2f} us")
+    print(f"phase2 l1_centrality crossover (S_c = {pk.CENTRALITY_S}), both "
+          f"paths checked and timed ({time.perf_counter() - t0:.1f} s): "
+          + "; ".join(cross), flush=True)
 
     for name, ds, n, d, metric, backend in CELLS:
         plan = medoid_plan(n, metric, backend)
@@ -637,6 +757,10 @@ def main() -> int:
         print(f"phase2 {name}: {len(rounds_of(n))} round shapes: "
               f"{fmt_tot(tot)}" + (f"; pairwise paths {dict(counts)}"
                                    if counts else ""), flush=True)
+        if metric == "l1":
+            print(f"phase2 {name} l1_centrality by shape: "
+                  f"{l1_classes(plan, ds, d)}", flush=True)
+        rank_cs.update(c for kern, c, _, _ in plan if kern == "topk_rank")
 
     # ---------------------------------------------- phase 3: main path
     for name, ds, n, d, metric, backend in CELLS:
@@ -816,6 +940,10 @@ def main() -> int:
         counts = path_counts(plan, d)
         paths.update(counts)
         print(f"phase4 {name} {pair} by path: {dict(counts)}", flush=True)
+        if metric == "l1":
+            print(f"phase4 {name} l1_centrality by shape: "
+                  f"{l1_classes(plan, ds, d)}", flush=True)
+        rank_cs.update(c for kern, c, _, _ in plan if kern == "topk_rank")
 
     taken = {p for _, p in paths}
     _require(taken == {pk.STREAM, pk.TILE},
@@ -823,6 +951,29 @@ def main() -> int:
     print(f"phase4 pairwise launches by path over the main path: "
           f"{ {f'{k} {p}': v for (k, p), v in sorted(paths.items())} }",
           flush=True)
+    _require(set(l1_paths) == {f"{pk.STREAM} R-short",
+                               f"{pk.STREAM} C-short", pk.TILE},
+             f"l1_centrality took the paths {dict(l1_paths)} only")
+    print(f"phase4 l1_centrality launches by path over the main path: "
+          f"{dict(l1_paths)}", flush=True)
+    # topk_rank at each C of the main path (times from shape_time; the
+    # launch floor beside it is topk_select's time at the same C)
+    slower = []
+    for c, launches in sorted(rank_cs.items(), reverse=True):
+        rk, sel = cache[("topk", c)]["topk_rank"], \
+            cache[("topk", c)]["topk_select"]
+        us, arg_us = 1e3 * rk[1], 1e3 * rk[5]
+        if us > arg_us:
+            slower.append(c)
+        print(f"phase4 topk_rank C={c}: {launches} launches, kernel "
+              f"{us:.2f} us, argsort(stable=True) {arg_us:.2f} us, kernel / "
+              f"argsort {us / arg_us:.2f}, bound {1e6 * 8 * c / HBM_BYTES_PER_S:.4f} "
+              f"us (bytes), launch floor (topk_select at this C) "
+              f"{1e3 * sel[1]:.2f} us, plan {pk.topk_rank_plan(c, sms)}",
+              flush=True)
+    print(f"phase4 topk_rank: {len(rank_cs)} distinct C over "
+          f"{sum(rank_cs.values())} launches; slower than argsort at C = "
+          f"{slower}", flush=True)
 
     t0 = time.perf_counter()
     arr, labels = CLUSTER_DATASETS["mnist_like"][1](SEED, 2048, 784, 10)

@@ -38,8 +38,9 @@ SIGNATURES = {
                               (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
                                _I, _I, _P)),
     "l1_centrality_launch": ("l1_centrality",
-                             (_P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _P)),
-    "topk_rank_launch": ("topk_smallest", (_P, _P, _I, _P)),
+                             (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I,
+                              _I, _P)),
+    "topk_rank_launch": ("topk_smallest", (_P, _P, _LL, _I, _I, _P)),
     "topk_select_launch": ("topk_smallest", (_P, _P, _I, _I, _P)),
     "dot_pairwise_launch": ("dot_pairwise",
                             (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _P)),

@@ -1,7 +1,7 @@
-// Shared tiling of the two fused centrality kernels (dot_centrality.cu and
-// l1_centrality.cu): S[c] = sum_{r valid} w[r] * f(sum_k op(x[c,k], y[r,k])).
-// The d-sum operations GramPair and L1Pair below are also those of the two
-// pairwise kernels, whose own tiling is in pairwise_tile.cuh.
+// Tiling of the fused Gram-metric centrality kernel (dot_centrality.cu):
+// S[c] = sum_{r valid} w[r] * f(sum_k op(x[c,k], y[r,k])). The d-sum
+// operations GramPair and L1Pair below are also those of the two pairwise
+// kernels and of l1_centrality.cu, whose tiling is in pairwise_tile.cuh.
 //
 // Shapes on the main path decide the design. One correlated-SH round scores
 // C surviving arms against R drawn references, and over a run (C, R) goes

@@ -1,4 +1,4 @@
-// Fused l1 centrality: S[c] = sum_{r valid} w[r] * sum_k |x[c,k] - y[r,k]|.
+// Fused l1 centrality: S[c] = sum_r w[r] * sum_k |x[c,k] - y[r,k]|.
 //
 // Replaces the TPU kernel l1_centrality / _l1_centrality_kernel in
 // src/repro/kernels/pairwise_distance.py. l1 has no matmul form, so this is
@@ -7,12 +7,31 @@
 // (C, R) block never reaches device memory.
 //
 // Bound on an H100: each round moves (C + R) * d * 4 bytes and does
-// 3 * C * R * d operations. Every round holds ~40k pulls, so the bytes bound
-// the early and late rounds (C or R near n: 328 MB at n = 20000,
-// d = 4096), which hold most of a run's bound, and the operations bound the
-// middle rounds. The tiling and the deterministic split over R are shared
-// with dot_centrality.cu (centrality_tile.cuh).
-#include "centrality_tile.cuh"
+// 3 * C * R * d operations. One correlated-SH run goes from (n, 2) to (2, n)
+// with ~20k-40k pairs a round, so the bytes of the long operand bound the
+// skinny rounds at either end (328 MB, 98 us, for a (20000, 2) round at
+// d = 4096), which hold most of a run's bound, and latency the middle ones.
+// A fixed square tile wastes up to 63/64 of its work on the skinny rounds
+// and leaves most SMs idle on the middle ones, so the wrapper picks one of
+// the two paths of pairwise_tile.cuh (centrality_plan in
+// pairwise_distance.py; S_c = its crossover) with a centrality epilogue:
+//
+//  * stream path, min(C, R) <= S_c: the short rows sit in shared memory and
+//    warps stream the long operand once, 16 bytes a lane. With R short the
+//    lanes weight their row's distances and a shuffle tree writes S[c]; with
+//    C short each lane keeps its candidate's weighted sum over the warp's
+//    rows, the block sums its warps in order into a (grid, C) partial, and
+//    a second pass sums the grid in a fixed order.
+//  * tile path, both sides > S_c: the cluster-split 32 x 32 tile; rank 0
+//    weights the complete tile, sums its rows into an (r-tiles, C) partial,
+//    and the second pass sums the r-tiles.
+//
+// Full fp32, d summed in groups of at most 256 columns, no atomics: two
+// launches are bit-equal. The arguments (path, grid, splits) come from
+// centrality_plan; `scratch` (C * R floats) holds the running d sums where
+// the stream path takes several d slabs, `partial` the rows of the second
+// pass (pairwise::centrality_rows); either may be null where unused.
+#include "pairwise_tile.cuh"
 
 namespace {
 
@@ -25,9 +44,11 @@ struct L1Op : centrality::L1Pair {
 }  // namespace
 
 extern "C" int l1_centrality_launch(const float* x, const float* y,
-                                    const float* w, float* partial,
-                                    float* out, long long C, long long R,
-                                    long long d, int splits,
+                                    const float* w, float* scratch,
+                                    float* partial, float* out, long long C,
+                                    long long R, long long d, int path,
+                                    int grid, int splits,
                                     cudaStream_t stream) {
-  return centrality::launch<L1Op>(x, y, nullptr, nullptr, w, partial, out, C, R, d, splits, stream);
+  return pairwise::launch_centrality<L1Op>(x, y, nullptr, nullptr, w, scratch, partial, out, C,
+                                           R, d, path, grid, splits, stream);
 }

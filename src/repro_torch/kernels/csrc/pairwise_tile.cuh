@@ -1,6 +1,8 @@
 // The two pairwise kernels (dot_pairwise.cu, l1_pairwise.cu): the (C, R)
 // block of d sums D[c, r] = sum_k op(x[c,k], y[r,k]), op a GramPair or
-// L1Pair of centrality_tile.cuh, written to out[c * R + r].
+// L1Pair of centrality_tile.cuh, written to out[c * R + r]. The same two
+// paths carry l1_centrality.cu with a centrality epilogue (Sink below):
+// the weighted row sums of the block, which never reaches device memory.
 //
 // Shapes on the k-medoids path decide the design. The BUILD and SWAP
 // halvings run rounds from (n, 1) to (2, n) with about 20k-40k pairs each;
@@ -155,6 +157,22 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// Where the d sums D[c, r] go. The pairwise kernels (CEN false) write the
+// (C, R) block to `out`. The centrality kernels (CEN true) write the
+// weighted row sums S[c] = sum_r w[r] * Op::finish(D[c, r], xaux[c], yaux[r])
+// instead: the block never reaches device memory.
+struct Sink {
+  float* out;            // the (C, R) block, or the (C,) sums
+  float* scratch;        // CEN, stream path over several d slabs: running d sums
+  float* partial;        // CEN: (rows, C) row sums for a second pass, or `out`
+  const float* w;        // CEN: (R,) weights, or null for all 1
+  const float* xaux;     // CEN: (C,) and (R,) inputs of finish, or null (0)
+  const float* yaux;
+};
+
+__device__ __forceinline__ float aux(const float* a, int64_t i) { return a != nullptr ? a[i] : 0.f; }
+__device__ __forceinline__ float weight(const float* w, int64_t i) { return w != nullptr ? w[i] : 1.f; }
+
 // Stream path. short_x: x (C rows) is the short operand, else y (R rows).
 // MS: the short row count rounded up to a power of two. VW: 4 for float4
 // loads, 1 for scalar ones. A warp takes L long rows a pass, so each
@@ -164,27 +182,40 @@ __device__ __forceinline__ void cp_async_wait() {
 // a later slab adds its sums to what the same lane wrote for the earlier
 // ones (a sum of slab sums, in slab order). Within a slab a lane sums at
 // most 256 d terms per pair before the warp reduces them into `total`.
-template <class Op, int MS, int L, int VW>
+//
+// Centrality epilogue, at the last slab, when lane m holds D for short row m
+// and the warp's long row n: with R short (n a candidate) the lanes weight
+// their D and a shuffle tree sums them into S[n]; with C short (lane m a
+// candidate) lane m adds w[n] * D into a register sum over the warp's long
+// rows (in groups of 256 rows), the block sums its warps in warp order and
+// writes one row of `partial`, which a second pass sums over the grid.
+template <class Op, bool CEN, int MS, int L, int VW>
 __global__ void __launch_bounds__(S_THREADS, 2)
-stream_kernel(const float* __restrict__ x, const float* __restrict__ y,
-              float* __restrict__ out, int64_t C, int64_t R, int64_t d,
-              int64_t slab, bool short_x) {
+stream_kernel(const float* __restrict__ x, const float* __restrict__ y, Sink sink,
+              int64_t C, int64_t R, int64_t d, int64_t slab, bool short_x) {
   using V = typename Vec<VW>::T;
   constexpr int U = S_CHUNK / (32 * VW * L);   // loads per row per lane
   constexpr int FOLD = 256 / (U * VW);         // chunks per group sum
   extern __shared__ __align__(16) float sh[];
   const float* __restrict__ sp = short_x ? x : y;
   const float* __restrict__ lp = short_x ? y : x;
+  float* __restrict__ out = sink.out;
   const int M = (int)(short_x ? C : R);
   const int64_t N = short_x ? R : C;
   const int lane = threadIdx.x & 31;
   const int64_t warp0 = (int64_t)blockIdx.x * S_WARPS + (threadIdx.x >> 5);
   const int64_t nwarps = (int64_t)gridDim.x * S_WARPS;
+  // CEN: this lane's short row's weight (R short) and finish input
+  const float w_lane = CEN && !short_x && lane < M ? weight(sink.w, lane) : 0.f;
+  const float a_lane = CEN && lane < M ? aux(short_x ? sink.xaux : sink.yaux, lane) : 0.f;
+  float csum = 0.f, cgrp = 0.f;   // CEN, C short: this lane's weighted sum
+  int crows = 0;
 
   // d == 0 runs one empty slab, which writes zeros.
   for (int64_t k0 = 0; k0 == 0 || k0 < d; k0 += slab) {
     const int kw = (int)(d - k0 < slab ? d - k0 : slab);
     const int kv = kw / VW;
+    const bool last = k0 + slab >= d;
     __syncthreads();   // the previous slab's readers are done
     // every copy of the slab in flight at once, then one wait
     for (int e = threadIdx.x; e < M * kv; e += S_THREADS) {
@@ -248,10 +279,41 @@ stream_kernel(const float* __restrict__ x, const float* __restrict__ y,
         warp_sums<MS, 16>(acc[l], lane);
         total[l] += acc[l][0];
         const int64_t n = n0 + l;
-        if (lane < M && n < N) {
-          const int64_t idx = short_x ? (int64_t)lane * N + n : n * M + lane;
-          out[idx] = k0 == 0 ? total[l] : out[idx] + total[l];
+        const int64_t idx = short_x ? (int64_t)lane * N + n : n * M + lane;
+        if constexpr (!CEN) {
+          if (lane < M && n < N) out[idx] = k0 == 0 ? total[l] : out[idx] + total[l];
+        } else {
+          const bool valid = lane < M && n < N;
+          const float dsum = valid && k0 != 0 ? sink.scratch[idx] + total[l] : total[l];
+          if (!last) {
+            if (valid) sink.scratch[idx] = dsum;
+          } else if (!short_x) {   // R short: S[n] over the lanes
+            float v = valid ? Op::finish(dsum, aux(sink.xaux, n), a_lane) * w_lane : 0.f;
+#pragma unroll
+            for (int off = 16; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+            if (lane == 0 && n < N) out[n] = v;
+          } else if (valid) {      // C short: lane m's sum over long rows
+            cgrp += Op::finish(dsum, a_lane, aux(sink.yaux, n)) * weight(sink.w, n);
+            if (++crows == 256) {
+              csum += cgrp;
+              cgrp = 0.f;
+              crows = 0;
+            }
+          }
         }
+      }
+    }
+  }
+  if constexpr (CEN) {
+    if (short_x) {   // the block's warps in warp order: one row of partial
+      __syncthreads();   // the last slab's readers are done with sh
+      sh[threadIdx.x] = csum + cgrp;
+      __syncthreads();
+      if (threadIdx.x < M) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < S_WARPS; ++w) s += sh[w * 32 + threadIdx.x];
+        sink.partial[(int64_t)blockIdx.x * C + threadIdx.x] = s;
       }
     }
   }
@@ -285,11 +347,14 @@ __device__ __forceinline__ void load_slab(float (*dst)[T_PAD], const float* __re
 
 // Tile path. A cluster of `splits` consecutive blocks shares one output
 // tile; block rank q sums d columns [q * run, min(d, (q + 1) * run)).
-template <class Op, int VW>
+// Centrality epilogue: rank 0 weights the complete tile, sums each row's 32
+// columns (its own two, then a shuffle tree over the 16 lanes of the row)
+// and writes row r-tile of `partial`, which a second pass sums over the
+// r-tiles.
+template <class Op, bool CEN, int VW>
 __global__ void __launch_bounds__(T_THREADS)
-tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
-            float* __restrict__ out, int64_t C, int64_t R, int64_t d,
-            int64_t n_rtiles, int64_t run) {
+tile_kernel(const float* __restrict__ x, const float* __restrict__ y, Sink sink,
+            int64_t C, int64_t R, int64_t d, int64_t n_rtiles, int64_t run) {
   extern __shared__ __align__(16) float ring[];   // T_SMEM bytes
   auto xs = reinterpret_cast<float (*)[T_TILE][T_PAD]>(ring);
   auto ys = reinterpret_cast<float (*)[T_TILE][T_PAD]>(ring + T_STAGES * T_TILE * T_PAD);
@@ -372,64 +437,85 @@ tile_kernel(const float* __restrict__ x, const float* __restrict__ y,
         for (int jj = 0; jj < 2; ++jj)
           acc[ii][jj] += rp[(ty + 16 * ii) * (T_TILE + 1) + tx + 16 * jj];
     }
+    if constexpr (!CEN) {
 #pragma unroll
-    for (int ii = 0; ii < 2; ++ii) {
-      const int64_t c = c0 + ty + 16 * ii;
-      if (c >= C) continue;
+      for (int ii = 0; ii < 2; ++ii) {
+        const int64_t c = c0 + ty + 16 * ii;
+        if (c >= C) continue;
 #pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int64_t r = r0 + tx + 16 * jj;
-        if (r < R) out[c * R + r] = acc[ii][jj];
+        for (int jj = 0; jj < 2; ++jj) {
+          const int64_t r = r0 + tx + 16 * jj;
+          if (r < R) sink.out[c * R + r] = acc[ii][jj];
+        }
+      }
+    } else {
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii) {
+        const int64_t c = c0 + ty + 16 * ii;
+        const float xa = c < C ? aux(sink.xaux, c) : 0.f;
+        float v = 0.f;
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) {
+          const int64_t r = r0 + tx + 16 * jj;
+          if (r < R) v += Op::finish(acc[ii][jj], xa, aux(sink.yaux, r)) * weight(sink.w, r);
+        }
+#pragma unroll
+        for (int off = 8; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off, 16);
+        if (tx == 0 && c < C) sink.partial[(r0 / T_TILE) * C + c] = v;
       }
     }
   }
   cluster.sync();   // no block leaves while rank 0 may read its tile
 }
 
-template <class Op, int MS, int L, int VW>
-inline cudaError_t launch_stream_kernel(const float* x, const float* y, float* out, int64_t C,
-                                        int64_t R, int64_t d, int64_t slab, int grid,
+template <class Op, bool CEN, int MS, int L, int VW>
+inline cudaError_t launch_stream_kernel(const float* x, const float* y, const Sink& sink,
+                                        int64_t C, int64_t R, int64_t d, int64_t slab, int grid,
                                         bool short_x, cudaStream_t stream) {
   const int64_t M = short_x ? C : R;
-  const size_t smem = (size_t)(M * (slab < d ? slab : d)) * sizeof(float);
+  size_t smem = (size_t)(M * (slab < d ? slab : d)) * sizeof(float);
+  if (CEN && short_x && smem < S_THREADS * sizeof(float))
+    smem = S_THREADS * sizeof(float);   // the block's sum over its warps
   if (smem > 48 * 1024) {
     // Above 48 KB only after an opt-in, made once per kernel (and so never
     // inside a CUDA-graph capture that follows an eager first call).
     static const cudaError_t err = cudaFuncSetAttribute(
-        stream_kernel<Op, MS, L, VW>, cudaFuncAttributeMaxDynamicSharedMemorySize, S_SMEM);
+        stream_kernel<Op, CEN, MS, L, VW>, cudaFuncAttributeMaxDynamicSharedMemorySize, S_SMEM);
     if (err != cudaSuccess) return err;
   }
-  stream_kernel<Op, MS, L, VW><<<grid, S_THREADS, smem, stream>>>(x, y, out, C, R, d, slab,
-                                                                  short_x);
+  stream_kernel<Op, CEN, MS, L, VW><<<grid, S_THREADS, smem, stream>>>(x, y, sink, C, R, d,
+                                                                       slab, short_x);
   return cudaGetLastError();
 }
 
 // 4 long rows a pass for MS 8 and 16 with 16-byte loads, where the long
 // side gives every warp of the grid at least one such pass; else 2.
-template <class Op, int MS>
-inline cudaError_t launch_stream_ms(const float* x, const float* y, float* out, int64_t C,
+template <class Op, bool CEN, int MS>
+inline cudaError_t launch_stream_ms(const float* x, const float* y, const Sink& sink, int64_t C,
                                     int64_t R, int64_t d, int64_t slab, int grid, bool vec,
                                     bool short_x, cudaStream_t stream) {
   if (!vec)
-    return launch_stream_kernel<Op, MS, 2, 1>(x, y, out, C, R, d, slab, grid, short_x, stream);
+    return launch_stream_kernel<Op, CEN, MS, 2, 1>(x, y, sink, C, R, d, slab, grid, short_x,
+                                                   stream);
   if constexpr (MS == 8 || MS == 16) {
     const int64_t N = short_x ? R : C;
     if (N >= (int64_t)S_ROWS_WIDE * S_WARPS * grid)
-      return launch_stream_kernel<Op, MS, S_ROWS_WIDE, 4>(x, y, out, C, R, d, slab, grid,
-                                                          short_x, stream);
+      return launch_stream_kernel<Op, CEN, MS, S_ROWS_WIDE, 4>(x, y, sink, C, R, d, slab, grid,
+                                                               short_x, stream);
   }
-  return launch_stream_kernel<Op, MS, 2, 4>(x, y, out, C, R, d, slab, grid, short_x, stream);
+  return launch_stream_kernel<Op, CEN, MS, 2, 4>(x, y, sink, C, R, d, slab, grid, short_x,
+                                                 stream);
 }
 
-template <class Op>
-inline cudaError_t launch_stream(const float* x, const float* y, float* out, int64_t C,
+template <class Op, bool CEN>
+inline cudaError_t launch_stream(const float* x, const float* y, const Sink& sink, int64_t C,
                                  int64_t R, int64_t d, int64_t slab, int grid, bool vec,
                                  cudaStream_t stream) {
   const bool short_x = C <= R;
   const int64_t M = short_x ? C : R;
   auto go = [&](auto ms) {   // MS = the short row count's power of two
-    return launch_stream_ms<Op, decltype(ms)::value>(x, y, out, C, R, d, slab, grid, vec,
-                                                     short_x, stream);
+    return launch_stream_ms<Op, CEN, decltype(ms)::value>(x, y, sink, C, R, d, slab, grid, vec,
+                                                          short_x, stream);
   };
   if (M <= 1) return go(std::integral_constant<int, 1>{});
   if (M <= 2) return go(std::integral_constant<int, 2>{});
@@ -439,40 +525,45 @@ inline cudaError_t launch_stream(const float* x, const float* y, float* out, int
   return go(std::integral_constant<int, 32>{});
 }
 
-// Launches one path on `stream` for C, R >= 1 and returns the launch's
-// error code as an int. path, grid and splits come from pairwise_plan:
-// stream path, `grid` blocks and `splits` d slabs; tile path, `grid` =
-// tiles * splits blocks in clusters of `splits` along d.
-template <class Op>
-inline int launch(const float* x, const float* y, float* out, int64_t C, int64_t R,
-                  int64_t d, int path, int grid, int splits, cudaStream_t stream) {
+// The stream path's slab width from `splits`: ceil(d / splits) rounded up
+// to whole lane passes of 4 columns (at least one, so that the slab loop
+// advances when d == 0); 0 where the short rows' slab exceeds the budget.
+inline int64_t stream_slab(int64_t M, int64_t d, int splits) {
+  int64_t slab = (d + splits - 1) / splits;
+  slab = (slab + S_SLAB_ALIGN - 1) / S_SLAB_ALIGN * S_SLAB_ALIGN;
+  if (slab < S_SLAB_ALIGN) slab = S_SLAB_ALIGN;
+  if (M * (slab < d ? slab : d) * (int64_t)sizeof(float) > S_SMEM) return 0;
+  return slab;
+}
+
+// One launch of either path's first pass for C, R >= 1, with the checks of
+// `launch` below; returns the launch's error code.
+template <class Op, bool CEN>
+inline cudaError_t launch_path(const float* x, const float* y, const Sink& sink, int64_t C,
+                               int64_t R, int64_t d, int path, int grid, int splits,
+                               cudaStream_t stream) {
   const bool vec = d % 4 == 0 && ((uintptr_t)x % 16) == 0 && ((uintptr_t)y % 16) == 0;
-  if (C < 1 || R < 1 || d < 0 || grid < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  if (C < 1 || R < 1 || d < 0 || grid < 1 || splits < 1) return cudaErrorInvalidValue;
   if (path == PATH_STREAM) {
     const int64_t M = C <= R ? C : R;
-    if (M > S_MAX_SHORT) return (int)cudaErrorInvalidValue;
-    // slab: ceil(d / splits) rounded up to whole lane passes of 4 columns
-    // (at least one, so that the slab loop advances when d == 0)
-    int64_t slab = (d + splits - 1) / splits;
-    slab = (slab + S_SLAB_ALIGN - 1) / S_SLAB_ALIGN * S_SLAB_ALIGN;
-    if (slab < S_SLAB_ALIGN) slab = S_SLAB_ALIGN;
-    if (slab < d && M * slab * (int64_t)sizeof(float) > S_SMEM) return (int)cudaErrorInvalidValue;
-    if (d <= slab && M * d * (int64_t)sizeof(float) > S_SMEM) return (int)cudaErrorInvalidValue;
-    return (int)launch_stream<Op>(x, y, out, C, R, d, slab, grid, vec, stream);
+    if (M > S_MAX_SHORT) return cudaErrorInvalidValue;
+    const int64_t slab = stream_slab(M, d, splits);
+    if (slab == 0) return cudaErrorInvalidValue;
+    return launch_stream<Op, CEN>(x, y, sink, C, R, d, slab, grid, vec, stream);
   }
-  if (path != PATH_TILE || splits > T_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  if (path != PATH_TILE || splits > T_MAX_CLUSTER) return cudaErrorInvalidValue;
   const int64_t n_rtiles = (R + T_TILE - 1) / T_TILE;
   const int64_t tiles = ((C + T_TILE - 1) / T_TILE) * n_rtiles;
-  if (tiles * splits != (int64_t)grid) return (int)cudaErrorInvalidValue;
+  if (tiles * splits != (int64_t)grid) return cudaErrorInvalidValue;
   const int64_t nsl = (d + T_BK - 1) / T_BK;
   const int64_t run = (nsl + splits - 1) / splits * T_BK;
   {   // the ring's dynamic shared memory, opted into once per kernel
     static const cudaError_t e4 = cudaFuncSetAttribute(
-        tile_kernel<Op, 4>, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
+        tile_kernel<Op, CEN, 4>, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
     static const cudaError_t e1 = cudaFuncSetAttribute(
-        tile_kernel<Op, 1>, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
+        tile_kernel<Op, CEN, 1>, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
     const cudaError_t err = vec ? e4 : e1;
-    if (err != cudaSuccess) return (int)err;
+    if (err != cudaSuccess) return err;
   }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3((unsigned)grid);
@@ -486,11 +577,81 @@ inline int launch(const float* x, const float* y, float* out, int64_t C, int64_t
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err = vec ? cudaLaunchKernelEx(&cfg, tile_kernel<Op, 4>, x, y, out, C, R, d,
+  cudaError_t err = vec ? cudaLaunchKernelEx(&cfg, tile_kernel<Op, CEN, 4>, x, y, sink, C, R, d,
                                              n_rtiles, run)
-                        : cudaLaunchKernelEx(&cfg, tile_kernel<Op, 1>, x, y, out, C, R, d,
+                        : cudaLaunchKernelEx(&cfg, tile_kernel<Op, CEN, 1>, x, y, sink, C, R, d,
                                              n_rtiles, run);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
+
+// Launches one path on `stream` for C, R >= 1 and returns the launch's
+// error code as an int. path, grid and splits come from pairwise_plan:
+// stream path, `grid` blocks and `splits` d slabs; tile path, `grid` =
+// tiles * splits blocks in clusters of `splits` along d.
+template <class Op>
+inline int launch(const float* x, const float* y, float* out, int64_t C, int64_t R,
+                  int64_t d, int path, int grid, int splits, cudaStream_t stream) {
+  const Sink sink = {out, nullptr, nullptr, nullptr, nullptr, nullptr};
+  return (int)launch_path<Op, false>(x, y, sink, C, R, d, path, grid, splits, stream);
+}
+
+// out[c] = sum over rows k of partial[k, c]: one warp a column, lane l
+// taking rows l, l + 32, ... in groups of 256 rows, then a shuffle tree.
+// The order of every addition is fixed.
+__global__ void reduce_rows_kernel(const float* __restrict__ partial, float* __restrict__ out,
+                                   int64_t C, int64_t rows) {
+  const int64_t c = ((int64_t)blockIdx.x * blockDim.x + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (c >= C) return;   // a warp-uniform exit
+  float s = 0.f, g = 0.f;
+  int count = 0;
+  for (int64_t k = lane; k < rows; k += 32) {
+    g += partial[k * C + c];
+    if (++count == 256) {
+      s += g;
+      g = 0.f;
+      count = 0;
+    }
+  }
+  s += g;
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) out[c] = s;
+}
+
+// The rows of partial one centrality launch writes for its second pass, or
+// 1 when the first pass writes out directly: the grid of a C-short stream
+// launch, the r-tiles of a tile launch.
+inline int64_t centrality_rows(int64_t C, int64_t R, int path, int grid) {
+  if (path == PATH_STREAM) return C <= R ? grid : 1;
+  return (R + T_TILE - 1) / T_TILE;
+}
+
+// Fused centrality on the two paths: S[c] = sum_r w[r] * Op::finish(D[c, r],
+// xaux[c], yaux[r]) for C, R >= 1 (Op: a Pair of centrality_tile.cuh plus a
+// finish). path, grid and splits as for `launch` (centrality_plan in
+// pairwise_distance.py). `scratch` holds C * R floats where the stream path
+// takes several d slabs, `partial` centrality_rows * C floats where that
+// exceeds 1; either may be null otherwise. Launches the first pass and, with
+// several rows of partial, reduce_rows_kernel.
+template <class Op>
+inline int launch_centrality(const float* x, const float* y, const float* xaux,
+                             const float* yaux, const float* w, float* scratch, float* partial,
+                             float* out, int64_t C, int64_t R, int64_t d, int path, int grid,
+                             int splits, cudaStream_t stream) {
+  if (C < 1 || R < 1 || d < 0 || grid < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  const int64_t rows = centrality_rows(C, R, path, grid);
+  if (rows > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
+  if (path == PATH_STREAM) {
+    const int64_t slab = stream_slab(C <= R ? C : R, d, splits);
+    if (slab != 0 && slab < d && scratch == nullptr) return (int)cudaErrorInvalidValue;
+  }
+  const Sink sink = {out, scratch, rows > 1 ? partial : out, w, xaux, yaux};
+  cudaError_t err = launch_path<Op, true>(x, y, sink, C, R, d, path, grid, splits, stream);
+  if (err != cudaSuccess || rows == 1) return (int)err;
+  const int64_t blocks = (C * 32 + 255) / 256;
+  reduce_rows_kernel<<<(unsigned)blocks, 256, 0, stream>>>(partial, out, C, rows);
   return (int)cudaGetLastError();
 }
 

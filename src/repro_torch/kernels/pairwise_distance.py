@@ -8,9 +8,10 @@ Wrapper, the TPU kernel it replaces in that file, and its CUDA source in
 * ``dot_centrality``: ``dot_centrality`` / ``_dot_centrality_kernel``,
   ``dot_centrality.cu``;
 * ``l1_centrality``: ``l1_centrality`` / ``_l1_centrality_kernel``,
-  ``l1_centrality.cu``;
+  ``l1_centrality.cu`` (the two paths of ``pairwise_tile.cuh`` with a
+  centrality epilogue, chosen by :func:`centrality_plan`);
 * ``topk_rank``: ``topk_smallest`` / ``_topk_rank_kernel``,
-  ``topk_smallest.cu``;
+  ``topk_smallest.cu`` (a tiled sort, planned by :func:`topk_rank_plan`);
 * ``topk_select``: ``topk_smallest`` / ``_topk_select_kernel``,
   ``topk_smallest.cu``;
 * ``dot_pairwise``: ``dot_pairwise`` / ``_dot_kernel``, ``dot_pairwise.cu``;
@@ -46,9 +47,8 @@ from repro_torch.kernels import build
 LAUNCHES: Counter = Counter()
 
 _TILE = 64                     # BC == BR in csrc/centrality_tile.cuh
-_MAX_BLOCKS = 2 ** 31 - 1      # the pairwise kernels' one-dimensional grid
+_MAX_BLOCKS = 2 ** 31 - 1      # a one-dimensional grid
 _PLAIN_BLOCK = 1 << 24         # elements of l1_pairwise_plain's broadcast
-_RANK_TILE = 1024              # RANK_TILE in csrc/topk_smallest.cu
 DOT_METRICS = {"sql2": 0, "l2": 1, "cosine": 2}
 
 
@@ -189,8 +189,8 @@ def l1_centrality(x: torch.Tensor, y: torch.Tensor,
     Returns (C,) float32 sums.
 
     Replaces ``l1_centrality`` (``src/repro/kernels/pairwise_distance.py``).
-    Bound: the bytes of x and y in the rounds where C or R is small, the
-    ``3 C R d`` fp32 operations elsewhere (``csrc/l1_centrality.cu``).
+    Bound: the long operand's bytes on the skinny rounds (stream path),
+    latency on the middle rounds (tile path); see ``csrc/l1_centrality.cu``.
     """
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"l1_centrality: bad shapes {tuple(x.shape)}, "
@@ -201,18 +201,10 @@ def l1_centrality(x: torch.Tensor, y: torch.Tensor,
         _check("l1_centrality", t, torch.float32, shape)
     if not _on_cuda("l1_centrality", x, y, w):
         return l1_centrality_plain(x, y, w)
-    out = torch.empty(c, dtype=torch.float32, device=x.device)
-    if c == 0:
-        return out
-    splits, partial = _split_scratch(c, r, x.device)
-    fn = build.function("l1_centrality_launch")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(x.data_ptr(), y.data_ptr(), _ptr(w), _ptr(partial),
-                  out.data_ptr(), c, r, d, splits, stream)
-    build.check("l1_centrality_launch", code)
-    LAUNCHES["l1_centrality"] += 1
-    return out
+    if c == 0 or r == 0:   # an empty sum
+        return torch.zeros(c, dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return launch_l1_centrality(x, y, w, centrality_plan(c, r, d, sms))
 
 
 # ------------------------------- topk_smallest ------------------------------
@@ -233,31 +225,78 @@ def topk_rank_plain(keys: torch.Tensor) -> torch.Tensor:
     return rank
 
 
+# topk_rank's tiled sort (csrc/topk_smallest.cu): keys in tiles of at most
+# RANK_TILE, each sorted by one thread-block cluster of up to
+# _RANK_MAX_CLUSTER blocks that share the keys outside the tile. A tile's
+# bitonic sort costs about twice the one of half its size, its foreign
+# searches shrink with it. On an H100 tiles of 512 beat 1024 and 2048 at
+# every C of 2048-20000 but 10000, and 8-block clusters beat 3 and 6 at
+# C = 20000 and 10000 (chip_smoke.py times them, PERF.md).
+RANK_TILE = 512
+_RANK_MIN_TILE = 64
+_RANK_MAX_TILE = 8192          # the largest tile topk_smallest.cu builds
+_RANK_MAX_CLUSTER = 8
+
+
+def topk_rank_plan(n: int, sms: int, *,
+                   tile: int = RANK_TILE) -> tuple[int, int]:
+    """``(tile, cluster)`` of one ``topk_rank`` launch over ``n >= 1`` keys
+    on a card with ``sms`` multiprocessors: one block and the least power
+    of two >= n (at least 64) where n fits a tile, else tiles of ``tile``
+    keys, each sorted by a cluster of up to 8 blocks, enough to put about
+    ``2048 // tile`` blocks (of ``tile / 2`` threads, at most 1024) on
+    every SM. The grid is ``ceil(n / tile) * cluster``."""
+    if tile & (tile - 1) or not _RANK_MIN_TILE <= tile <= _RANK_MAX_TILE:
+        raise ValueError(f"topk_rank_plan: tile {tile} is not a power of "
+                         f"two in [{_RANK_MIN_TILE}, {_RANK_MAX_TILE}]")
+    if n <= tile:
+        return max(_RANK_MIN_TILE, 1 << (n - 1).bit_length()), 1
+    tiles = -(-n // tile)
+    per_sm = max(1, 2048 // tile)
+    return tile, max(1, min(_RANK_MAX_CLUSTER, per_sm * sms // tiles))
+
+
+def launch_topk_rank(keys: torch.Tensor,
+                     plan: tuple[int, int]) -> torch.Tensor:
+    """One ``topk_rank`` launch on CUDA keys with ``plan``, a
+    ``topk_rank_plan`` result: the wrapper passes the default one,
+    ``chip_smoke.py`` forces other tiles to time them. Counts in
+    ``LAUNCHES``."""
+    n = keys.shape[0]
+    tile, cluster = plan
+    if -(-n // tile) * cluster > _MAX_BLOCKS:
+        raise ValueError(f"topk_rank: {n} keys need more than {_MAX_BLOCKS} "
+                         f"blocks")
+    rank = torch.empty(n, dtype=torch.int32, device=keys.device)
+    fn = build.function("topk_rank_launch")
+    with torch.cuda.device(keys.device):
+        stream = torch.cuda.current_stream(keys.device).cuda_stream
+        code = fn(keys.data_ptr(), rank.data_ptr(), n, tile, cluster, stream)
+    build.check("topk_rank_launch", code)
+    LAUNCHES["topk_rank"] += 1
+    return rank
+
+
 def topk_rank(keys: torch.Tensor) -> torch.Tensor:
     """Stable ascending rank of int32 keys: (n,) int32 -> (n,) int32.
 
     Replaces ``_topk_rank_kernel`` of ``topk_smallest``
-    (``src/repro/kernels/pairwise_distance.py``). Bound: its ``n^2``
-    comparisons (``csrc/topk_smallest.cu``)."""
+    (``src/repro/kernels/pairwise_distance.py``). Bound: launch latency;
+    its ``8 n`` bytes take under a microsecond (``csrc/topk_smallest.cu``).
+    """
     if keys.ndim != 1:
         raise ValueError(f"topk_rank: expected 1-D keys, got "
                          f"{tuple(keys.shape)}")
     n = keys.shape[0]
     _check("topk_rank", keys, torch.int32, (n,))
-    if n > 2 ** 31 - 1 - _RANK_TILE:
+    if n > 2 ** 31 - 1:
         raise ValueError(f"topk_rank: {n} keys exceed the int32 index range")
     if not _on_cuda("topk_rank", keys):
         return topk_rank_plain(keys)
-    rank = torch.empty(n, dtype=torch.int32, device=keys.device)
     if n == 0:
-        return rank
-    fn = build.function("topk_rank_launch")
-    with torch.cuda.device(keys.device):
-        stream = torch.cuda.current_stream(keys.device).cuda_stream
-        code = fn(keys.data_ptr(), rank.data_ptr(), n, stream)
-    build.check("topk_rank_launch", code)
-    LAUNCHES["topk_rank"] += 1
-    return rank
+        return torch.empty(0, dtype=torch.int32, device=keys.device)
+    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    return launch_topk_rank(keys, topk_rank_plan(n, sms))
 
 
 def topk_select_plain(rank: torch.Tensor, keep: int) -> torch.Tensor:
@@ -366,6 +405,75 @@ def pairwise_plan(c: int, r: int, d: int, sms: int, *,
     splits = max(1, min(_MAX_CLUSTER, -(-sms // tiles), slabs))
     splits = -(-slabs // -(-slabs // splits))  # no rank without a slab
     return TILE, tiles * splits, splits
+
+
+def _stream_slab(d: int, splits: int) -> int:
+    """The stream path's d slab from ``splits``, as ``stream_slab`` in
+    ``csrc/pairwise_tile.cuh`` derives it: ceil(d / splits) rounded up to
+    whole 128-column lane passes, at least one."""
+    slab = -(-d // splits)
+    return max(_STREAM_SLAB_ALIGN,
+               -(-slab // _STREAM_SLAB_ALIGN) * _STREAM_SLAB_ALIGN)
+
+
+# l1_centrality's crossover between the same two paths (with a centrality
+# epilogue): the stream path takes every shape whose short side has at most
+# CENTRALITY_S rows. chip_smoke.py times both paths at 8-24 short rows.
+CENTRALITY_S = 20
+
+
+def centrality_plan(c: int, r: int, d: int, sms: int, *,
+                    crossover: int = CENTRALITY_S) -> tuple[str, int, int]:
+    """``(path, grid, splits)`` of one ``l1_centrality`` launch for
+    ``c, r >= 1``: the launch geometry of :func:`pairwise_plan` with the
+    centrality crossover. The stream path's epilogue writes S directly
+    when R is short and a ``(grid, C)`` partial when C is short; the tile
+    path's an ``(r-tiles, C)`` partial (see :func:`centrality_scratch`)."""
+    return pairwise_plan(c, r, d, sms, crossover=crossover)
+
+
+def centrality_scratch(c: int, r: int, d: int,
+                       plan: tuple[str, int, int]) -> tuple[int, int]:
+    """``(scratch floats, partial rows)`` of one centrality launch with
+    ``plan``: C * R running d sums where the stream path takes several d
+    slabs (else 0), and the rows a second pass sums (1: none, the first
+    pass writes S), as ``centrality_rows`` in ``csrc/pairwise_tile.cuh``."""
+    path, grid, splits = plan
+    if path == STREAM:
+        scratch = c * r if _stream_slab(d, splits) < d else 0
+        return scratch, (grid if c <= r else 1)
+    return 0, -(-r // _PAIR_TILE)
+
+
+def launch_l1_centrality(x: torch.Tensor, y: torch.Tensor,
+                         w: Optional[torch.Tensor],
+                         plan: tuple[str, int, int]) -> torch.Tensor:
+    """One ``l1_centrality`` launch on CUDA tensors x (C, d), y (R, d),
+    w (R,) or None with ``plan``, a ``centrality_plan`` result for
+    (C, R, d), C and R >= 1: the wrapper passes the default one,
+    ``chip_smoke.py`` forces either path to time both on each side of the
+    crossover. Counts in ``LAUNCHES``."""
+    c, d = x.shape
+    r = y.shape[0]
+    kind, grid, splits = plan
+    if grid > _MAX_BLOCKS:
+        raise ValueError(f"l1_centrality: ({c}, {r}) needs {grid} blocks, "
+                         f"more than {_MAX_BLOCKS}")
+    n_scratch, rows = centrality_scratch(c, r, d, plan)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device) \
+        if n_scratch else None
+    partial = torch.empty((rows, c), dtype=torch.float32, device=x.device) \
+        if rows > 1 else None
+    out = torch.empty(c, dtype=torch.float32, device=x.device)
+    fn = build.function("l1_centrality_launch")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = fn(x.data_ptr(), y.data_ptr(), _ptr(w), _ptr(scratch),
+                  _ptr(partial), out.data_ptr(), c, r, d, _PATH_CODE[kind],
+                  grid, splits, stream)
+    build.check("l1_centrality_launch", code)
+    LAUNCHES["l1_centrality"] += 1
+    return out
 
 
 def launch_pairwise(name: str, x: torch.Tensor, y: torch.Tensor,

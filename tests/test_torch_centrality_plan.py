@@ -1,0 +1,244 @@
+"""Launch plans of the redesigned ``l1_centrality`` and ``topk_rank``
+kernels, pure functions the CPU can hold, and the tiled sort's arithmetic.
+
+* ``centrality_plan``: which path each round of the main path takes, and
+  that every grid, cluster, slab and scratch it asks for fits the H100's
+  launch limits and the checks ``csrc/pairwise_tile.cuh`` makes before it
+  launches.
+* ``topk_rank_plan`` and an emulation, in torch and in this file only, of
+  what ``csrc/topk_smallest.cu`` computes: composite keys, a sort per tile,
+  ``lower_bound`` counts of the foreign keys and an inclusive scan, held
+  against ``topk_rank_plain`` (and so against ``argsort(stable=True)``).
+
+The kernels themselves run only on a card (``tests/test_torch_gpu.py``).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.engine.schedule import round_schedule
+from repro_torch.kernels import ops
+from repro_torch.kernels import pairwise_distance as pk
+
+pytestmark = pytest.mark.torch_port
+
+SMS = 132                       # H100 SXM
+MAX_GRID = 2 ** 31 - 1          # gridDim.x
+MAX_CLUSTER = 8                 # portable cluster size
+SMEM_BLOCK = 227 * 1024         # shared memory a block can use
+TILE, BK = 32, 32               # T_TILE, T_BK
+SLAB_ALIGN, STREAM_SMEM = 128, 112 * 1024   # S_SLAB_ALIGN, S_SMEM
+STREAM_THREADS = 256            # S_THREADS
+N = 20000
+WIDTHS = (0, 1, 4, 257, 784, 1024, 4096, 28000)
+
+
+def _rounds(n, budget_per_arm):
+    return [(rd.survivors, rd.num_refs)
+            for rd in round_schedule(n, budget_per_arm * n)]
+
+
+# find_medoid's rounds (30 per arm), k-medoids BUILD step 0 (16), the
+# refinement buckets 1024-8192 (20), and the corners
+SHAPES = sorted(set(_rounds(N, 30) + _rounds(N, 16)
+                    + [s for nb in (1024, 2048, 4096, 8192)
+                       for s in _rounds(nb, 20)]
+                    + [(1, 1), (1, N), (N, 1)]))
+
+
+def _check_limits(c, r, d, plan):
+    path, grid, splits = plan
+    assert 1 <= grid <= MAX_GRID and splits >= 1
+    n_scratch, rows = pk.centrality_scratch(c, r, d, plan)
+    if path == pk.STREAM:
+        m, n = min(c, r), max(c, r)
+        assert grid <= 2 * SMS and (grid - 1) * 16 < n   # no idle block
+        slab = pk._stream_slab(d, splits)
+        assert m * min(slab, d) * 4 <= STREAM_SMEM <= SMEM_BLOCK
+        # the block's sum over its warps fits the slab's shared memory
+        assert max(m * min(slab, d) * 4, STREAM_THREADS * 4) <= STREAM_SMEM
+        assert splits == 1 if d == 0 else -(-d // slab) <= splits
+        assert n_scratch == (c * r if slab < d else 0)
+        assert rows == (grid if c <= r else 1)
+        return
+    tiles = -(-c // TILE) * -(-r // TILE)
+    slabs = max(1, -(-d // BK))
+    assert 1 <= splits <= MAX_CLUSTER and grid == tiles * splits
+    run = -(-slabs // splits)
+    assert (splits - 1) * run < slabs         # every rank has d columns
+    assert n_scratch == 0 and rows == -(-r // TILE)
+
+
+@pytest.mark.parametrize("c, r", SHAPES)
+def test_plan_picks_the_path_and_fits_the_launch_limits(c, r):
+    """The stream path exactly where min(C, R) <= CENTRALITY_S, and a
+    grid, cluster, slab and scratch that the card and the C launcher
+    accept at every width from 1 to 28000 (and 0), forced paths too."""
+    for d in WIDTHS:
+        plan = pk.centrality_plan(c, r, d, SMS)
+        assert plan[0] == (pk.STREAM if min(c, r) <= pk.CENTRALITY_S
+                           else pk.TILE), (c, r, d)
+        _check_limits(c, r, d, plan)
+        for forced in (0, 32):
+            fplan = pk.centrality_plan(c, r, d, SMS, crossover=forced)
+            assert fplan[0] == (pk.STREAM if min(c, r) <= forced
+                                else pk.TILE)
+            _check_limits(c, r, d, fplan)
+
+
+def test_main_path_rounds_take_both_paths_in_both_orientations():
+    """A find_medoid run at n = 20000 takes the stream path with R short
+    (early rounds) and with C short (late rounds), and the tile path in
+    between; the crossover shapes lie inside the schedule."""
+    kinds = set()
+    for c, r in _rounds(N, 30):
+        path, _, _ = pk.centrality_plan(c, r, 4096, SMS)
+        kinds.add((path, None if path == pk.TILE else c <= r))
+    assert kinds == {(pk.STREAM, False), (pk.STREAM, True), (pk.TILE, None)}
+
+
+@pytest.mark.parametrize("budget_per_arm", (16, 30))
+def test_middle_rounds_fill_the_card(budget_per_arm):
+    """Each tile-path round of a halving at n = 20000 puts at least 100
+    blocks on the 132 SMs (the old 64 x 64 tile gave a few dozen)."""
+    for c, r in _rounds(N, budget_per_arm):
+        path, grid, _ = pk.centrality_plan(c, r, 1024, SMS)
+        if path == pk.TILE:
+            assert grid >= 100, (c, r, grid)
+
+
+def test_plan_corners_and_bad_crossovers():
+    assert pk.centrality_plan(1, 1, 1, SMS) == (pk.STREAM, 1, 1)
+    assert pk.centrality_plan(1, 1, 1, SMS, crossover=0) == (pk.TILE, 1, 1)
+    assert pk.centrality_scratch(1, 1, 1, (pk.TILE, 1, 1)) == (0, 1)
+    for bad in (-1, 33):
+        with pytest.raises(ValueError, match="crossover"):
+            pk.centrality_plan(4, 4, 4, SMS, crossover=bad)
+
+
+@pytest.mark.parametrize("c, r, d", ((5000, 8, 4096), (16, 2500, 4096),
+                                     (20, 2000, 4096), (2, 20000, 28000)))
+def test_wide_short_rows_keep_running_sums(c, r, d):
+    """Several d slabs: a C x R scratch of running sums, slabs within the
+    shared-memory budget."""
+    plan = pk.centrality_plan(c, r, d, SMS)
+    assert plan[0] == pk.STREAM and plan[2] > 1
+    assert pk.centrality_scratch(c, r, d, plan)[0] == c * r
+    assert min(c, r) * pk._stream_slab(d, plan[2]) * 4 <= STREAM_SMEM
+
+
+def test_cpu_tensors_take_the_plain_version():
+    x = torch.rand(7, 5)
+    y = torch.rand(9, 5)
+    w = (torch.rand(9) > 0.5).float()
+    before = pk.LAUNCHES["l1_centrality"]
+    got = pk.l1_centrality(x, y, w)
+    want = (x[:, None] - y[None]).abs().sum(-1) @ w
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+    assert pk.LAUNCHES["l1_centrality"] == before
+
+
+# ------------------------------------------------------------ topk_rank
+
+@pytest.mark.parametrize("n", (1, 2, 63, 64, 65, 1000, 2047, 2048, 2049,
+                               4097, 6424, 8192, 8193, 20000, 10 ** 6))
+def test_rank_plan_fits_the_launch_limits(n):
+    """One block where n fits a tile, else ceil(n / tile) tiles, each
+    sorted by a cluster of 1-8 blocks."""
+    for tile in (512, 1024, 2048, 4096, 8192):
+        t, cl = pk.topk_rank_plan(n, SMS, tile=tile)
+        assert t & (t - 1) == 0 and 64 <= t <= 8192
+        assert 1 <= cl <= MAX_CLUSTER
+        tiles = -(-n // t)
+        if n <= tile:
+            assert (tiles, cl) == (1, 1) and t >= n and (t == 64 or t < 2 * n)
+        else:   # about 2048 // tile blocks a SM, or one a tile
+            assert t == tile
+            assert tiles * cl <= max(max(1, 2048 // t) * SMS, tiles)
+        # dynamic shared memory: tile keys (8 bytes) and counts (4 bytes)
+        assert t * 12 <= SMEM_BLOCK
+        assert tiles * cl <= MAX_GRID
+
+
+def test_rank_plan_rejects_bad_tiles():
+    for bad in (32, 3000, 16384):
+        with pytest.raises(ValueError, match="tile"):
+            pk.topk_rank_plan(10, SMS, tile=bad)
+
+
+def _emulate_rank(keys: torch.Tensor, tile: int) -> torch.Tensor:
+    """The arithmetic of ``topk_rank_kernel``: composite keys, a sort per
+    tile, the branchless ``lower_bound`` of each foreign key in the sorted
+    tile, counts per position and their inclusive scan."""
+    n = keys.shape[0]
+    idx = torch.arange(n, dtype=torch.int64)
+    # the kernel's uint64 (key + 2^31) << 32 | i moved into int64's signed
+    # range (key << 32 | i): the same order, distinct keys
+    u = (keys.long() << 32) | idx
+    pad = torch.iinfo(torch.int64).max                  # above every u
+    rank = torch.empty(n, dtype=torch.int32)
+    for t0 in range(0, n, tile):
+        m = min(tile, n - t0)
+        s = torch.full((tile,), pad, dtype=torch.int64)
+        s[:m] = torch.sort(u[t0:t0 + m]).values
+        foreign = torch.cat([u[:t0], u[t0 + m:]])
+        p = torch.zeros(foreign.shape[0], dtype=torch.int64)
+        step = tile // 2
+        while step >= 1:
+            p += torch.where(s[p + step - 1] < foreign, step, 0)
+            step //= 2
+        p += (s[p] < foreign).long()
+        hist = torch.bincount(p[p < m], minlength=tile)[:tile]
+        cnt = torch.cumsum(hist, 0)
+        pos = torch.arange(m)
+        rank[(s[:m] & 0xFFFFFFFF)] = (pos + cnt[:m]).int()
+    return rank
+
+
+def _key_cases(n, seed):
+    rng = np.random.default_rng(seed)
+    theta = rng.standard_normal(n).astype(np.float32)
+    theta[::7] = 0.0
+    theta[::11] = -0.0
+    theta[::13] = np.inf
+    theta[::17] = -np.inf
+    theta[::19] = np.nan
+    theta[::23] = -np.nan
+    theta[::5] = theta[0]
+    extremes = rng.integers(-3, 3, n).astype(np.int32)
+    extremes[::3] = 2 ** 31 - 1
+    extremes[1::3] = -2 ** 31
+    return {
+        "ties": ops.totalorder_keys(torch.from_numpy(theta)),
+        "equal": torch.full((n,), 7, dtype=torch.int32),
+        "extremes": torch.from_numpy(extremes),
+        "distinct": ops.totalorder_keys(
+            torch.from_numpy(rng.random(n).astype(np.float32))),
+    }
+
+
+@pytest.mark.parametrize("n", (1, 2, 3, 63, 64, 65, 127, 128, 129, 255,
+                               256, 257, 511, 513))
+def test_tiled_sort_emulation_matches_plain(n):
+    """At C around a tile (64 here, the kernel's smallest; its arithmetic
+    does not depend on the size): ties, +-0.0, +-NaN, +-inf, all-equal
+    keys and the int32 extremes give the plain rank, whose select is the
+    stable argsort."""
+    for kind, keys in _key_cases(n, n).items():
+        want = pk.topk_rank_plain(keys)
+        for tile in (64, 128):
+            got = _emulate_rank(keys, tile)
+            assert torch.equal(got, want), (kind, tile)
+        np.testing.assert_array_equal(
+            pk.topk_select_plain(want, n).numpy(),
+            torch.argsort(keys, stable=True).numpy())
+
+
+@pytest.mark.parametrize("n", (pk.RANK_TILE - 1, pk.RANK_TILE,
+                               pk.RANK_TILE + 1, 2 * pk.RANK_TILE + 1))
+def test_tiled_sort_emulation_at_the_kernel_tile(n):
+    """The same at C around the kernel's tile, with its plan's tile."""
+    t, _ = pk.topk_rank_plan(n, SMS)
+    for kind, keys in _key_cases(n, 7 * n).items():
+        assert torch.equal(_emulate_rank(keys, t),
+                           pk.topk_rank_plain(keys)), kind

@@ -26,32 +26,101 @@ def cuda():
     return torch.device("cuda")
 
 
+# l1_centrality's crossover (from the plan's constant) on both paths in both
+# orientations, the skinny and middle rounds, and d % 4 != 0
+SC = pk.CENTRALITY_S
+
+
 @pytest.mark.parametrize("metric", ("l1", "l2", "sql2", "cosine"))
 @pytest.mark.parametrize("shape", ((1, 1, 1), (77, 131, 300), (130, 65, 257),
-                                   (2000, 3, 784), (3, 3000, 784)))
+                                   (2000, 3, 784), (3, 3000, 784),
+                                   (5000, 2, 4096), (2, 5000, 4096),
+                                   (SC, 3000, 1024), (3000, SC + 1, 1024),
+                                   (SC + 1, 3000, 1024), (3000, SC, 1024),
+                                   (157, 135, 784), (2000, 3, 783),
+                                   (3, 2000, 1023), (40, 37, 257)))
 def test_centrality_kernels_match_plain(cuda, metric, shape):
+    """With and without a random 0/1 reference mask, and on x as a
+    contiguous view 4 bytes past a 16-byte boundary (``buf[1:].view(c,
+    d)``, read 4 bytes at a time); two launches on the same input must be
+    bit-equal."""
     c, r, d = shape
     g = torch.Generator(device=cuda).manual_seed(c * r + d)
     x = torch.rand(c, d, device=cuda, generator=g)
     y = torch.rand(r, d, device=cuda, generator=g)
     w = (torch.rand(r, device=cuda, generator=g) > 0.3).float()
-    for mask in (None, w):
-        before = pk.LAUNCHES.copy()
-        got = ops.kernel_centrality_sums(x, y, metric=metric, ref_mask=mask)
-        want = ops.kernel_centrality_sums(x.cpu(), y.cpu(), metric=metric,
-                                          ref_mask=None if mask is None
-                                          else mask.cpu())
-        torch.cuda.synchronize()
-        kern = "l1_centrality" if metric == "l1" else "dot_centrality"
-        assert pk.LAUNCHES[kern] == before[kern] + 1
-        # rtol 1e-5, floor 1e-5 of the largest sum, l2 self-pair allowance
+    xm = torch.rand(c * d + 1, device=cuda, generator=g)[1:].view(c, d)
+    assert xm.data_ptr() % 16 != 0
+    kern = "l1_centrality" if metric == "l1" else "dot_centrality"
+    for xx in (x, xm):
+        for mask in (None, w):
+            before = pk.LAUNCHES.copy()
+            got = ops.kernel_centrality_sums(xx, y, metric=metric,
+                                             ref_mask=mask)
+            again = ops.kernel_centrality_sums(xx, y, metric=metric,
+                                               ref_mask=mask)
+            want = ops.kernel_centrality_sums(xx.cpu(), y.cpu(),
+                                              metric=metric,
+                                              ref_mask=None if mask is None
+                                              else mask.cpu())
+            torch.cuda.synchronize()
+            assert pk.LAUNCHES[kern] == before[kern] + 2
+            assert torch.equal(got, again)
+            # rtol 1e-5, floor 1e-5 of the largest sum, l2 self-pair
+            # allowance
+            tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
+            if metric == "l2":
+                tol = tol + 1e-3 * float(
+                    torch.cat([xx, y]).norm(dim=1).max()) * r
+            assert bool(((got.cpu() - want).abs() <= tol).all())
+
+
+def test_l1_centrality_both_paths_and_empty_sums(cuda):
+    """Both forced paths agree with the plain version on each side of the
+    crossover, and C = 0, R = 0 and d = 0 give empty or zero sums."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for c, r, d in ((SC, 3000, 1024), (3000, SC + 1, 1024), (12, 12, 64)):
+        x = torch.rand(c, d, device=cuda, generator=g)
+        y = torch.rand(r, d, device=cuda, generator=g)
+        want = pk.l1_centrality_plain(x, y, None)
         tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
-        if metric == "l2":
-            tol = tol + 1e-3 * float(torch.cat([x, y]).norm(dim=1).max()) * r
-        assert bool(((got.cpu() - want).abs() <= tol).all())
+        for forced in (32, 0):
+            plan = pk.centrality_plan(c, r, d, sms, crossover=forced)
+            got = pk.launch_l1_centrality(x, y, None, plan)
+            assert bool(((got - want).abs() <= tol).all()), plan
+    for c, r, d in ((0, 5, 3), (5, 0, 3), (5, 7, 0)):
+        got = pk.l1_centrality(torch.rand(c, d, device=cuda),
+                               torch.rand(r, d, device=cuda))
+        assert got.shape == (c,) and bool((got == 0).all())
 
 
-@pytest.mark.parametrize("c", (1, 2, 129, 5000))
+def _rank_keys(c, kind, g, device):
+    """int32 rank keys: floats with ties, -0.0/+0.0, +-inf and NaNs of
+    both signs; all-equal keys; or the int32 extremes with ties."""
+    if kind == "floats":
+        theta = torch.randn(c, device=device, generator=g)
+        theta[::3] = 0.0
+        theta[::5] = -0.0
+        theta[::7] = float("inf")
+        theta[::11] = -float("inf")
+        theta[::13] = float("nan")
+        theta[::17] = -float("nan")
+        return ops.totalorder_keys(theta), theta
+    if kind == "equal":
+        return torch.full((c,), 7, dtype=torch.int32, device=device), None
+    keys = torch.randint(-3, 3, (c,), device=device, generator=g,
+                         dtype=torch.int32)
+    keys[::3] = 2 ** 31 - 1
+    keys[1::3] = -2 ** 31
+    return keys, None
+
+
+T = pk.RANK_TILE
+
+
+@pytest.mark.parametrize("c", (1, 2, 129, 5000, T - 1, T, T + 1, 2 * T + 1,
+                               20000))
 def test_topk_kernels_bit_equal(cuda, c):
     g = torch.Generator(device=cuda).manual_seed(c)
     theta = torch.randn(c, device=cuda, generator=g)
@@ -66,6 +135,22 @@ def test_topk_kernels_bit_equal(cuda, c):
         np.testing.assert_array_equal(
             ops.kernel_topk_smallest(theta, keep=keep).cpu().numpy(),
             torch.argsort(keys.cpu(), stable=True)[:keep].numpy())
+    # NaNs of both signs and +-inf, all-equal keys, the int32 extremes
+    for kind in ("floats", "equal", "extremes"):
+        keys, theta = _rank_keys(c, kind, g, cuda)
+        before = pk.LAUNCHES["topk_rank"]
+        rank = pk.topk_rank(keys)
+        torch.cuda.synchronize()
+        assert pk.LAUNCHES["topk_rank"] == before + 1
+        np.testing.assert_array_equal(rank.cpu().numpy(),
+                                      pk.topk_rank_plain(keys.cpu()).numpy())
+        np.testing.assert_array_equal(
+            pk.topk_select(rank, c).cpu().numpy(),
+            torch.argsort(keys.cpu(), stable=True).numpy())
+        if theta is not None:
+            np.testing.assert_array_equal(
+                ops.kernel_topk_smallest(theta, keep=c).cpu().numpy(),
+                torch.argsort(keys.cpu(), stable=True).numpy())
 
 
 def test_find_medoid_on_card_matches_cpu(cuda):
