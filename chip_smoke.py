@@ -21,11 +21,15 @@ nonzero:
    pairwise kernels are also checked on both sides of their crossover
    ``PAIRWISE_S``, at d % 4 != 0, on a view that starts 4 bytes past a
    16-byte boundary and for bit-equal repeats, and both of their paths are
-   timed on either side of the crossover; so are ``l1_centrality``'s two
-   paths on either side of ``CENTRALITY_S`` (every centrality check also
-   holds two launches bit-equal), and ``topk_rank`` at each candidate tile
-   and cluster, checked bit-equal on all-equal and int32-extreme keys and
-   around its tile;
+   timed on either side of the crossover; so are both paths of the two
+   centrality kernels on either side of their crossovers (``l1_centrality``
+   at d = 1024 and 4096 around ``CENTRALITY_S``, ``dot_centrality`` for l2
+   at d = 784 and cosine at d = 2048 around ``DOT_CENTRALITY_S``; every
+   centrality check also holds two launches bit-equal), and
+   ``topk_rank`` at each candidate tile and cluster, checked bit-equal on
+   all-equal and int32-extreme keys and around its tile. Each
+   ``find_medoid`` cell's centrality launches are split by shape class as
+   in phase 4;
 3. the single-query main path at full size: ``repro_torch.api.find_medoid``
    (corr_sh, budget 30 per arm) on the six cells below with the kernel
    launch counters zeroed just before each run and read just after. Each
@@ -41,11 +45,14 @@ nonzero:
    the ``reference`` backend's on the card with the same key (or the costs
    agree to rtol 1e-5, both printed). Each cell's pairwise launches are
    split by shape class (kernel against library) and by path, and the main
-   path must take both paths; ``l1_centrality``'s launches likewise by
-   class (skinny R-short and C-short, middle, masked refinement) beside the
-   two-call yardstick ``cdist(p=1)`` and a row sum. Then ``topk_rank`` at
-   every C of the main path against ``argsort(stable=True)``, and one line
-   of exact PAM at n = 2048 (printed only).
+   path must take both paths; the centrality kernel's launches likewise by
+   class (skinny R-short and C-short, middle, masked refinement) and path,
+   beside a two-call yardstick: the (C, R) distance block by one PyTorch
+   call (``cdist``, ``cdist(p=1)``, ``1 - x @ y.T`` of unit rows) and a row
+   sum or ``@ w``; both centrality kernels must take the stream path in
+   both orientations and the tile path. Then ``topk_rank`` at every C of
+   the main path against ``argsort(stable=True)``, and one line of exact
+   PAM at n = 2048 (printed only).
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the rest
@@ -109,6 +116,7 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                     f"{PALLAS}:121"),
 }
 PAIRWISE = ("dot_pairwise", "l1_pairwise")
+CENTRALITY = ("l1_centrality", "dot_centrality")
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -370,13 +378,68 @@ def main() -> int:
         nops = (3 if metric == "l1" else 2) * c * r * d
         if reps == 0:
             return err, 0.0, 0.0, nbytes, nops, None
-        if metric == "l1":
-            # the two-call yardstick, kept out of library_ms
-            twocall[(c, r, d, w is not None)] = timed(
-                lambda: torch.cdist(xk, yk, p=1) @ w if w is not None
-                else torch.cdist(xk, yk, p=1).sum(1), reps)
+        twocall[(metric, c, r, d, w is not None)] = timed(
+            yardstick(metric, xk, yk, w), reps)
         return (err, timed(kern, reps), timed(plain, max(1, reps // 4)),
                 nbytes, nops, None)
+
+    def yardstick(metric, xk, yk, w):
+        """The two-call yardstick of a centrality kernel on its inputs: the
+        (C, R) distance block by one PyTorch call, then a row sum or
+        ``@ w``. No single call computes the function, so it stays out of
+        library_ms."""
+        def block():
+            if metric == "cosine":
+                return 1.0 - xk @ yk.T         # unit rows; TF32 is off
+            dist = torch.cdist(xk, yk, p=1 if metric == "l1" else 2)
+            return dist.square() if metric == "sql2" else dist
+        return lambda: block() @ w if w is not None else block().sum(1)
+
+    def forced_centrality(metric, xk, yk, xn2, yn2, plan):
+        """One launch of the centrality kernel for ``metric`` with
+        ``plan`` (no weights)."""
+        if metric == "l1":
+            return pk.launch_l1_centrality(xk, yk, None, plan)
+        return pk.launch_dot_centrality(xk, yk, xn2, yn2, None, plan, metric)
+
+    def centrality_crossover(cases, ms):
+        """Both paths of a centrality kernel, each checked against the plain
+        version, two launches bit-equal, and timed, at (m, P // m) and
+        (P // m, m) for each m of ``ms`` and each (metric, d, P) of
+        ``cases``; a crossover of 32 forces the stream path, 0 the tile
+        path. Returns the timings and, per m, the cases the stream path
+        wins."""
+        cross, wins = [], Counter()
+        for metric, d, pulls in cases:
+            for m in ms:
+                for (c, r) in ((m, pulls // m), (pulls // m, m)):
+                    x = torch.rand(c, d, device=dev, generator=gen)
+                    y = torch.rand(r, d, device=dev, generator=gen)
+                    xk, yk, xn2, yn2 = centrality_inputs(metric, x, y)
+                    want = (pk.l1_centrality_plain(xk, yk, None)
+                            if metric == "l1" else pk.dot_centrality_plain(
+                                xk, yk, xn2, yn2, None, metric=metric))
+                    tol = _tolerance(want, metric, x, y, None)
+                    us = []
+                    for forced in (32, 0):
+                        plan = pk.centrality_plan(c, r, d, sms,
+                                                  crossover=forced)
+                        what = f"{metric} centrality {plan} at ({c}, {r}, {d})"
+                        got = forced_centrality(metric, xk, yk, xn2, yn2, plan)
+                        again = forced_centrality(metric, xk, yk, xn2, yn2,
+                                                  plan)
+                        _require(torch.equal(got, again),
+                                 f"{what}: two launches differ")
+                        _agree(got, want, tol, what)
+                        us.append(1e3 * timed(
+                            lambda plan=plan: forced_centrality(
+                                metric, xk, yk, xn2, yn2, plan), 10))
+                    wins[m] += us[0] < us[1]
+                    cross.append(f"{metric} ({c}, {r}, {d}) stream "
+                                 f"{us[0]:.2f} / tile {us[1]:.2f} us")
+        return "; ".join(cross) + "; stream path wins " + ", ".join(
+            f"m={m}: {v} of {2 * len(cases)}" for m, v in sorted(
+                wins.items()))
 
     def check_pairwise(name, x, y, reps=0):
         """The pairwise kernel ``name`` vs its plain version on the card;
@@ -456,7 +519,7 @@ def main() -> int:
 
     led = Ledger()
     cache = {}
-    twocall = {}   # (C, R, d, masked) -> ms of cdist(p=1) and a row sum
+    twocall = {}   # (metric, C, R, d, masked) -> ms of the yardstick
 
     def shape_time(kern, ds, c, r=0, metric="", masked=False):
         """Check and time ``kern`` once per shape on rows of dataset ``ds``
@@ -522,22 +585,27 @@ def main() -> int:
     def rounds_of(n):
         return executed_rounds(n, BUDGET_PER_ARM * n)
 
-    def l1_classes(plan, ds, d):
-        """l1_centrality's launches of ``plan`` by shape class (times from
-        shape_time): skinny R-short and C-short (stream path), middle (tile
-        path), masked refinement (any path); with the two-call yardstick
-        ``cdist(x, y, p=1)`` and a row sum (or ``@ w``), and the launches
-        by path."""
+    two_calls = {"l1": "cdist(p=1), row sum", "l2": "cdist, row sum",
+                 "sql2": "cdist squared, row sum",
+                 "cosine": "1 - x @ y.T, row sum"}
+
+    def centrality_classes(kern, plan, ds, d, metric):
+        """The centrality kernel ``kern``'s launches of ``plan`` by shape
+        class (times from shape_time): skinny R-short and C-short (stream
+        path), middle (tile path), masked refinement (any path); with the
+        two-call yardstick, the launches by path, and the share of the
+        bound reached by each skinny round with C or R >= 2500."""
         by_class = {}
         big = {}   # skinny rounds with C or R >= 2500: share of the bound
-        for kern, c, r, masked in plan:
-            if kern != "l1_centrality":
+        for k, c, r, masked in plan:
+            if k != kern:
                 continue
-            path = pk.centrality_plan(c, r, d, sms)[0]
+            path = pk.centrality_plan(c, r, d, sms,
+                                      crossover=cen_s[kern])[0]
             cls = ("masked refinement" if masked else
                    "middle" if path == pk.TILE else
                    "skinny C-short" if c <= r else "skinny R-short")
-            _, ms, pms, nbytes, nops, _ = shape_time(kern, ds, c, r, "l1",
+            _, ms, pms, nbytes, nops, _ = shape_time(kern, ds, c, r, metric,
                                                      masked)
             b, o = _bound_s(nbytes, nops)
             if cls.startswith("skinny") and max(c, r) >= 2500:
@@ -545,18 +613,18 @@ def main() -> int:
             v = by_class.setdefault(cls, [0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
                                           Counter()])
             for i, add in enumerate((1, ms, b * 1e3, o * 1e3, pms,
-                                     twocall[(c, r, d, masked)])):
+                                     twocall[(metric, c, r, d, masked)])):
                 v[i] += add
             v[6] += max(b, o) * 1e3
             kind = (f"{path} {'C' if c <= r else 'R'}-short"
                     if path == pk.STREAM else path)
             v[7][kind] += 1
-            l1_paths[kind] += 1
+            cen_paths[kern][kind] += 1
         return "; ".join(
             f"{cls}: {v[0]} launches, kernel {v[1]:.3f} ms, bound {v[6]:.4f} "
             f"ms ({'bytes' if v[2] >= v[3] else 'operations'}, "
             f"{v[6] / v[1]:.1%} of it), plain {v[4]:.3f} ms, two calls "
-            f"(cdist(p=1), row sum) {v[5]:.3f} ms, kernel / two calls "
+            f"({two_calls[metric]}) {v[5]:.3f} ms, kernel / two calls "
             f"{v[1] / v[5]:.2f}, paths {dict(v[7])}"
             for cls, v in sorted(by_class.items())) + (
             f"; skinny shapes with C or R >= 2500: "
@@ -567,7 +635,9 @@ def main() -> int:
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     paths = Counter()     # (pairwise kernel, path) -> main-path launches
     rank_cs = Counter()   # C -> topk_rank launches of the main path
-    l1_paths = Counter()  # l1_centrality path -> main-path launches
+    cen_paths = {k: Counter() for k in CENTRALITY}
+    cen_s = {"l1_centrality": pk.CENTRALITY_S,
+             "dot_centrality": pk.DOT_CENTRALITY_S}
 
     def path_counts(plan, d):
         """The pairwise launches of ``plan`` by the path pairwise_plan
@@ -722,32 +792,23 @@ def main() -> int:
         tiles.append(f"C={c}: " + ", ".join(us) + " us")
     print("phase2 topk_rank by tile (tile (tile, cluster) time): "
           + "; ".join(tiles), flush=True)
-    # both l1_centrality paths, each checked and timed, on either side of
-    # the crossover at round shapes of the main path: 16 pulls per arm at
-    # n = 20000 (C R ~ 21333) for the k-medoids width, 30 (~40000) for
-    # rnaseq's; a crossover of 32 forces the stream path, 0 the tile path
+    # both paths of each centrality kernel, checked and timed on either
+    # side of the crossover at round shapes of the main path: 16 pulls per
+    # arm at n = 20000 (C R ~ 21333) for the k-medoids BUILD, 30 (~40000)
+    # for find_medoid
     t0 = time.perf_counter()
-    cross = []
-    for d, pulls in ((1024, 21333), (4096, 40000)):
-        for m in (8, 12, 16, 20, 24):
-            for (c, r) in ((m, pulls // m), (pulls // m, m)):
-                x = torch.rand(c, d, device=dev, generator=gen)
-                y = torch.rand(r, d, device=dev, generator=gen)
-                want = pk.l1_centrality_plain(x, y, None)
-                tol = _tolerance(want, "l1", x, y, None)
-                us = []
-                for forced in (32, 0):
-                    plan = pk.centrality_plan(c, r, d, sms, crossover=forced)
-                    _agree(pk.launch_l1_centrality(x, y, None, plan), want,
-                           tol, f"l1_centrality {plan} at ({c}, {r}, {d})")
-                    us.append(1e3 * timed(
-                        lambda plan=plan: pk.launch_l1_centrality(
-                            x, y, None, plan), 10))
-                cross.append(f"({c}, {r}, {d}) stream {us[0]:.2f} / tile "
-                             f"{us[1]:.2f} us")
+    line = centrality_crossover((("l1", 1024, 21333), ("l1", 4096, 40000)),
+                                (8, 12, 16, 20, 24))
     print(f"phase2 l1_centrality crossover (S_c = {pk.CENTRALITY_S}), both "
           f"paths checked and timed ({time.perf_counter() - t0:.1f} s): "
-          + "; ".join(cross), flush=True)
+          + line, flush=True)
+    t0 = time.perf_counter()
+    line = centrality_crossover((("l2", 784, 40000), ("l2", 784, 21333),
+                                 ("cosine", 2048, 40000)),
+                                (8, 12, 16, 20, 24, 28))
+    print(f"phase2 dot_centrality crossover (S_c = {pk.DOT_CENTRALITY_S}), "
+          f"both paths checked and timed ({time.perf_counter() - t0:.1f} "
+          f"s): " + line, flush=True)
 
     for name, ds, n, d, metric, backend in CELLS:
         plan = medoid_plan(n, metric, backend)
@@ -757,9 +818,11 @@ def main() -> int:
         print(f"phase2 {name}: {len(rounds_of(n))} round shapes: "
               f"{fmt_tot(tot)}" + (f"; pairwise paths {dict(counts)}"
                                    if counts else ""), flush=True)
-        if metric == "l1":
-            print(f"phase2 {name} l1_centrality by shape: "
-                  f"{l1_classes(plan, ds, d)}", flush=True)
+        for cen in CENTRALITY:
+            if cen in tot:
+                print(f"phase2 {name} {cen} by shape: "
+                      f"{centrality_classes(cen, plan, ds, d, metric)}",
+                      flush=True)
         rank_cs.update(c for kern, c, _, _ in plan if kern == "topk_rank")
 
     # ---------------------------------------------- phase 3: main path
@@ -940,9 +1003,9 @@ def main() -> int:
         counts = path_counts(plan, d)
         paths.update(counts)
         print(f"phase4 {name} {pair} by path: {dict(counts)}", flush=True)
-        if metric == "l1":
-            print(f"phase4 {name} l1_centrality by shape: "
-                  f"{l1_classes(plan, ds, d)}", flush=True)
+        cen = "l1_centrality" if metric == "l1" else "dot_centrality"
+        print(f"phase4 {name} {cen} by shape: "
+              f"{centrality_classes(cen, plan, ds, d, metric)}", flush=True)
         rank_cs.update(c for kern, c, _, _ in plan if kern == "topk_rank")
 
     taken = {p for _, p in paths}
@@ -951,11 +1014,12 @@ def main() -> int:
     print(f"phase4 pairwise launches by path over the main path: "
           f"{ {f'{k} {p}': v for (k, p), v in sorted(paths.items())} }",
           flush=True)
-    _require(set(l1_paths) == {f"{pk.STREAM} R-short",
-                               f"{pk.STREAM} C-short", pk.TILE},
-             f"l1_centrality took the paths {dict(l1_paths)} only")
-    print(f"phase4 l1_centrality launches by path over the main path: "
-          f"{dict(l1_paths)}", flush=True)
+    for cen, taken in cen_paths.items():
+        _require(set(taken) == {f"{pk.STREAM} R-short",
+                                f"{pk.STREAM} C-short", pk.TILE},
+                 f"{cen} took the paths {dict(taken)} only")
+        print(f"phase4 {cen} launches by path over the main path: "
+              f"{dict(taken)}", flush=True)
     # topk_rank at each C of the main path (times from shape_time; the
     # launch floor beside it is topk_select's time at the same C)
     slower = []

@@ -35,8 +35,8 @@ _I = ctypes.c_int
 # C entry point -> (library, argument types); every entry returns an int.
 SIGNATURES = {
     "dot_centrality_launch": ("dot_centrality",
-                              (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
-                               _I, _I, _P)),
+                              (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
+                               _I, _I, _I, _I, _P)),
     "l1_centrality_launch": ("l1_centrality",
                              (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I,
                               _I, _P)),

@@ -1,29 +1,57 @@
-// Fused Gram-metric centrality: S[c] = sum_{r valid} w[r] * f(x_c . y_r).
+// Fused Gram-metric centrality: S[c] = sum_r w[r] * f(x_c . y_r).
 //
 // Replaces the TPU kernel dot_centrality / _dot_centrality_kernel in
-// src/repro/kernels/pairwise_distance.py. The epilogue f is applied to the
-// complete fp32 dot over d (sqrt does not commute with the d sum):
+// src/repro/kernels/pairwise_distance.py. The finish f is applied to the
+// complete fp32 dot over d (a sqrt does not commute with the d sum):
 //   sql2:   max(|x|^2 + |y|^2 - 2 g, 0)
 //   l2:     sqrt of sql2
 //   cosine: 1 - g, on rows the caller normalised to unit length.
 // Squared norms and the unit-row normalisation stay outside the kernel, as
-// in repro/kernels/ops.py. The (C, R) block never reaches device memory.
+// in repro/kernels/ops.py, and reach the finish as the Sink's xaux / yaux
+// (null for cosine). The (C, R) block never reaches device memory.
 //
 // Bound on an H100: each round moves (C + R) * d * 4 bytes and does
-// 2 * C * R * d flops. Early rounds (R = 2..64) are bound by the bytes of x,
-// late rounds (C = 2..40, R up to n) by the bytes of y, and only the middle
-// rounds (C and R near sqrt(40k pulls)) by the flops. The FMA stage is
-// plain fp32 on the CUDA cores: a TF32 Gram keeps about three decimal digits
-// and can flip the halving on near-ties. See centrality_tile.cuh for the
-// tiling and the deterministic split over R.
-#include "centrality_tile.cuh"
+// 2 * C * R * d flops. One correlated-SH run goes from (n, 2) to (2, n)
+// with ~20k-40k pairs a round, so the bytes of the long operand bound the
+// skinny rounds at either end (62.7 MB, 18.7 us, for a (20000, 2) round at
+// d = 784), which hold most of a run's bound, and latency the middle ones;
+// the k-medoids refinement's masked rounds (buckets of 1024-8192 rows)
+// move a few MB and are bound by latency. A fixed square tile wastes up to
+// 63/64 of its FMAs on the skinny rounds and leaves most SMs idle on the
+// small ones, so the wrapper picks one of the two paths of pairwise_tile.cuh
+// (centrality_plan in pairwise_distance.py; S_c = its crossover) with a
+// centrality epilogue:
+//
+//  * stream path, min(C, R) <= S_c: the short rows sit in shared memory and
+//    warps stream the long operand once, 16 bytes a lane. Where the short
+//    rows exceed the block's 112 KB (netflix's 16 and 20 rows at d = 2048)
+//    they are staged in d slabs, the running d sums kept in a C x R scratch
+//    and f applied at the last slab only. With R short the lanes weight
+//    their row's distances and a shuffle tree writes S[c]; with C short each
+//    lane keeps its candidate's weighted sum over the warp's rows, the block
+//    sums its warps in order into a (grid, C) partial, and a second pass
+//    sums the grid in a fixed order.
+//  * tile path, both sides > S_c: the cluster-split 32 x 32 tile; rank 0
+//    applies f to the complete tile the cluster has summed, weights it,
+//    sums its rows into an (r-tiles, C) partial, and the second pass sums
+//    the r-tiles.
+//
+// The Gram is plain fp32 FFMA on the CUDA cores: a TF32 Gram keeps about
+// three decimal digits and can flip the halving on near-ties, and no round
+// of the main path is bound by flops. d is summed in groups of at most 256
+// columns, no atomics: two launches are bit-equal. The arguments (path,
+// grid, splits) come from centrality_plan; `scratch` (C * R floats) holds
+// the running d sums where the stream path takes several d slabs, `partial`
+// the rows of the second pass (pairwise::centrality_rows); either may be
+// null where unused.
+#include "pairwise_tile.cuh"
 
 namespace {
 
 enum Metric { kSql2 = 0, kL2 = 1, kCosine = 2 };
 
 template <int M>
-struct DotOp : centrality::GramPair {
+struct DotOp : pairwise::GramPair {
   static __device__ __forceinline__ float finish(float g, float xn2, float yn2) {
     if (M == kCosine) return 1.f - g;
     const float sq = fmaxf(xn2 + yn2 - 2.f * g, 0.f);
@@ -35,17 +63,22 @@ struct DotOp : centrality::GramPair {
 
 extern "C" int dot_centrality_launch(const float* x, const float* y,
                                      const float* xn2, const float* yn2,
-                                     const float* w, float* partial,
-                                     float* out, long long C, long long R,
-                                     long long d, int metric, int splits,
+                                     const float* w, float* scratch,
+                                     float* partial, float* out, long long C,
+                                     long long R, long long d, int metric,
+                                     int path, int grid, int splits,
                                      cudaStream_t stream) {
   switch (metric) {
     case kSql2:
-      return centrality::launch<DotOp<kSql2>>(x, y, xn2, yn2, w, partial, out, C, R, d, splits, stream);
+      return pairwise::launch_centrality<DotOp<kSql2>>(x, y, xn2, yn2, w, scratch, partial, out,
+                                                       C, R, d, path, grid, splits, stream);
     case kL2:
-      return centrality::launch<DotOp<kL2>>(x, y, xn2, yn2, w, partial, out, C, R, d, splits, stream);
+      return pairwise::launch_centrality<DotOp<kL2>>(x, y, xn2, yn2, w, scratch, partial, out, C,
+                                                     R, d, path, grid, splits, stream);
     case kCosine:
-      return centrality::launch<DotOp<kCosine>>(x, y, xn2, yn2, w, partial, out, C, R, d, splits, stream);
+      return pairwise::launch_centrality<DotOp<kCosine>>(x, y, nullptr, nullptr, w, scratch,
+                                                         partial, out, C, R, d, path, grid,
+                                                         splits, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -27,6 +27,6 @@ extern "C" int dot_pairwise_launch(const float* x, const float* y, float* out,
                                    long long C, long long R, long long d,
                                    int path, int grid, int splits,
                                    cudaStream_t stream) {
-  return pairwise::launch<centrality::GramPair>(x, y, out, C, R, d, path, grid, splits,
+  return pairwise::launch<pairwise::GramPair>(x, y, out, C, R, d, path, grid, splits,
                                                 stream);
 }

@@ -35,7 +35,7 @@
 
 namespace {
 
-struct L1Op : centrality::L1Pair {
+struct L1Op : pairwise::L1Pair {
   static __device__ __forceinline__ float finish(float s, float, float) {
     return s;
   }

@@ -1,8 +1,9 @@
 // The two pairwise kernels (dot_pairwise.cu, l1_pairwise.cu): the (C, R)
 // block of d sums D[c, r] = sum_k op(x[c,k], y[r,k]), op a GramPair or
-// L1Pair of centrality_tile.cuh, written to out[c * R + r]. The same two
-// paths carry l1_centrality.cu with a centrality epilogue (Sink below):
-// the weighted row sums of the block, which never reaches device memory.
+// L1Pair (below), written to out[c * R + r]. The same two paths carry the
+// two centrality kernels (dot_centrality.cu, l1_centrality.cu) with a
+// centrality epilogue (Sink below): the weighted row sums of the block after
+// a finish of each complete d sum, and the block never reaches device memory.
 //
 // Shapes on the k-medoids path decide the design. The BUILD and SWAP
 // halvings run rounds from (n, 1) to (2, n) with about 20k-40k pairs each;
@@ -33,11 +34,14 @@
 //
 // Both paths: full fp32 FFMA on the CUDA cores (no TF32, no tensor cores);
 // no running sum spans more than 256 d terms before it joins a sum of group
-// sums (see centrality_tile.cuh); no atomics and a fixed summation order, so
-// two launches on the same input are bit-equal; 64-bit offsets; rows past C
-// or R and columns past d are zeros or guarded, never written. 16-byte
-// loads need d % 4 == 0 and 16-byte-aligned bases (a contiguous view may
-// start at any element), else both paths load 4 bytes at a time.
+// sums (one running sum over d = 4096 terms of simplex rows drifted 6e-5
+// from the plain version on an H100, beyond the 1e-5 tolerance); no atomics
+// and a fixed summation order, so two launches on the same input are
+// bit-equal; 64-bit offsets (an n = 100k, d = 28k matrix exceeds 2^31
+// elements); rows past C or R and columns past d are zeros or guarded,
+// never written. 16-byte loads need d % 4 == 0 and 16-byte-aligned bases (a
+// contiguous view may start at any element), else both paths load 4 bytes
+// at a time.
 #pragma once
 
 #include <cooperative_groups.h>
@@ -46,11 +50,25 @@
 
 #include <type_traits>
 
-#include "centrality_tile.cuh"
-
 namespace pairwise {
 
 namespace cg = cooperative_groups;
+
+// The d-sum operations: pair(acc, a, b) accumulates one d column. A
+// centrality Op adds finish(s, xa, yb), which maps a complete d sum to the
+// pair's distance given per-row and per-reference inputs (squared norms for
+// the Gram metrics, unused by l1).
+struct GramPair {
+  static __device__ __forceinline__ float pair(float acc, float a, float b) {
+    return fmaf(a, b, acc);
+  }
+};
+
+struct L1Pair {
+  static __device__ __forceinline__ float pair(float acc, float a, float b) {
+    return acc + fabsf(a - b);
+  }
+};
 
 constexpr int PATH_STREAM = 0;
 constexpr int PATH_TILE = 1;
@@ -629,8 +647,7 @@ inline int64_t centrality_rows(int64_t C, int64_t R, int path, int grid) {
 }
 
 // Fused centrality on the two paths: S[c] = sum_r w[r] * Op::finish(D[c, r],
-// xaux[c], yaux[r]) for C, R >= 1 (Op: a Pair of centrality_tile.cuh plus a
-// finish). path, grid and splits as for `launch` (centrality_plan in
+// xaux[c], yaux[r]) for C, R >= 1 (Op: a Pair above plus a finish). path, grid and splits as for `launch` (centrality_plan in
 // pairwise_distance.py). `scratch` holds C * R floats where the stream path
 // takes several d slabs, `partial` centrality_rows * C floats where that
 // exceeds 1; either may be null otherwise. Launches the first pass and, with

@@ -8,8 +8,9 @@ Wrapper, the TPU kernel it replaces in that file, and its CUDA source in
 * ``dot_centrality``: ``dot_centrality`` / ``_dot_centrality_kernel``,
   ``dot_centrality.cu``;
 * ``l1_centrality``: ``l1_centrality`` / ``_l1_centrality_kernel``,
-  ``l1_centrality.cu`` (the two paths of ``pairwise_tile.cuh`` with a
-  centrality epilogue, chosen by :func:`centrality_plan`);
+  ``l1_centrality.cu`` (both centrality kernels take one of the two paths
+  of ``pairwise_tile.cuh`` with a centrality epilogue, chosen by
+  :func:`centrality_plan`);
 * ``topk_rank``: ``topk_smallest`` / ``_topk_rank_kernel``,
   ``topk_smallest.cu`` (a tiled sort, planned by :func:`topk_rank_plan`);
 * ``topk_select``: ``topk_smallest`` / ``_topk_select_kernel``,
@@ -46,7 +47,6 @@ from repro_torch.kernels import build
 # CUDA kernel counts, never a call that took the plain version.
 LAUNCHES: Counter = Counter()
 
-_TILE = 64                     # BC == BR in csrc/centrality_tile.cuh
 _MAX_BLOCKS = 2 ** 31 - 1      # a one-dimensional grid
 _PLAIN_BLOCK = 1 << 24         # elements of l1_pairwise_plain's broadcast
 DOT_METRICS = {"sql2": 0, "l2": 1, "cosine": 2}
@@ -87,23 +87,6 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
-def _splits(c: int, r: int, device: torch.device) -> int:
-    """How many blocks share one candidate tile's references: enough to put
-    about two blocks on every SM when C alone gives too few tiles."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    c_tiles = -(-c // _TILE)
-    r_tiles = -(-r // _TILE)
-    return max(1, min(r_tiles, -(-2 * sms // c_tiles)))
-
-
-def _split_scratch(c: int, r: int, device: torch.device):
-    """(splits, the (splits, C) partial-sum scratch or None for one split)."""
-    splits = _splits(c, r, device)
-    partial = torch.empty((splits, c), dtype=torch.float32, device=device) \
-        if splits > 1 else None
-    return splits, partial
-
-
 # ------------------------------- dot_centrality -----------------------------
 
 def dot_centrality_plain(x: torch.Tensor, y: torch.Tensor,
@@ -135,8 +118,9 @@ def dot_centrality(x: torch.Tensor, y: torch.Tensor,
     float32 reference weights or None (all 1). Returns (C,) float32 sums.
 
     Replaces ``dot_centrality`` (``src/repro/kernels/pairwise_distance.py``).
-    Bound: the bytes of x and y in the rounds where C or R is small, the
-    ``2 C R d`` fp32 flops elsewhere (``csrc/dot_centrality.cu``).
+    Bound: the long operand's bytes on the skinny rounds (stream path),
+    latency on the middle and masked refinement rounds (tile path); see
+    ``csrc/dot_centrality.cu``.
     """
     if metric not in DOT_METRICS:
         raise ValueError(f"dot_centrality does not support metric {metric!r}")
@@ -155,19 +139,11 @@ def dot_centrality(x: torch.Tensor, y: torch.Tensor,
         _check("dot_centrality", t, torch.float32, shape)
     if not _on_cuda("dot_centrality", x, y, xn2, yn2, w):
         return dot_centrality_plain(x, y, xn2, yn2, w, metric=metric)
-    out = torch.empty(c, dtype=torch.float32, device=x.device)
-    if c == 0:
-        return out
-    splits, partial = _split_scratch(c, r, x.device)
-    fn = build.function("dot_centrality_launch")
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(x.data_ptr(), y.data_ptr(), _ptr(xn2), _ptr(yn2), _ptr(w),
-                  _ptr(partial), out.data_ptr(), c, r, d, DOT_METRICS[metric],
-                  splits, stream)
-    build.check("dot_centrality_launch", code)
-    LAUNCHES["dot_centrality"] += 1
-    return out
+    if c == 0 or r == 0:   # an empty sum
+        return torch.zeros(c, dtype=torch.float32, device=x.device)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    plan = centrality_plan(c, r, d, sms, crossover=DOT_CENTRALITY_S)
+    return launch_dot_centrality(x, y, xn2, yn2, w, plan, metric)
 
 
 # ------------------------------- l1_centrality ------------------------------
@@ -416,19 +392,26 @@ def _stream_slab(d: int, splits: int) -> int:
                -(-slab // _STREAM_SLAB_ALIGN) * _STREAM_SLAB_ALIGN)
 
 
-# l1_centrality's crossover between the same two paths (with a centrality
-# epilogue): the stream path takes every shape whose short side has at most
-# CENTRALITY_S rows. chip_smoke.py times both paths at 8-24 short rows.
+# The centrality kernels' crossovers between the same two paths (with a
+# centrality epilogue): the stream path takes every shape whose short side
+# has at most CENTRALITY_S rows (l1_centrality) or DOT_CENTRALITY_S rows
+# (dot_centrality). On an H100 l1's stream path wins every timed case up to
+# 20 short rows and none at 24; dot's, whose FFMA is one instruction a
+# column to l1's three, wins most cases at 24 and few at 28 (chip_smoke.py
+# times both paths of both kernels around their crossovers, PERF.md).
 CENTRALITY_S = 20
+DOT_CENTRALITY_S = 24
 
 
 def centrality_plan(c: int, r: int, d: int, sms: int, *,
                     crossover: int = CENTRALITY_S) -> tuple[str, int, int]:
-    """``(path, grid, splits)`` of one ``l1_centrality`` launch for
-    ``c, r >= 1``: the launch geometry of :func:`pairwise_plan` with the
-    centrality crossover. The stream path's epilogue writes S directly
-    when R is short and a ``(grid, C)`` partial when C is short; the tile
-    path's an ``(r-tiles, C)`` partial (see :func:`centrality_scratch`)."""
+    """``(path, grid, splits)`` of one ``dot_centrality`` or
+    ``l1_centrality`` launch for ``c, r >= 1``: the launch geometry of
+    :func:`pairwise_plan` with the kernel's centrality crossover
+    (``DOT_CENTRALITY_S`` for ``dot_centrality``). The stream path's
+    epilogue writes S directly when R is short and a ``(grid, C)`` partial
+    when C is short; the tile path's an ``(r-tiles, C)`` partial (see
+    :func:`centrality_scratch`)."""
     return pairwise_plan(c, r, d, sms, crossover=crossover)
 
 
@@ -445,6 +428,25 @@ def centrality_scratch(c: int, r: int, d: int,
     return 0, -(-r // _PAIR_TILE)
 
 
+def _centrality_buffers(name: str, x: torch.Tensor, r: int,
+                        plan: tuple[str, int, int]):
+    """(scratch, partial, out) of one centrality launch of kernel ``name``
+    on a CUDA x (C, d) against R = ``r`` references with ``plan``: the
+    running d sums and the second pass's rows that ``centrality_scratch``
+    asks for (None where it asks for none), and the (C,) sums."""
+    c, d = x.shape
+    if plan[1] > _MAX_BLOCKS:
+        raise ValueError(f"{name}: ({c}, {r}) needs {plan[1]} blocks, more "
+                         f"than {_MAX_BLOCKS}")
+    n_scratch, rows = centrality_scratch(c, r, d, plan)
+    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device) \
+        if n_scratch else None
+    partial = torch.empty((rows, c), dtype=torch.float32, device=x.device) \
+        if rows > 1 else None
+    return scratch, partial, torch.empty(c, dtype=torch.float32,
+                                         device=x.device)
+
+
 def launch_l1_centrality(x: torch.Tensor, y: torch.Tensor,
                          w: Optional[torch.Tensor],
                          plan: tuple[str, int, int]) -> torch.Tensor:
@@ -456,15 +458,7 @@ def launch_l1_centrality(x: torch.Tensor, y: torch.Tensor,
     c, d = x.shape
     r = y.shape[0]
     kind, grid, splits = plan
-    if grid > _MAX_BLOCKS:
-        raise ValueError(f"l1_centrality: ({c}, {r}) needs {grid} blocks, "
-                         f"more than {_MAX_BLOCKS}")
-    n_scratch, rows = centrality_scratch(c, r, d, plan)
-    scratch = torch.empty(n_scratch, dtype=torch.float32, device=x.device) \
-        if n_scratch else None
-    partial = torch.empty((rows, c), dtype=torch.float32, device=x.device) \
-        if rows > 1 else None
-    out = torch.empty(c, dtype=torch.float32, device=x.device)
+    scratch, partial, out = _centrality_buffers("l1_centrality", x, r, plan)
     fn = build.function("l1_centrality_launch")
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -473,6 +467,34 @@ def launch_l1_centrality(x: torch.Tensor, y: torch.Tensor,
                   grid, splits, stream)
     build.check("l1_centrality_launch", code)
     LAUNCHES["l1_centrality"] += 1
+    return out
+
+
+def launch_dot_centrality(x: torch.Tensor, y: torch.Tensor,
+                          xn2: Optional[torch.Tensor],
+                          yn2: Optional[torch.Tensor],
+                          w: Optional[torch.Tensor],
+                          plan: tuple[str, int, int],
+                          metric: str) -> torch.Tensor:
+    """One ``dot_centrality`` launch of ``metric`` on CUDA tensors x (C, d),
+    y (R, d), xn2 (C,) and yn2 (R,) or None (cosine), w (R,) or None with
+    ``plan``, a ``centrality_plan`` result for (C, R, d), C and R >= 1: the
+    wrapper passes the one at ``DOT_CENTRALITY_S``, ``chip_smoke.py`` forces
+    either path to time both on each side of the crossover. Counts in
+    ``LAUNCHES``."""
+    c, d = x.shape
+    r = y.shape[0]
+    kind, grid, splits = plan
+    scratch, partial, out = _centrality_buffers("dot_centrality", x, r, plan)
+    fn = build.function("dot_centrality_launch")
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        code = fn(x.data_ptr(), y.data_ptr(), _ptr(xn2), _ptr(yn2), _ptr(w),
+                  _ptr(scratch), _ptr(partial), out.data_ptr(), c, r, d,
+                  DOT_METRICS[metric], _PATH_CODE[kind], grid, splits,
+                  stream)
+    build.check("dot_centrality_launch", code)
+    LAUNCHES["dot_centrality"] += 1
     return out
 
 

@@ -1,10 +1,13 @@
-"""Launch plans of the redesigned ``l1_centrality`` and ``topk_rank``
-kernels, pure functions the CPU can hold, and the tiled sort's arithmetic.
+"""Launch plans of the redesigned centrality kernels (``dot_centrality``,
+``l1_centrality``) and ``topk_rank``, pure functions the CPU can hold, and
+the arithmetic of the stream path's d slabs and of the tiled sort.
 
 * ``centrality_plan``: which path each round of the main path takes, and
   that every grid, cluster, slab and scratch it asks for fits the H100's
   launch limits and the checks ``csrc/pairwise_tile.cuh`` makes before it
-  launches.
+  launches; an emulation, in torch and in this file only, of the order in
+  which the stream path sums d over several slabs and applies the finish,
+  held against ``dot_centrality_plain``.
 * ``topk_rank_plan`` and an emulation, in torch and in this file only, of
   what ``csrc/topk_smallest.cu`` computes: composite keys, a sort per tile,
   ``lower_bound`` counts of the foreign keys and an inclusive scan, held
@@ -73,13 +76,14 @@ def _check_limits(c, r, d, plan):
 def test_plan_picks_the_path_and_fits_the_launch_limits(c, r):
     """The stream path exactly where min(C, R) <= CENTRALITY_S, and a
     grid, cluster, slab and scratch that the card and the C launcher
-    accept at every width from 1 to 28000 (and 0), forced paths too."""
+    accept at every width from 1 to 28000 (and 0), forced paths and
+    dot_centrality's crossover too."""
     for d in WIDTHS:
         plan = pk.centrality_plan(c, r, d, SMS)
         assert plan[0] == (pk.STREAM if min(c, r) <= pk.CENTRALITY_S
                            else pk.TILE), (c, r, d)
         _check_limits(c, r, d, plan)
-        for forced in (0, 32):
+        for forced in (0, pk.DOT_CENTRALITY_S, 32):
             fplan = pk.centrality_plan(c, r, d, SMS, crossover=forced)
             assert fplan[0] == (pk.STREAM if min(c, r) <= forced
                                 else pk.TILE)
@@ -117,14 +121,107 @@ def test_plan_corners_and_bad_crossovers():
 
 
 @pytest.mark.parametrize("c, r, d", ((5000, 8, 4096), (16, 2500, 4096),
-                                     (20, 2000, 4096), (2, 20000, 28000)))
+                                     (20, 2000, 4096), (2, 20000, 28000),
+                                     (2500, 16, 2048), (20, 2000, 2048)))
 def test_wide_short_rows_keep_running_sums(c, r, d):
     """Several d slabs: a C x R scratch of running sums, slabs within the
-    shared-memory budget."""
+    shared-memory budget. The last two are netflix_cosine_fused's R-short
+    and C-short rounds: 16 and 20 rows of d = 2048 exceed the block's
+    112 KB (16 x 2048 x 4 = 128 KB), so they take two slabs."""
     plan = pk.centrality_plan(c, r, d, SMS)
     assert plan[0] == pk.STREAM and plan[2] > 1
     assert pk.centrality_scratch(c, r, d, plan)[0] == c * r
     assert min(c, r) * pk._stream_slab(d, plan[2]) * 4 <= STREAM_SMEM
+
+
+# dot_centrality's find_medoid cells: l2 at d = 784 (planted, mnist) and
+# cosine at d = 2048 (netflix), at the rounds of n = 20000 and 6424
+DOT_CELLS = [(metric, d, n) for metric, d in (("l2", 784), ("cosine", 2048))
+             for n in (N, 6424)]
+
+
+@pytest.mark.parametrize("metric, d, n", DOT_CELLS)
+def test_dot_centrality_cell_rounds(metric, d, n):
+    """Each round of the cell (30 pulls per arm) takes the path
+    dot_centrality's crossover gives, within the launch limits; the run
+    takes the stream path in both orientations and the tile path; a stream
+    round takes several d slabs, and so the C x R scratch, exactly where
+    its short rows exceed the block's 112 KB (never at d = 784)."""
+    kinds = set()
+    for c, r in _rounds(n, 30):
+        plan = pk.centrality_plan(c, r, d, SMS, crossover=pk.DOT_CENTRALITY_S)
+        assert plan[0] == (pk.STREAM if min(c, r) <= pk.DOT_CENTRALITY_S
+                           else pk.TILE), (c, r)
+        _check_limits(c, r, d, plan)
+        kinds.add((plan[0], None if plan[0] == pk.TILE else c <= r))
+        if plan[0] == pk.STREAM:
+            several = min(c, r) * d * 4 > STREAM_SMEM
+            assert (plan[2] > 1) == several, (c, r)
+            assert (pk.centrality_scratch(c, r, d, plan)[0] > 0) == several
+            assert not (several and d == 784)
+    assert kinds == {(pk.STREAM, False), (pk.STREAM, True), (pk.TILE, None)}
+
+
+def _finish(metric, g, xn2, yn2):
+    """``DotOp<M>::finish`` of ``csrc/dot_centrality.cu``."""
+    if metric == "cosine":
+        return 1.0 - g
+    sq = torch.clamp_min(xn2[:, None] + yn2[None, :] - 2.0 * g, 0.0)
+    return torch.sqrt(sq) if metric == "l2" else sq
+
+
+def _emulate_stream(x, y, w, metric, slab, per_slab_finish=False):
+    """The stream path's order over several d slabs: each slab's Gram in
+    groups of at most 256 columns, added to the running sums that the
+    C x R scratch keeps between slabs, the finish applied at the last slab
+    only, then weighted row sums. ``per_slab_finish`` applies the finish to
+    each slab's own sums (with the slab's own norms) instead: the error the
+    scratch exists to prevent."""
+    c, d = x.shape
+    full = (x * x).sum(1), (y * y).sum(1)
+    running = torch.zeros(c, y.shape[0])
+    out = torch.zeros(c)
+    for k0 in range(0, d, slab):
+        part = torch.zeros_like(running)
+        for j0 in range(k0, min(d, k0 + slab), 256):
+            j1 = min(d, k0 + slab, j0 + 256)
+            part += x[:, j0:j1] @ y[:, j0:j1].T
+        running += part
+        if per_slab_finish:
+            xs, ys = x[:, k0:k0 + slab], y[:, k0:k0 + slab]
+            out += (_finish(metric, part, (xs * xs).sum(1), (ys * ys).sum(1))
+                    * w[None, :]).sum(1)
+    if per_slab_finish:
+        return out
+    return (_finish(metric, running, *full) * w[None, :]).sum(1)
+
+
+@pytest.mark.parametrize("c, r", ((20, 300), (300, 16)))
+@pytest.mark.parametrize("metric", ("l2", "sql2", "cosine"))
+def test_stream_slabs_finish_once(metric, c, r):
+    """At d = 2048 with 20 (C-short) or 16 (R-short) short rows the plan
+    takes two slabs; summing d across them before the finish gives
+    ``dot_centrality_plain`` within rtol 1e-5. For l2, a finish per slab
+    (a sum of per-slab distances) is far off."""
+    d = 2048
+    plan = pk.centrality_plan(c, r, d, SMS)
+    slab = pk._stream_slab(d, plan[2])
+    assert plan[0] == pk.STREAM and -(-d // slab) == 2
+    rng = np.random.default_rng(c + r)
+    x = torch.from_numpy(rng.random((c, d), dtype=np.float32))
+    y = torch.from_numpy(rng.random((r, d), dtype=np.float32))
+    w = torch.from_numpy((rng.random(r) > 0.3).astype(np.float32))
+    if metric == "cosine":
+        x, y = ops._unit_rows(x), ops._unit_rows(y)
+        xn2 = yn2 = None
+    else:
+        xn2, yn2 = ops._norms_sq(x), ops._norms_sq(y)
+    want = pk.dot_centrality_plain(x, y, xn2, yn2, w, metric=metric)
+    got = _emulate_stream(x, y, w, metric, slab)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=0)
+    if metric == "l2":
+        wrong = _emulate_stream(x, y, w, metric, slab, per_slab_finish=True)
+        assert bool(((wrong - want).abs() > 0.1 * want.abs()).all())
 
 
 def test_cpu_tensors_take_the_plain_version():

@@ -75,24 +75,49 @@ def test_centrality_kernels_match_plain(cuda, metric, shape):
             assert bool(((got.cpu() - want).abs() <= tol).all())
 
 
-def test_l1_centrality_both_paths_and_empty_sums(cuda):
+def _centrality_launch(metric, x, y, plan):
+    """One forced-path launch of the centrality kernel for ``metric`` and
+    its plain version on the same inputs (unit rows for cosine, squared
+    norms for l2 and sql2)."""
+    if metric == "l1":
+        return (pk.launch_l1_centrality(x, y, None, plan),
+                pk.l1_centrality_plain(x, y, None))
+    if metric == "cosine":
+        x, y, xn2, yn2 = ops._unit_rows(x), ops._unit_rows(y), None, None
+    else:
+        xn2, yn2 = ops._norms_sq(x), ops._norms_sq(y)
+    return (pk.launch_dot_centrality(x, y, xn2, yn2, None, plan, metric),
+            pk.dot_centrality_plain(x, y, xn2, yn2, None, metric=metric))
+
+
+@pytest.mark.parametrize("metric", ("l1", "l2", "sql2", "cosine"))
+def test_centrality_both_paths_and_empty_sums(cuda, metric):
     """Both forced paths agree with the plain version on each side of the
-    crossover, and C = 0, R = 0 and d = 0 give empty or zero sums."""
+    kernel's crossover and at d = 2048 with 16 and 20 short rows (two d
+    slabs on the stream path, running sums in the C x R scratch; no
+    self-pairs, so l2 needs no allowance), two launches are bit-equal, and
+    C = 0, R = 0 and d = 0 give what the plain version gives."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     g = torch.Generator(device=cuda).manual_seed(5)
-    for c, r, d in ((SC, 3000, 1024), (3000, SC + 1, 1024), (12, 12, 64)):
+    s = SC if metric == "l1" else pk.DOT_CENTRALITY_S
+    for c, r, d in ((s, 3000, 1024), (3000, s + 1, 1024), (12, 12, 64),
+                    (20, 2000, 2048), (2500, 16, 2048)):
         x = torch.rand(c, d, device=cuda, generator=g)
         y = torch.rand(r, d, device=cuda, generator=g)
-        want = pk.l1_centrality_plain(x, y, None)
-        tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
         for forced in (32, 0):
             plan = pk.centrality_plan(c, r, d, sms, crossover=forced)
-            got = pk.launch_l1_centrality(x, y, None, plan)
+            got, want = _centrality_launch(metric, x, y, plan)
+            again, _ = _centrality_launch(metric, x, y, plan)
+            assert torch.equal(got, again), plan
+            tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
             assert bool(((got - want).abs() <= tol).all()), plan
     for c, r, d in ((0, 5, 3), (5, 0, 3), (5, 7, 0)):
-        got = pk.l1_centrality(torch.rand(c, d, device=cuda),
-                               torch.rand(r, d, device=cuda))
-        assert got.shape == (c,) and bool((got == 0).all())
+        x = torch.rand(c, d, device=cuda)
+        y = torch.rand(r, d, device=cuda)
+        got = ops.kernel_centrality_sums(x, y, metric=metric)
+        want = ops.kernel_centrality_sums(x.cpu(), y.cpu(), metric=metric)
+        assert got.shape == (c,)
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=0)
 
 
 def _rank_keys(c, kind, g, device):
