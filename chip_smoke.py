@@ -29,7 +29,14 @@ nonzero:
    ``topk_rank`` at each candidate tile and cluster, checked bit-equal on
    all-equal and int32-extreme keys and around its tile. Each
    ``find_medoid`` cell's centrality launches are split by shape class as
-   in phase 4;
+   in phase 4. The bf16 modes: ``dot_centrality``'s on the ragged shapes
+   with masks (l2, sql2, cosine), on both paths around
+   ``DOT_CENTRALITY_S``, and at every widened round shape of the phase-5
+   cells, timed beside its fp32 mode, its plain version and a two-call
+   yardstick (``xr @ yr.T`` of pre-rounded rows, the finish and a row sum);
+   ``dot_pairwise``'s on both paths at the k-medoids pairwise shapes, timed
+   beside its plain version, its fp32 mode and ``xr @ yr.T`` (no path
+   calls it);
 3. the single-query main path at full size: ``repro_torch.api.find_medoid``
    (corr_sh, budget 30 per arm) on the six cells below with the kernel
    launch counters zeroed just before each run and read just after. Each
@@ -52,7 +59,17 @@ nonzero:
    sum or ``@ w``; both centrality kernels must take the stream path in
    both orientations and the tile path. Then ``topk_rank`` at every C of
    the main path against ``argsort(stable=True)``, and one line of exact
-   PAM at n = 2048 (printed only).
+   PAM at n = 2048 (printed only);
+5. the quantized path at full size: ``find_medoid(precision=...)`` on the
+   four cells below with phase 3's data, key and budget, counters zeroed
+   just before each run and held against one centrality launch per
+   executed round (none on the plain quantized backends, and the fp32
+   run's after a fallback); the pulls must be the schedule's plus the
+   exact check's (plus the schedule's again after a fallback); the answer
+   must be no worse in exact fp32 centrality than fp32 corr_sh's under the
+   same key, 0 on the planted cell, and on the bf16 fused cells equal to
+   the unfused ``quant_bf16`` backend's (or, both verified, of equal exact
+   centrality).
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the rest
@@ -62,6 +79,7 @@ result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -114,9 +132,31 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                      f"{PALLAS}:82"),
     "l1_pairwise": ("src/repro_torch/kernels/csrc/l1_pairwise.cu",
                     f"{PALLAS}:121"),
+    # the bf16 modes (compute_dtype="bfloat16") of the same two TPU kernels
+    "dot_centrality_bf16": ("src/repro_torch/kernels/csrc/dot_centrality.cu",
+                            f"{PALLAS}:269"),
+    "dot_pairwise_bf16": ("src/repro_torch/kernels/csrc/dot_pairwise.cu",
+                          f"{PALLAS}:82"),
 }
 PAIRWISE = ("dot_pairwise", "l1_pairwise")
 CENTRALITY = ("l1_centrality", "dot_centrality")
+# No path of the port (or of the JAX package) calls dot_pairwise's bf16
+# mode: its ledger entry sums one launch at each k-medoids pairwise shape
+# of phase 2 and its main-path launch count stays 0.
+UNCALLED = ("dot_pairwise_bf16",)
+
+# Phase 5, the quantized path: name, dataset, n, d, metric, precision, base
+# backend; find_medoid at BUDGET_PER_ARM on phase 3's data.
+Q_CELLS = (
+    ("planted_l2_bf16_fused", "planted", 20000, 784, "l2", "bf16",
+     "pallas_fused"),
+    ("netflix_cosine_bf16_fused", "netflix20k_like", 20000, 2048, "cosine",
+     "bf16", "pallas_fused"),
+    ("rnaseq_l1_bf16_fused", "rnaseq20k_like", 20000, 4096, "l1", "bf16",
+     "pallas_fused"),
+    ("mnist_l2_int8", "mnist_zeros_like", 6424, 784, "l2", "int8",
+     "reference"),
+)
 
 
 def _require(cond: bool, msg: str) -> None:
@@ -129,6 +169,18 @@ def _smi() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def _device_op(name: str) -> str:
+    """A device activity's kernel name, shortened to the kernel and the
+    last functor or pair type in its template arguments (``void
+    at::native::vectorized_elementwise_kernel<2, ...BitwiseAndFunctor<long>
+    ...>`` -> ``vectorized_elementwise_kernel BitwiseAndFunctor``)."""
+    m = re.match(r"void\s+(?:.*?::)?(\w+)[<(]", name)
+    if m is None:
+        return name[:60]
+    tags = re.findall(r"(\w+(?:Functor|_functor|Pair|Op))\b", name)
+    return f"{m.group(1)} {tags[-1]}" if tags else m.group(1)
 
 
 def _bound_s(nbytes: float, ops: float) -> tuple[float, float]:
@@ -198,8 +250,32 @@ def halving_plan(rounds, score_kern: str, topk: bool,
     return plan
 
 
+def widened_plan(n: int, metric: str, precision: str, backend: str) -> list:
+    """Every kernel launch of one quantized find_medoid call whose margins
+    held: one centrality launch per executed round at the widened loop's
+    shape (the band's buffer width, or the output round's, by t_r), none in
+    the probe or the exact check; none at all on the plain quantized
+    backends, whose Gram is torch's."""
+    from repro_torch.engine.halving import WIDEN_SLACK
+    from repro_torch.engine.schedule import Schedule
+    from repro_torch.quant import backend_for
+
+    if backend_for(precision, backend) != "quant_bf16_fused":
+        return []
+    kern = "l1_centrality" if metric == "l1" else "dot_centrality_bf16"
+    sched = Schedule.from_budget(n, BUDGET_PER_ARM * n)
+    stk = sched.stacked(n, slack=WIDEN_SLACK)
+    plan = [(kern, band.width, t, False)
+            for band in stk.bands for t in band.num_refs]
+    out_cap = min(n, WIDEN_SLACK * stk.sizes[stk.r_stop])
+    return plan + [(kern, out_cap, sched[stk.r_stop].num_refs, False)]
+
+
 def medoid_plan(n: int, metric: str, backend: str) -> list:
-    """Every kernel launch of one find_medoid call (budget 30 per arm)."""
+    """Every kernel launch of one find_medoid call (budget 30 per arm);
+    none on the ``reference`` backend."""
+    if backend == "reference":
+        return []
     score = ("dot_pairwise" if backend == "pallas_pairwise" else
              "l1_centrality" if metric == "l1" else "dot_centrality")
     return halving_plan(executed_rounds(n, BUDGET_PER_ARM * n), score,
@@ -346,9 +422,10 @@ def main() -> int:
             return ops._unit_rows(x), ops._unit_rows(y), None, None
         return x, y, ops._norms_sq(x), ops._norms_sq(y)
 
-    def check_centrality(metric, x, y, w, reps=0):
-        """Kernel vs plain on the card; returns (max_abs_err, ms, plain_ms,
-        bytes, ops, library_ms) with times only when reps > 0."""
+    def check_centrality(metric, x, y, w, reps=0, dtype="float32"):
+        """Kernel vs plain on the card (``dtype``: dot_centrality's
+        compute_dtype); returns (max_abs_err, ms, plain_ms, bytes, ops,
+        library_ms) with times only when reps > 0."""
         xk, yk, xn2, yn2 = centrality_inputs(metric, x, y)
         if metric == "l1":
             def kern():
@@ -357,17 +434,19 @@ def main() -> int:
             def plain():
                 return pk.l1_centrality_plain(xk, yk, w)
         else:
-            def kern():
-                return pk.dot_centrality(xk, yk, xn2, yn2, w, metric=metric)
+            def kern(dtype=dtype):
+                return pk.dot_centrality(xk, yk, xn2, yn2, w, metric=metric,
+                                         compute_dtype=dtype)
 
             def plain():
                 return pk.dot_centrality_plain(xk, yk, xn2, yn2, w,
-                                               metric=metric)
+                                               metric=metric,
+                                               compute_dtype=dtype)
         got, again, want = kern(), kern(), plain()
         torch.cuda.synchronize()
         c, d = x.shape
         r = y.shape[0]
-        what = f"{metric} centrality at C={c} R={r} d={d}"
+        what = f"{metric} {dtype} centrality at C={c} R={r} d={d}"
         _require(torch.equal(got, again), f"{what}: two launches differ")
         err = _agree(got, want, _tolerance(want, metric, x, y, w), what)
         nbytes = 4 * (c * d + r * d + c)
@@ -378,10 +457,29 @@ def main() -> int:
         nops = (3 if metric == "l1" else 2) * c * r * d
         if reps == 0:
             return err, 0.0, 0.0, nbytes, nops, None
-        twocall[(metric, c, r, d, w is not None)] = timed(
-            yardstick(metric, xk, yk, w), reps)
+        if dtype == "bfloat16":
+            bf16_more[(metric, c, r, d, w is not None)] = (
+                timed(lambda: kern("float32"), reps),
+                timed(bf16_yardstick(metric, xk, yk, xn2, yn2, w), reps))
+        else:
+            twocall[(metric, c, r, d, w is not None)] = timed(
+                yardstick(metric, xk, yk, w), reps)
         return (err, timed(kern, reps), timed(plain, max(1, reps // 4)),
                 nbytes, nops, None)
+
+    def bf16_yardstick(metric, xk, yk, xn2, yn2, w):
+        """The bf16 mode's two-call yardstick: ``xr @ yr.T`` of the rows
+        rounded to bf16 beforehand (TF32 off), then the finish and a row
+        sum or ``@ w``."""
+        xr, yr = xk.bfloat16().float(), yk.bfloat16().float()
+
+        def block():
+            g = xr @ yr.T
+            if metric == "cosine":
+                return 1.0 - g
+            sq = torch.clamp_min(xn2[:, None] + yn2[None, :] - 2.0 * g, 0.0)
+            return sq.sqrt() if metric == "l2" else sq
+        return lambda: block() @ w if w is not None else block().sum(1)
 
     def yardstick(metric, xk, yk, w):
         """The two-call yardstick of a centrality kernel on its inputs: the
@@ -395,14 +493,15 @@ def main() -> int:
             return dist.square() if metric == "sql2" else dist
         return lambda: block() @ w if w is not None else block().sum(1)
 
-    def forced_centrality(metric, xk, yk, xn2, yn2, plan):
+    def forced_centrality(metric, xk, yk, xn2, yn2, plan, dtype="float32"):
         """One launch of the centrality kernel for ``metric`` with
-        ``plan`` (no weights)."""
+        ``plan`` (no weights; ``dtype``: dot_centrality's compute_dtype)."""
         if metric == "l1":
             return pk.launch_l1_centrality(xk, yk, None, plan)
-        return pk.launch_dot_centrality(xk, yk, xn2, yn2, None, plan, metric)
+        return pk.launch_dot_centrality(xk, yk, xn2, yn2, None, plan, metric,
+                                        dtype)
 
-    def centrality_crossover(cases, ms):
+    def centrality_crossover(cases, ms, dtype="float32"):
         """Both paths of a centrality kernel, each checked against the plain
         version, two launches bit-equal, and timed, at (m, P // m) and
         (P // m, m) for each m of ``ms`` and each (metric, d, P) of
@@ -418,28 +517,65 @@ def main() -> int:
                     xk, yk, xn2, yn2 = centrality_inputs(metric, x, y)
                     want = (pk.l1_centrality_plain(xk, yk, None)
                             if metric == "l1" else pk.dot_centrality_plain(
-                                xk, yk, xn2, yn2, None, metric=metric))
+                                xk, yk, xn2, yn2, None, metric=metric,
+                                compute_dtype=dtype))
                     tol = _tolerance(want, metric, x, y, None)
                     us = []
                     for forced in (32, 0):
                         plan = pk.centrality_plan(c, r, d, sms,
                                                   crossover=forced)
-                        what = f"{metric} centrality {plan} at ({c}, {r}, {d})"
-                        got = forced_centrality(metric, xk, yk, xn2, yn2, plan)
+                        what = (f"{metric} {dtype} centrality {plan} at "
+                                f"({c}, {r}, {d})")
+                        got = forced_centrality(metric, xk, yk, xn2, yn2,
+                                                plan, dtype)
                         again = forced_centrality(metric, xk, yk, xn2, yn2,
-                                                  plan)
+                                                  plan, dtype)
                         _require(torch.equal(got, again),
                                  f"{what}: two launches differ")
                         _agree(got, want, tol, what)
                         us.append(1e3 * timed(
                             lambda plan=plan: forced_centrality(
-                                metric, xk, yk, xn2, yn2, plan), 10))
+                                metric, xk, yk, xn2, yn2, plan, dtype), 10))
                     wins[m] += us[0] < us[1]
                     cross.append(f"{metric} ({c}, {r}, {d}) stream "
                                  f"{us[0]:.2f} / tile {us[1]:.2f} us")
         return "; ".join(cross) + "; stream path wins " + ", ".join(
             f"m={m}: {v} of {2 * len(cases)}" for m, v in sorted(
                 wins.items()))
+
+    def check_pairwise_bf16(x, y, reps=0):
+        """dot_pairwise's bf16 mode vs its plain version on the card, on
+        both forced paths (two launches bit-equal) and the wrapper's plan;
+        returns (max_abs_err, ms, plain_ms, bytes, ops, None) with times
+        (the wrapper's plan) only when reps > 0."""
+        c, d = x.shape
+        r = y.shape[0]
+        want = pk.dot_pairwise_plain(x, y, compute_dtype="bfloat16")
+        tol = _tolerance(want, "block", x, y, None)
+        err = 0.0
+        for forced in (32, 0):
+            plan = pk.pairwise_plan(c, r, d, sms, crossover=forced)
+            what = f"dot_pairwise bf16 {plan} at C={c} R={r} d={d}"
+            got = pk.launch_pairwise("dot_pairwise", x, y, plan, "bfloat16")
+            again = pk.launch_pairwise("dot_pairwise", x, y, plan,
+                                       "bfloat16")
+            _require(torch.equal(got, again), f"{what}: two launches differ")
+            err = max(err, _agree(got, want, tol, what))
+
+        def kern():
+            return pk.dot_pairwise(x, y, compute_dtype="bfloat16")
+        err = max(err, _agree(kern(), want, tol, f"dot_pairwise bf16 at "
+                                                 f"C={c} R={r} d={d}"))
+        nbytes, nops = 4 * (c * d + r * d + c * r), 2 * c * r * d
+        if reps == 0:
+            return err, 0.0, 0.0, nbytes, nops, None
+        xr, yr = x.bfloat16().float(), y.bfloat16().float()
+        bf16_more[("pairwise", c, r, d, False)] = (
+            timed(lambda: pk.dot_pairwise(x, y), reps),
+            timed(lambda: xr @ yr.T, reps))
+        return (err, timed(kern, reps), timed(
+            lambda: pk.dot_pairwise_plain(x, y, compute_dtype="bfloat16"),
+            max(1, reps // 4)), nbytes, nops, None)
 
     def check_pairwise(name, x, y, reps=0):
         """The pairwise kernel ``name`` vs its plain version on the card;
@@ -520,6 +656,9 @@ def main() -> int:
     led = Ledger()
     cache = {}
     twocall = {}   # (metric, C, R, d, masked) -> ms of the yardstick
+    # (metric or "pairwise", C, R, d, masked) -> (ms of the fp32 mode, ms of
+    # the bf16 mode's yardstick) on a bf16 mode's inputs
+    bf16_more = {}
 
     def shape_time(kern, ds, c, r=0, metric="", masked=False):
         """Check and time ``kern`` once per shape on rows of dataset ``ds``
@@ -556,10 +695,14 @@ def main() -> int:
             y = data[ds][torch.randperm(n, device=dev, generator=gen)[:r]]
             if kern in PAIRWISE:
                 cache[ck] = check_pairwise(kern, x, y, reps=10)
+            elif kern == "dot_pairwise_bf16":
+                cache[ck] = check_pairwise_bf16(x, y, reps=10)
             else:
                 w = (torch.rand(r, device=dev, generator=gen) > 0.3).float() \
                     if masked else None
-                cache[ck] = check_centrality(metric, x, y, w, reps=10)
+                cache[ck] = check_centrality(
+                    metric, x, y, w, reps=10,
+                    dtype="bfloat16" if kern.endswith("_bf16") else "float32")
         return cache[ck]
 
     def ledger_add(plan, ds, metric):
@@ -647,26 +790,29 @@ def main() -> int:
 
     def profiled(call):
         """One call under torch.profiler: (device activities, device busy
-        ms, top five device operations by self device time), or None where
-        the profiler saw no device activity."""
+        ms, top five device operations by device time), or None where the
+        profiler saw no device activity. Reads the profiler's raw events:
+        its own event tree (``events()``, ``key_averages()``) takes minutes
+        to build for the ~10^5 device activities of a k-medoids call."""
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             call()
             torch.cuda.synchronize()
-        spans = [e.time_range.elapsed_us() for e in prof.events()
-                 if e.device_type == torch.autograd.DeviceType.CUDA]
-        if not spans:
+        by_name = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == torch.autograd.DeviceType.CUDA:
+                v = by_name.setdefault(_device_op(e.name()), [0, 0.0])
+                v[0] += 1
+                v[1] += (e.end_ns() - e.start_ns()) / 1e6
+        if not by_name:
             return None
-
-        def dev_us(a):
-            return getattr(a, "self_device_time_total",
-                           getattr(a, "self_cuda_time_total", 0.0))
-
-        top = sorted(prof.key_averages(), key=dev_us, reverse=True)[:5]
-        return (len(spans), sum(spans) / 1e3,
-                [(a.key[:60], a.count, dev_us(a) / 1e3) for a in top])
+        top = sorted(by_name.items(), key=lambda kv: kv[1][1],
+                     reverse=True)[:5]
+        return (sum(v[0] for v in by_name.values()),
+                sum(v[1] for v in by_name.values()),
+                [(k, c, ms) for k, (c, ms) in top])
 
     def busy_note(busy, steady_s):
         if busy is None:
@@ -677,7 +823,7 @@ def main() -> int:
                 f"{busy[1]:.2f} ms = {busy[1] / (steady_s * 1e3):.1%} of the "
                 f"unprofiled repeat; top device ops: {top}")
 
-    def _breakdown(x, key, n, metric, backend):
+    def _breakdown(x, key, n, metric, backend, precision="fp32"):
         """Where a steady call's time goes: (host ms of the random draws
         alone — the same splits and permutations, nothing else; the
         profiled call, see ``profiled``)."""
@@ -692,7 +838,7 @@ def main() -> int:
         draws_ms = (time.perf_counter() - t0) * 1e3
         return draws_ms, profiled(lambda: find_medoid(
             x, key, metric=metric, backend=backend,
-            budget_per_arm=BUDGET_PER_ARM))
+            budget_per_arm=BUDGET_PER_ARM, precision=precision))
 
     # ------------------------------------------------ phase 2: kernels
     # ragged shapes (no tile multiple) and random reference masks
@@ -708,8 +854,11 @@ def main() -> int:
                 err = check_centrality(metric, x, y, w)[0]
                 led.note_err("l1_centrality" if metric == "l1"
                              else "dot_centrality", err)
-    print("phase2 ragged shapes and masks: l1/l2/sql2/cosine agree",
-          flush=True)
+                if metric != "l1":
+                    led.note_err("dot_centrality_bf16", check_centrality(
+                        metric, x, y, w, dtype="bfloat16")[0])
+    print("phase2 ragged shapes and masks: l1/l2/sql2/cosine and the bf16 "
+          "mode of l2/sql2/cosine agree", flush=True)
     s_cross = pk.PAIRWISE_S
     for (c, r, d) in ((1, 1, 1), (1, 20000, 784), (20000, 1, 784),
                       (20000, 10, 784), (77, 131, 300), (1, 20000, 1024),
@@ -809,6 +958,33 @@ def main() -> int:
     print(f"phase2 dot_centrality crossover (S_c = {pk.DOT_CENTRALITY_S}), "
           f"both paths checked and timed ({time.perf_counter() - t0:.1f} "
           f"s): " + line, flush=True)
+    t0 = time.perf_counter()
+    ds_ = pk.DOT_CENTRALITY_S
+    line = centrality_crossover((("l2", 784, 40000), ("sql2", 784, 40000),
+                                 ("cosine", 2048, 40000)),
+                                (ds_ - 4, ds_, ds_ + 4), dtype="bfloat16")
+    print(f"phase2 dot_centrality bf16 mode on both paths around S_c = "
+          f"{ds_}, checked and timed ({time.perf_counter() - t0:.1f} s): "
+          + line, flush=True)
+    # dot_pairwise's bf16 mode at the k-medoids pairwise shapes of the
+    # mnist cell (its BUILD and SWAP halving rounds, the (n, k) cache, the
+    # (1, n) row), both paths checked at each; no path calls it
+    t0 = time.perf_counter()
+    km_name, km_ds, km_n, km_d, km_k = KM_CELLS[0][:5]
+    pw_shapes = sorted({(rd.survivors, rd.num_refs) for rd in
+                        executed_rounds(km_n, KM_BUILD * km_n)}
+                       | {(km_n, km_k), (1, km_n)})
+    pw_plan = [("dot_pairwise_bf16", c, r, False) for c, r in pw_shapes]
+    tot = ledger_add(pw_plan, km_ds, "l2")
+    fp32_ms = sum(bf16_more[("pairwise", c, r, km_d, False)][0]
+                  for c, r in pw_shapes)
+    lib_ms = sum(bf16_more[("pairwise", c, r, km_d, False)][1]
+                 for c, r in pw_shapes)
+    print(f"phase2 dot_pairwise bf16 mode at the {len(pw_shapes)} pairwise "
+          f"shapes of {km_name} (one launch each, both paths checked, "
+          f"{time.perf_counter() - t0:.1f} s): {fmt_tot(tot)}; fp32 mode "
+          f"{fp32_ms:.3f} ms, yardstick xr @ yr.T of pre-rounded rows "
+          f"{lib_ms:.3f} ms; main-path launches 0 (no caller)", flush=True)
 
     for name, ds, n, d, metric, backend in CELLS:
         plan = medoid_plan(n, metric, backend)
@@ -824,6 +1000,33 @@ def main() -> int:
                       f"{centrality_classes(cen, plan, ds, d, metric)}",
                       flush=True)
         rank_cs.update(c for kern, c, _, _ in plan if kern == "topk_rank")
+
+    # the widened round shapes of the phase-5 cells that run a kernel (the
+    # band's buffer width by t_r): checked and timed here, entered in the
+    # ledger by phase 5 for the launches its runs make
+    for name, ds, n, d, metric, precision, backend in Q_CELLS:
+        plan = widened_plan(n, metric, precision, backend)
+        if not plan:
+            continue
+        kern = plan[0][0]
+        sums = [0.0] * 6   # kernel, plain, bound, fp32 mode, yardstick, err
+        for _, c, r, masked in plan:
+            err, ms, pms, nbytes, nops, _ = shape_time(kern, ds, c, r, metric,
+                                                       masked)
+            more = bf16_more.get((metric, c, r, d, masked), (0.0, 0.0))
+            for i, add in enumerate((ms, pms, max(_bound_s(nbytes, nops))
+                                     * 1e3, more[0], more[1])):
+                sums[i] += add
+            sums[5] = max(sums[5], err)
+        extra = (f", fp32 mode {sums[3]:.3f} ms, two calls (xr @ yr.T of "
+                 f"pre-rounded rows, finish, row sum) {sums[4]:.3f} ms"
+                 if kern == "dot_centrality_bf16" else
+                 " (the fp32 kernel on bf16-rounded rows)")
+        print(f"phase2 {name}: {len(plan)} widened round shapes "
+              f"{[(c, r) for _, c, r, _ in plan]}: {kern} kernel "
+              f"{sums[0]:.3f} ms, plain {sums[1]:.3f} ms, bound "
+              f"{sums[2]:.4f} ms ({sums[2] / sums[0]:.1%} of it), "
+              f"max_abs_err {sums[5]:.3g}{extra}", flush=True)
 
     # ---------------------------------------------- phase 3: main path
     for name, ds, n, d, metric, backend in CELLS:
@@ -1054,6 +1257,99 @@ def main() -> int:
           f"PAM {adjusted_rand_index(pam.labels, labels):.4f} "
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
+    # ------------------------------------- phase 5: the quantized path
+    from repro_torch.core.distances import centrality_sums
+    from repro_torch.quant import backend_for, verify_pulls
+
+    t5 = time.perf_counter()
+    for name, ds, n, d, metric, precision, backend in Q_CELLS:
+        x = data[ds]
+        key = rng.fold_in(rng.key(SEED, dev), 1)
+        kw = dict(metric=metric, budget_per_arm=BUDGET_PER_ARM)
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        res = find_medoid(x, key, backend=backend, precision=precision, **kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = dict(pk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        fallback = not res.verified
+        # one centrality launch per executed round of the widened loop, and
+        # the fp32 run's launches again after a fallback
+        plan = widened_plan(n, metric, precision, backend)
+        if fallback:
+            plan += medoid_plan(n, metric, backend)
+        want = dict(Counter(k for k, *_ in plan))
+        _require(counts == want, f"{name}: launches {counts}, expected {want}")
+        for k, v in counts.items():
+            led.rows[k]["launches"] += v
+        rounds = executed_rounds(n, BUDGET_PER_ARM * n)
+        scheduled = sum(rd.pulls for rd in rounds)
+        want_pulls = scheduled + verify_pulls(n, rounds) + (
+            scheduled if fallback else 0)
+        _require(res.pulls == want_pulls,
+                 f"{name}: pulls {res.pulls}, expected {want_pulls}")
+
+        t0 = time.perf_counter()
+        again = find_medoid(x, key, backend=backend, precision=precision,
+                            **kw)
+        torch.cuda.synchronize()
+        steady = time.perf_counter() - t0
+        _require((again.medoid, again.verified) == (res.medoid, res.verified),
+                 f"{name}: rerun differs")
+        draws_ms, busy = _breakdown(x, key, n, metric, backend, precision)
+
+        # the answer against fp32 corr_sh under the same key: no worse in
+        # exact fp32 centrality (two n-vectors)
+        f32 = find_medoid(x, key, backend=backend, **kw)
+        cen = centrality_sums(x[[res.medoid, f32.medoid]], x, metric)
+        _require(float(cen[0]) <= float(cen[1]) * (1 + RTOL),
+                 f"{name}: medoid {res.medoid} centrality {float(cen[0])!r} "
+                 f"> fp32 corr_sh's {f32.medoid} {float(cen[1])!r}")
+        if ds == "planted":
+            _require(res.medoid == 0, f"{name}: planted medoid not found "
+                                      f"({res.medoid})")
+        note = ""
+        if backend_for(precision, backend) == "quant_bf16_fused":
+            unfused = find_medoid(x, key, backend="reference",
+                                  precision=precision, **kw)
+            if unfused.medoid == res.medoid:
+                note = f"; unfused quant_bf16 answers {unfused.medoid} too"
+            else:
+                ucen = centrality_sums(x[[unfused.medoid]], x, metric)
+                _require(res.verified and unfused.verified
+                         and abs(float(ucen[0]) - float(cen[0]))
+                         <= RTOL * abs(float(cen[0])),
+                         f"{name}: medoid {res.medoid} != unfused quant_bf16's "
+                         f"{unfused.medoid}")
+                note = (f"; unfused quant_bf16 answers {unfused.medoid}, both "
+                        f"verified, exact centralities {float(cen[0])!r} and "
+                        f"{float(ucen[0])!r} equal within rtol {RTOL}")
+        tot = ledger_add(plan, ds, metric)
+        print(f"phase5 {name} n={n} d={d} {metric} {precision} on {backend} "
+              f"({backend_for(precision, backend)}): medoid {res.medoid}, "
+              f"verified {res.verified}, fp32 fallback ran {fallback}; fp32 "
+              f"corr_sh answers {f32.medoid}, exact centralities "
+              f"{float(cen[0])!r} vs {float(cen[1])!r}{note}; pulls "
+              f"{res.pulls} = {scheduled} scheduled + {verify_pulls(n, rounds)} "
+              f"check" + (f" + {scheduled} fp32 re-run" if fallback else "")
+              + f"; rounds {len(rounds)}, launches {counts}; wall "
+              f"{wall * 1e3:.1f} ms first / {steady * 1e3:.1f} ms again, "
+              f"max_memory_allocated {peak / 2 ** 20:.1f} MiB = "
+              f"{resident / 2 ** 20:.1f} MiB resident before the call + "
+              f"{(peak - resident) / 2 ** 20:.1f} MiB of its own", flush=True)
+        print(f"phase5 {name} breakdown: random draws alone {draws_ms:.1f} "
+              f"ms; {busy_note(busy, steady)}; kernels: "
+              f"{fmt_tot(tot) if tot else 'none (torch Gram)'}", flush=True)
+
+    print(f"phase5: {time.perf_counter() - t5:.1f} s for the "
+          f"{len(Q_CELLS)} cells", flush=True)
+    for kern, row in led.rows.items():
+        _require(row["launches"] > 0 or kern in UNCALLED,
+                 f"{kern} was never launched on the main path")
     print(f"chip_smoke: {time.perf_counter() - script_t0:.1f} s in all",
           flush=True)
     print(led.line())

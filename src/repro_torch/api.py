@@ -18,10 +18,13 @@ input raises. ``key`` is a :class:`repro_torch.engine.rng.Key`
 JAX key); ``None`` means ``rng.key(config.seed)``.
 
 Ported so far: ``algo="corr_sh"`` (the paper's Algorithm 1) for one query,
-a batch and ragged queries, ``algo="exact"``, and bandit k-medoids with the
-in-process refiner; fp32 only, without telemetry. The other algorithms and
-options (``meddit``/``rand``, telemetry, quantized precision, the service
-refiner) raise ``ValueError`` naming the ROADMAP item that holds them.
+a batch and ragged queries, in fp32 and in the quantized precisions
+(``precision="bf16"`` / ``"int8"``: quantized distances, margin-widened
+halving, an exact fp32 check of the finalists, and a same-key fp32 re-run
+when the margins overflowed), ``algo="exact"``, and bandit k-medoids with
+the in-process refiner, all without telemetry. The other algorithms and
+options (``meddit``/``rand``, telemetry, the service refiner) raise
+``ValueError`` naming the ROADMAP item that holds them.
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch import quant
 from repro_torch.convert import data_from_numpy, resolve_device
 from repro_torch.core.bucketing import (DEFAULT_MIN_BUCKET, bucket_n,
                                         pack_queries)
@@ -50,8 +54,14 @@ __all__ = ["ALGOS", "KMedoidsConfig", "MedoidConfig", "MedoidResult",
 class MedoidConfig:
     """How a medoid query runs; the fields of ``repro.api.MedoidConfig``.
     ``budget = budget_per_arm * n`` (``n`` is the power-of-two bucket for
-    ragged traffic). ``quant_error_model`` belongs to the quantized path,
-    which is not ported yet."""
+    ragged traffic).
+
+    ``precision`` is ``"fp32"`` or a quantized ``"bf16"`` / ``"int8"``
+    (:mod:`repro_torch.quant`): halving runs widened by the error model
+    (``quant_error_model``: measured ``"probe"`` or worst-case
+    ``"analytic"``), the finalists are checked in exact fp32, and a run
+    whose widened margins overflowed falls back to a same-key fp32 re-run,
+    so the answer is exact either way. ``corr_sh`` only."""
     metric: str = "l2"
     backend: str = "reference"
     budget_per_arm: int = 24
@@ -81,7 +91,12 @@ class KMedoidsConfig:
 @dataclass(frozen=True)
 class MedoidResult:
     """One answered medoid query: the winning index plus exact (scheduled)
-    pull accounting and the executed round plan (survivors, num_refs)."""
+    pull accounting and the executed round plan (survivors, num_refs).
+
+    ``precision`` echoes the config. ``verified`` is ``None`` for fp32; for
+    a quantized run it is ``True`` when the widened margins held all the
+    way down and ``False`` when they overflowed, and then ``medoid`` comes
+    from the same-key fp32 re-run, whose pulls ``pulls`` includes."""
     medoid: int
     pulls: int
     n: int
@@ -115,16 +130,18 @@ def _key(key: Optional[rng.Key], seed: int, dev: torch.device) -> rng.Key:
 def _check_ported(cfg: MedoidConfig) -> None:
     if cfg.algo not in ALGOS:
         raise ValueError(f"unknown algo {cfg.algo!r}; one of {ALGOS}")
+    if cfg.precision != "fp32":
+        quant.check_precision(cfg.precision)
+        if cfg.algo != "corr_sh":
+            raise ValueError("precision != 'fp32' requires algo='corr_sh' "
+                             "(only the engine round loop has the "
+                             "widened-margin + verification path)")
     if cfg.algo in ("meddit", "rand"):
         raise ValueError(f"algo={cfg.algo!r} is not ported to repro_torch "
                          "yet: see ROADMAP Queue 1 item 7")
     if cfg.telemetry:
         raise ValueError("telemetry=True is not ported to repro_torch yet: "
                          "see ROADMAP Queue 1 item 10")
-    if cfg.precision != "fp32":
-        raise ValueError(f"precision={cfg.precision!r} is not ported to "
-                         "repro_torch yet (only 'fp32'): see ROADMAP Queue 1 "
-                         "item 9")
 
 
 def find_medoid(data, key: Optional[rng.Key] = None, *,
@@ -147,19 +164,50 @@ def find_medoid(data, key: Optional[rng.Key] = None, *,
         return MedoidResult(medoid=int(exact_medoid(data, cfg.metric)),
                             pulls=n * n, n=n, algo="exact",
                             metric=cfg.metric, backend=cfg.backend)
+    quantized = cfg.precision != "fp32"
     if n == 1:
         return MedoidResult(medoid=0, pulls=0, n=1, algo="corr_sh",
-                            metric=cfg.metric, backend=cfg.backend)
-    medoid = int(_medoid_impl(data, key, budget=budget, metric=cfg.metric,
-                              backend=cfg.backend))
+                            metric=cfg.metric, backend=cfg.backend,
+                            precision=cfg.precision,
+                            verified=True if quantized else None)
+    out = _medoid_impl(data, key, budget=budget, metric=cfg.metric,
+                       backend=cfg.backend, precision=cfg.precision,
+                       error_model=cfg.quant_error_model)
     rounds = round_schedule(n, budget)
     executed = rounds[: stop_round(rounds) + 1]
-    return MedoidResult(medoid=medoid,
-                        pulls=sum(r.pulls for r in executed), n=n,
-                        algo="corr_sh", metric=cfg.metric,
-                        backend=cfg.backend,
+    pulls = sum(r.pulls for r in executed)
+    verified = None
+    if not quantized:
+        medoid = int(out)
+    else:
+        out, ver = out
+        verified = bool(ver)
+        pulls += quant.verify_pulls(n, rounds)
+        if verified:
+            medoid = int(out)
+        else:
+            # The widened margins overflowed a buffer somewhere and the
+            # quantized answer lost its certificate: re-run in fp32 with
+            # the same key (the same draws, exact estimates).
+            medoid = int(_medoid_impl(data, key, budget=budget,
+                                      metric=cfg.metric, backend=cfg.backend))
+            pulls += sum(r.pulls for r in executed)
+    return MedoidResult(medoid=medoid, pulls=pulls, n=n, algo="corr_sh",
+                        metric=cfg.metric, backend=cfg.backend,
                         rounds=tuple((r.survivors, r.num_refs)
-                                     for r in executed))
+                                     for r in executed),
+                        precision=cfg.precision, verified=verified)
+
+
+def _with_fallback(out, precision: str, fp32_run) -> torch.Tensor:
+    """The medoids of a batch or ragged run: a quantized run's unverified
+    queries take the answers of one same-key fp32 re-run of the batch."""
+    if precision == "fp32":
+        return out
+    medoids, verified = out
+    if bool(verified.all()):
+        return medoids
+    return torch.where(verified, medoids, fp32_run())
 
 
 def _check_multi(cfg: MedoidConfig, mode: str) -> None:
@@ -180,9 +228,13 @@ def find_medoids_batch(data, key: Optional[rng.Key] = None, *,
     dev = resolve_device(device, data)
     data = _tensor(data, dev)
     n = int(data.shape[1]) if data.ndim == 3 else 0
-    return _batch_impl(data, _key(key, cfg.seed, dev),
-                       budget=cfg.budget_per_arm * max(n, 1),
-                       metric=cfg.metric, backend=cfg.backend)
+    key = _key(key, cfg.seed, dev)
+    kw = dict(budget=cfg.budget_per_arm * max(n, 1), metric=cfg.metric,
+              backend=cfg.backend)
+    out = _batch_impl(data, key, precision=cfg.precision,
+                      error_model=cfg.quant_error_model, **kw)
+    return _with_fallback(out, cfg.precision,
+                          lambda: _batch_impl(data, key, **kw))
 
 
 def find_medoids_ragged(data, lengths=None, key: Optional[rng.Key] = None, *,
@@ -211,10 +263,13 @@ def find_medoids_ragged(data, lengths=None, key: Optional[rng.Key] = None, *,
         data = _tensor(data, dev)
     n_bucket = bucket_n(int(data.shape[1]) if data.ndim == 3 else 1,
                         cfg.min_bucket)
-    return ragged_medoids(data, lengths, _key(key, cfg.seed, dev),
-                          budget=cfg.budget_per_arm * n_bucket,
-                          metric=cfg.metric, backend=cfg.backend,
-                          min_bucket=cfg.min_bucket)
+    key = _key(key, cfg.seed, dev)
+    kw = dict(budget=cfg.budget_per_arm * n_bucket, metric=cfg.metric,
+              backend=cfg.backend, min_bucket=cfg.min_bucket)
+    out = ragged_medoids(data, lengths, key, precision=cfg.precision,
+                         error_model=cfg.quant_error_model, **kw)
+    return _with_fallback(out, cfg.precision,
+                          lambda: ragged_medoids(data, lengths, key, **kw))
 
 
 def kmedoids(data, k: int, key: Optional[rng.Key] = None, *,
@@ -225,18 +280,16 @@ def kmedoids(data, k: int, key: Optional[rng.Key] = None, *,
     (point indices, labels, cost, scheduled pull counters). ``refiner``
     replaces the in-process refiner of the per-cluster subproblems; the
     service refiner is not ported (``repro_torch.cluster.
-    kmedoids_via_service`` raises). ``telemetry=True`` and a quantized
-    ``precision`` raise ``ValueError`` naming their ROADMAP item, like the
-    ``quant_*`` backends."""
+    kmedoids_via_service`` raises). ``telemetry=True`` raises
+    ``ValueError`` naming its ROADMAP item. A ``quant_*`` backend runs the
+    phases on quantized distances, as in the JAX package; there is no
+    ``precision`` option (``KMedoidsConfig`` has no such field, so it
+    raises ``TypeError`` like any unknown field)."""
     from repro_torch.cluster.kmedoids import _kmedoids_impl
 
     if overrides.pop("telemetry", False):
         raise ValueError("kmedoids telemetry=True is not ported to "
                          "repro_torch yet: see ROADMAP Queue 1 item 10")
-    precision = overrides.pop("precision", "fp32")
-    if precision != "fp32":
-        raise ValueError(f"kmedoids precision={precision!r} is not ported to "
-                         "repro_torch yet: see ROADMAP Queue 1 item 9")
     cfg = _resolve(config, overrides, KMedoidsConfig)
     dev = resolve_device(device, data)
     return _kmedoids_impl(

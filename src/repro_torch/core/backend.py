@@ -26,8 +26,9 @@ and a reference block ``y: (R, d)``. Registered backends:
     signed zeros and NaNs, see ``engine.halving.resolve_order_fn``).
 
 The backends keep the JAX names although no Pallas runs here. The
-``quant_*`` backends are not ported yet; asking for them raises
-``ValueError`` naming the ROADMAP queue that holds them.
+quantized backends (``quant_bf16``, ``quant_int8``, ``quant_bf16_fused``)
+live in :mod:`repro_torch.quant`, which imports this module; the resolvers
+import it lazily, as the JAX registry does.
 """
 from __future__ import annotations
 
@@ -41,14 +42,6 @@ from repro_torch.kernels import ops as kops
 
 PairwiseFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 CentralityFn = Callable[..., torch.Tensor]
-
-# Backend names of the JAX package that this port does not register yet.
-NOT_PORTED = {
-    "quant_bf16": "ROADMAP Queue 1 item 9 (quantized paths)",
-    "quant_int8": "ROADMAP Queue 1 item 9 (quantized paths)",
-    "quant_bf16_fused": "ROADMAP Queue 1 item 9 (quantized paths)",
-}
-
 
 @dataclass(frozen=True)
 class DistanceBackend:
@@ -71,6 +64,13 @@ class DistanceBackend:
 _REGISTRY: dict[str, DistanceBackend] = {}
 
 
+def _ensure_plugins() -> None:
+    """Import the packages that register backends from above this module
+    in the layering (they import it, so it cannot import them at module
+    scope): :mod:`repro_torch.quant`."""
+    import repro_torch.quant.backends  # noqa: F401  (registers quant_*)
+
+
 def register_backend(backend: DistanceBackend) -> DistanceBackend:
     """Add ``backend`` to the registry (last registration wins on a name)."""
     _REGISTRY[backend.name] = backend
@@ -84,9 +84,8 @@ def get_backend(backend: Union[str, DistanceBackend, None]) -> DistanceBackend:
         return _REGISTRY["reference"]
     if isinstance(backend, DistanceBackend):
         return backend
-    if backend in NOT_PORTED:
-        raise ValueError(f"backend {backend!r} is not ported to repro_torch "
-                         f"yet: see {NOT_PORTED[backend]}")
+    if backend not in _REGISTRY:
+        _ensure_plugins()
     try:
         return _REGISTRY[backend]
     except KeyError:
@@ -95,6 +94,7 @@ def get_backend(backend: Union[str, DistanceBackend, None]) -> DistanceBackend:
 
 
 def list_backends() -> tuple[str, ...]:
+    _ensure_plugins()
     return tuple(sorted(_REGISTRY))
 
 

@@ -52,27 +52,31 @@ def correlated_sequential_halving(data: torch.Tensor, budget: int,
 
 
 def _medoid_impl(data: torch.Tensor, key: rng.Key, *, budget: int,
-                 metric: str = "l2",
-                 backend: str = "reference") -> torch.Tensor:
+                 metric: str = "l2", backend: str = "reference",
+                 precision: str = "fp32", error_model: str = "probe"):
     """Single-query medoid: run the cached program for this
-    (budget, metric, backend). Returns a 0-d int64 tensor."""
+    (budget, metric, backend, precision, error model). Returns a 0-d int64
+    tensor, or ``(index, verified)`` when quantized."""
     instrument.note_dispatch("medoid")
     fn = programs.medoid_program(budget=budget, metric=metric,
-                                 backend=backend)
+                                 backend=backend, precision=precision,
+                                 error_model=error_model)
     return fn(data, key)
 
 
 def _batch_impl(data: torch.Tensor, key: rng.Key, *, budget: int,
-                metric: str = "l2",
-                backend: str = "reference") -> torch.Tensor:
-    """Batched medoid: ``data (B, n, d) -> (B,)`` int64 indices, one shared
-    schedule and an independent reference draw per query."""
+                metric: str = "l2", backend: str = "reference",
+                precision: str = "fp32", error_model: str = "probe"):
+    """Batched medoid: ``data (B, n, d) -> (B,)`` int64 indices (and
+    ``(B,)`` verified when quantized), one shared schedule and an
+    independent reference draw per query."""
     if data.ndim != 3:
         raise ValueError(f"expected (B, n, d) batch, got shape "
                          f"{tuple(data.shape)}")
     instrument.note_dispatch("batch")
     fn = programs.batch_program(budget=budget, metric=metric,
-                                backend=backend)
+                                backend=backend, precision=precision,
+                                error_model=error_model)
     return fn(data, key)
 
 
@@ -85,13 +89,15 @@ def ragged_compile_count() -> int:
 def ragged_medoids(data: torch.Tensor, lengths, key: rng.Key, *,
                    budget: int, metric: str = "l2",
                    backend: str = "reference",
-                   min_bucket: int = DEFAULT_MIN_BUCKET) -> torch.Tensor:
+                   min_bucket: int = DEFAULT_MIN_BUCKET,
+                   precision: str = "fp32", error_model: str = "probe"):
     """Ragged multi-query medoid: ``data (B, n_max, d)`` + per-query
     ``lengths (B,)`` -> ``(B,)`` int64 indices, each below its query's
-    length. ``n_max`` is padded up to its power-of-two bucket and one
-    schedule runs for ``(n_bucket, budget)``; padded arms are masked out of
-    every round. A query with ``length == n_bucket`` gets
-    ``find_medoid(data[i], split_many(key, B)[i])``'s answer.
+    length (and ``(B,)`` verified when quantized). ``n_max`` is padded up
+    to its power-of-two bucket and one schedule runs for ``(n_bucket,
+    budget)``; padded arms are masked out of every round. A query with
+    ``length == n_bucket`` gets ``find_medoid(data[i], split_many(key,
+    B)[i])``'s answer.
 
     Raises ``ValueError`` on a length below 1 or above ``n_max``, before
     any work."""
@@ -115,5 +121,7 @@ def ragged_medoids(data: torch.Tensor, lengths, key: rng.Key, *,
                                        (0, 0, 0, n_bucket - data.shape[1]))
     instrument.note_dispatch("ragged")
     fn = programs.ragged_program(n_bucket=n_bucket, budget=budget,
-                                 metric=metric, backend=backend)
+                                 metric=metric, backend=backend,
+                                 precision=precision,
+                                 error_model=error_model)
     return fn(data, lengths.to(data.device), key)

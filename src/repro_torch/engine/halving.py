@@ -33,7 +33,16 @@ are the arms this loop keeps, and its weighted ``t_r``-prefix of the same
 partition is this loop's reference set. Without masks the loop is the plain
 one above, operation for operation.
 
-The quantized path's ``widen`` belongs to a later slice and is not here.
+**Margin-widened halving** (``widen=``, the quantized path). Each round
+keeps its scheduled ``keep_r = s_{r+1}`` arms plus every finite arm within
+``widen`` of the cut (the ``keep_r``-th smallest estimate), so how many
+arms live is data-dependent. This loop keeps JAX's fixed buffers for it:
+the stacked schedule with ``WIDEN_SLACK``-fold widths, a live count that
+stays a device tensor, and dead positions at ``+inf``. Each round scores the
+band's full buffer width against its exact ``t_r`` references (JAX's
+weighted ``ref_cap`` prefix of the same draw), and ``margin_ok`` records
+whether a band boundary ever cut the live set, as in JAX.
+
 The loop reads no device value back to the host.
 """
 from __future__ import annotations
@@ -50,6 +59,12 @@ from repro_torch.engine.schedule import Round, as_schedule, stop_round
 
 BackendLike = Union[str, DistanceBackend, None]
 OrderFn = Callable[[torch.Tensor], torch.Tensor]
+
+# Buffer-width slack of margin-widened halving (``widen=``): every band and
+# the output round get ``min(n, WIDEN_SLACK * scheduled size)`` slots, so a
+# round may keep up to twice its scheduled count before a band boundary
+# falsifies ``margin_ok``.
+WIDEN_SLACK = 2
 
 
 def sample_refs(key: rng.Key, n: int, t: int) -> torch.Tensor:
@@ -115,23 +130,102 @@ class HalvingOutcome:
     """What one ``run_halving`` pass produced: ``winner`` (0-d int64 global
     index), ``winner_pos`` its position in ``survivors`` (the output round's
     global indices), ``theta`` the output round's estimates over
-    ``survivors``, the estimator's ``aux`` of that round, and ``r_stop``."""
+    ``survivors``, the estimator's ``aux`` of that round, and ``r_stop``.
+
+    Margin-widened runs also report ``live``, the 0-d count of live
+    finalists at the front of ``survivors``, and ``margin_ok``, a 0-d bool
+    that is true iff every widened survivor set fit its buffer all the way
+    down. Plain runs leave both ``None``."""
     winner: torch.Tensor
     winner_pos: torch.Tensor
     survivors: torch.Tensor
     theta: torch.Tensor
     aux: Any
     r_stop: int
+    live: Optional[torch.Tensor] = None
+    margin_ok: Optional[torch.Tensor] = None
+
+
+def _score_round(problem: HalvingProblem, idx: torch.Tensor, sub: rng.Key,
+                 t: int):
+    """One round's estimates of the arms ``idx`` against ``t`` references
+    drawn with ``sub`` (the valid-first draw under a ``ref_mask``), and the
+    estimator's aux."""
+    data, est, ref_mask = problem.data, problem.estimator, problem.ref_mask
+    n = data.shape[0]
+    if ref_mask is None:
+        refs = sample_refs(sub, n, t)
+        sums, aux = est.score(data[idx], data[refs], refs=refs)
+        return _mean(sums, refs.shape[0]), aux
+    refs = sample_refs_masked(sub, n, t, ref_mask)
+    w = ref_mask[refs].float()
+    sums, aux = est.score(data[idx], data[refs], refs=refs, ref_mask=w)
+    return sums / torch.clamp_min(w.sum(), 1.0), aux
+
+
+def _run_halving_widened(problem: HalvingProblem, sched, order_fn: OrderFn,
+                         key: rng.Key, widen) -> HalvingOutcome:
+    """The ``widen`` body of :func:`run_halving` (see the module
+    docstring): JAX's ``_run_halving_widened`` with its positional masks."""
+    data, arm_mask = problem.data, problem.arm_mask
+    n, dev = data.shape[0], data.device
+    stk = sched.stacked(n, slack=WIDEN_SLACK)
+    widen = torch.as_tensor(widen, dtype=torch.float32, device=dev)
+    idx = torch.arange(n, device=dev)
+    live = torch.full((), n, dtype=torch.int64, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
+    for band in stk.bands:
+        # The band boundary is the only place a margin-kept arm can drop.
+        ok = ok & (live <= band.width)
+        live = torch.clamp_max(live, band.width)
+        idx = idx[:band.width]
+        pos = torch.arange(band.width, device=dev)
+        for i, t in enumerate(band.num_refs):
+            keep = stk.sizes[band.start + i + 1]
+            key, sub = rng.split(key)
+            theta, _ = _score_round(problem, idx, sub, t)
+            theta = torch.where(pos < live, theta, torch.inf)
+            if arm_mask is not None:
+                theta = torch.where(arm_mask[idx], theta, torch.inf)
+            order = order_fn(theta)
+            # The cut is the keep-th smallest estimate; an +inf cut (fewer
+            # than keep finite arms) keeps every finite arm.
+            cut = theta[order[keep - 1]]
+            inband = torch.isfinite(theta) & (theta <= cut + widen)
+            live = torch.clamp(inband.sum(), keep, band.width)
+            idx = idx[order]          # stable: live ascending, dead last
+
+    out_cap = min(n, WIDEN_SLACK * stk.sizes[stk.r_stop])
+    ok = ok & (live <= out_cap)
+    live = torch.clamp_max(live, out_cap)
+    survivors = idx[:out_cap]
+    key, sub = rng.split(key)
+    theta, aux = _score_round(problem, survivors, sub,
+                              sched[stk.r_stop].num_refs)
+    theta = torch.where(torch.arange(out_cap, device=dev) < live, theta,
+                        torch.inf)
+    if arm_mask is not None:
+        theta = torch.where(arm_mask[survivors], theta, torch.inf)
+    pos = torch.argmin(theta)
+    return HalvingOutcome(winner=survivors[pos], winner_pos=pos,
+                          survivors=survivors, theta=theta, aux=aux,
+                          r_stop=stk.r_stop, live=live, margin_ok=ok)
 
 
 def run_halving(problem: HalvingProblem, schedule: Sequence[Round],
                 backend: BackendLike = None, *, key: rng.Key,
-                survivor_order: Optional[OrderFn] = None) -> HalvingOutcome:
+                survivor_order: Optional[OrderFn] = None,
+                widen: Optional[torch.Tensor] = None) -> HalvingOutcome:
     """Run correlated sequential halving over ``schedule`` (non-empty:
     ``n == 1`` has an empty schedule and the caller answers arm 0).
 
     ``backend`` only resolves the survivor ordering (pass ``survivor_order``
     to skip the lookup); the distance path lives in ``problem.estimator``.
+    ``widen`` (a 0-d tensor, e.g. :func:`repro_torch.quant.error.margin`)
+    switches to margin-widened halving, which also reports ``live`` and
+    ``margin_ok``; ``widen=None`` runs the plain loop. A zero ``widen`` is
+    not the plain loop: it still keeps exact ties at the cut and uses the
+    widened buffers.
     """
     sched = as_schedule(schedule)
     if not len(sched):
@@ -139,24 +233,15 @@ def run_halving(problem: HalvingProblem, schedule: Sequence[Round],
                          "caller should short-circuit to arm 0")
     order_fn = survivor_order if survivor_order is not None \
         else resolve_order_fn(backend)
-    data, est = problem.data, problem.estimator
-    arm_mask, ref_mask = problem.arm_mask, problem.ref_mask
+    if widen is not None:
+        return _run_halving_widened(problem, sched, order_fn, key, widen)
+    data, arm_mask = problem.data, problem.arm_mask
     n = data.shape[0]
     r_stop = stop_round(list(sched))
     idx = torch.arange(n, device=data.device)
     for r in range(r_stop + 1):
-        t = sched[r].num_refs
         key, sub = rng.split(key)
-        if ref_mask is None:
-            refs = sample_refs(sub, n, t)
-            sums, aux = est.score(data[idx], data[refs], refs=refs)
-            theta = _mean(sums, refs.shape[0])
-        else:
-            refs = sample_refs_masked(sub, n, t, ref_mask)
-            w = ref_mask[refs].float()
-            sums, aux = est.score(data[idx], data[refs], refs=refs,
-                                  ref_mask=w)
-            theta = sums / torch.clamp_min(w.sum(), 1.0)
+        theta, aux = _score_round(problem, idx, sub, sched[r].num_refs)
         if arm_mask is not None:
             theta = torch.where(arm_mask[idx], theta, torch.inf)
         if r < r_stop:

@@ -24,8 +24,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
+# -split-compile=0 lets nvcc optimise the kernels of one source on all the
+# host's cores, which shortens the longest build, dot_centrality.cu's 96
+# instantiations (chip_smoke.py prints the build time, PERF.md keeps it).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              "-split-compile=0")
 SOURCES = ("dot_centrality", "l1_centrality", "topk_smallest",
            "dot_pairwise", "l1_pairwise")
 
@@ -36,14 +40,14 @@ _I = ctypes.c_int
 SIGNATURES = {
     "dot_centrality_launch": ("dot_centrality",
                               (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
-                               _I, _I, _I, _I, _P)),
+                               _I, _I, _I, _I, _I, _P)),
     "l1_centrality_launch": ("l1_centrality",
                              (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I,
                               _I, _P)),
     "topk_rank_launch": ("topk_smallest", (_P, _P, _LL, _I, _I, _P)),
     "topk_select_launch": ("topk_smallest", (_P, _P, _I, _I, _P)),
     "dot_pairwise_launch": ("dot_pairwise",
-                            (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _P)),
+                            (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P)),
     "l1_pairwise_launch": ("l1_pairwise",
                            (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _P)),
 }

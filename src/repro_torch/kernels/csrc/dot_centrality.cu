@@ -44,20 +44,52 @@
 // the running d sums where the stream path takes several d slabs, `partial`
 // the rows of the second pass (pairwise::centrality_rows); either may be
 // null where unused.
+//
+// dtype 1 is the TPU kernel's compute_dtype=bfloat16 mode, the centrality
+// of the quantized path (quant_bf16_fused): the same kernels with
+// pairwise::Bf16GramPair, which rounds both operands to bf16 in registers
+// before each fp32 FFMA. The rows are read as fp32, the norms of the
+// unrounded rows reach the finish, and the sums and the finish stay fp32.
+// It moves the same bytes as dtype 0 and is bound the same way; tensor-core
+// bf16 products and bf16 storage of the long operand are left for later.
 #include "pairwise_tile.cuh"
 
 namespace {
 
 enum Metric { kSql2 = 0, kL2 = 1, kCosine = 2 };
+enum Dtype { kFloat32 = 0, kBfloat16 = 1 };
 
-template <int M>
-struct DotOp : pairwise::GramPair {
+template <int M, class Pair>
+struct DotOp : Pair {
   static __device__ __forceinline__ float finish(float g, float xn2, float yn2) {
     if (M == kCosine) return 1.f - g;
     const float sq = fmaxf(xn2 + yn2 - 2.f * g, 0.f);
     return M == kL2 ? sqrtf(sq) : sq;
   }
 };
+
+template <class Pair>
+int launch_metric(const float* x, const float* y, const float* xn2, const float* yn2,
+                  const float* w, float* scratch, float* partial, float* out, long long C,
+                  long long R, long long d, int metric, int path, int grid, int splits,
+                  cudaStream_t stream) {
+  switch (metric) {
+    case kSql2:
+      return pairwise::launch_centrality<DotOp<kSql2, Pair>>(x, y, xn2, yn2, w, scratch, partial,
+                                                             out, C, R, d, path, grid, splits,
+                                                             stream);
+    case kL2:
+      return pairwise::launch_centrality<DotOp<kL2, Pair>>(x, y, xn2, yn2, w, scratch, partial,
+                                                           out, C, R, d, path, grid, splits,
+                                                           stream);
+    case kCosine:
+      return pairwise::launch_centrality<DotOp<kCosine, Pair>>(x, y, nullptr, nullptr, w,
+                                                               scratch, partial, out, C, R, d,
+                                                               path, grid, splits, stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace
 
@@ -66,19 +98,15 @@ extern "C" int dot_centrality_launch(const float* x, const float* y,
                                      const float* w, float* scratch,
                                      float* partial, float* out, long long C,
                                      long long R, long long d, int metric,
-                                     int path, int grid, int splits,
-                                     cudaStream_t stream) {
-  switch (metric) {
-    case kSql2:
-      return pairwise::launch_centrality<DotOp<kSql2>>(x, y, xn2, yn2, w, scratch, partial, out,
-                                                       C, R, d, path, grid, splits, stream);
-    case kL2:
-      return pairwise::launch_centrality<DotOp<kL2>>(x, y, xn2, yn2, w, scratch, partial, out, C,
-                                                     R, d, path, grid, splits, stream);
-    case kCosine:
-      return pairwise::launch_centrality<DotOp<kCosine>>(x, y, nullptr, nullptr, w, scratch,
-                                                         partial, out, C, R, d, path, grid,
-                                                         splits, stream);
+                                     int dtype, int path, int grid,
+                                     int splits, cudaStream_t stream) {
+  switch (dtype) {
+    case kFloat32:
+      return launch_metric<pairwise::GramPair>(x, y, xn2, yn2, w, scratch, partial, out, C, R,
+                                               d, metric, path, grid, splits, stream);
+    case kBfloat16:
+      return launch_metric<pairwise::Bf16GramPair>(x, y, xn2, yn2, w, scratch, partial, out, C,
+                                                   R, d, metric, path, grid, splits, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -21,12 +21,24 @@
 //    tiles through distributed shared memory.
 // Full fp32 FFMA: a TF32 Gram keeps about three decimal digits, and the
 // tensor cores would buy nothing on shapes that are not bound by flops.
+//
+// dtype 1 is the TPU kernel's compute_dtype=bfloat16 mode: both operands
+// rounded to bf16 in registers (pairwise::Bf16GramPair), fp32 sums. No path
+// of the JAX package or of the port calls it.
 #include "pairwise_tile.cuh"
 
 extern "C" int dot_pairwise_launch(const float* x, const float* y, float* out,
                                    long long C, long long R, long long d,
-                                   int path, int grid, int splits,
+                                   int dtype, int path, int grid, int splits,
                                    cudaStream_t stream) {
-  return pairwise::launch<pairwise::GramPair>(x, y, out, C, R, d, path, grid, splits,
-                                                stream);
+  switch (dtype) {
+    case 0:
+      return pairwise::launch<pairwise::GramPair>(x, y, out, C, R, d, path, grid, splits,
+                                                  stream);
+    case 1:
+      return pairwise::launch<pairwise::Bf16GramPair>(x, y, out, C, R, d, path, grid, splits,
+                                                      stream);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }

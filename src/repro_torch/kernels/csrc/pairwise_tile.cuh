@@ -1,6 +1,6 @@
 // The two pairwise kernels (dot_pairwise.cu, l1_pairwise.cu): the (C, R)
-// block of d sums D[c, r] = sum_k op(x[c,k], y[r,k]), op a GramPair or
-// L1Pair (below), written to out[c * R + r]. The same two paths carry the
+// block of d sums D[c, r] = sum_k op(x[c,k], y[r,k]), op a GramPair,
+// Bf16GramPair or L1Pair (below), written to out[c * R + r]. The same two paths carry the
 // two centrality kernels (dot_centrality.cu, l1_centrality.cu) with a
 // centrality epilogue (Sink below): the weighted row sums of the block after
 // a finish of each complete d sum, and the block never reaches device memory.
@@ -45,6 +45,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,6 +62,18 @@ namespace cg = cooperative_groups;
 struct GramPair {
   static __device__ __forceinline__ float pair(float acc, float a, float b) {
     return fmaf(a, b, acc);
+  }
+};
+
+// The bf16 mode of the Gram (the TPU kernels' compute_dtype=bfloat16): both
+// operands rounded to bf16, nearest even as astype rounds, in registers;
+// the product of two bf16 values is exact in fp32, so only the fp32 sum
+// rounds. The rows stay fp32 in memory, as the TPU kernel reads fp32
+// blocks and casts them in VMEM.
+struct Bf16GramPair {
+  static __device__ __forceinline__ float pair(float acc, float a, float b) {
+    return fmaf(__bfloat162float(__float2bfloat16_rn(a)),
+                __bfloat162float(__float2bfloat16_rn(b)), acc);
   }
 };
 

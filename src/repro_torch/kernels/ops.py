@@ -73,14 +73,20 @@ def kernel_cosine(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def kernel_centrality_sums(x: torch.Tensor, y: torch.Tensor, *,
                            metric: str = "l2",
-                           ref_mask: Optional[torch.Tensor] = None
-                           ) -> torch.Tensor:
+                           ref_mask: Optional[torch.Tensor] = None,
+                           compute_dtype: str = "float32") -> torch.Tensor:
     """Fused ``sum_j d(x_i, y_j)``: (C, d) x (R, d) -> (C,) distance sums.
 
     ℓ1 goes to the ``l1_centrality`` kernel, the Gram metrics to
     ``dot_centrality``; the (C, R) block never exists in device memory.
     ``ref_mask`` (shape (R,), nonzero = valid) drops invalid references from
     the sum inside the kernel.
+
+    ``compute_dtype="bfloat16"`` runs ``dot_centrality``'s bf16 mode, the
+    ``quant_bf16_fused`` backend's path: the norms and the cosine unit rows
+    come from the unrounded fp32 rows, the kernel rounds its operands before
+    each product. ℓ1 has no product stage and ignores it, as in the JAX
+    package: that backend rounds the ℓ1 inputs itself.
     """
     w = _ref_weights(ref_mask, y.shape[0])
     if metric == "l1":
@@ -89,11 +95,11 @@ def kernel_centrality_sums(x: torch.Tensor, y: torch.Tensor, *,
     if metric == "cosine":
         return pk.dot_centrality(_unit_rows(x).contiguous(),
                                  _unit_rows(y).contiguous(), None, None, w,
-                                 metric=metric)
+                                 metric=metric, compute_dtype=compute_dtype)
     if metric in ("l2", "sql2"):
         xf, yf = x.float().contiguous(), y.float().contiguous()
         return pk.dot_centrality(xf, yf, _norms_sq(xf), _norms_sq(yf), w,
-                                 metric=metric)
+                                 metric=metric, compute_dtype=compute_dtype)
     raise ValueError(f"unknown metric {metric!r}")
 
 

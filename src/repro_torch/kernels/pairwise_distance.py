@@ -32,6 +32,14 @@ What bounds each kernel on an H100 and how its design answers that is
 written at the top of its CUDA source. The plain versions repeat each
 kernel's arithmetic (Gram products in full fp32) and are the oracles the
 kernels are held against on the card.
+
+``dot_centrality`` and ``dot_pairwise`` take the TPU kernels'
+``compute_dtype``: ``"bfloat16"`` rounds both operands to bf16 (nearest
+even, as ``astype`` rounds) before each product and keeps the sums, the
+norms and the finish in fp32. The quantized path (``quant_bf16_fused``)
+runs ``dot_centrality`` in that mode; its launches count under
+``"dot_centrality_bf16"`` (``"dot_pairwise_bf16"``), apart from the fp32
+mode's.
 """
 from __future__ import annotations
 
@@ -50,6 +58,7 @@ LAUNCHES: Counter = Counter()
 _MAX_BLOCKS = 2 ** 31 - 1      # a one-dimensional grid
 _PLAIN_BLOCK = 1 << 24         # elements of l1_pairwise_plain's broadcast
 DOT_METRICS = {"sql2": 0, "l2": 1, "cosine": 2}
+COMPUTE_DTYPES = {"float32": 0, "bfloat16": 1}
 
 
 def reset_launches() -> None:
@@ -87,15 +96,34 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+def _check_dtype(name: str, compute_dtype: str) -> None:
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"{name}: compute_dtype must be one of "
+                         f"{tuple(COMPUTE_DTYPES)}, got {compute_dtype!r}")
+
+
+def _launch_name(name: str, compute_dtype: str) -> str:
+    return name if compute_dtype == "float32" else f"{name}_bf16"
+
+
+def _rounded(a: torch.Tensor, compute_dtype: str) -> torch.Tensor:
+    """``a`` as the kernels multiply it: bf16-rounded values in fp32 for
+    ``"bfloat16"``, ``a`` itself for ``"float32"``."""
+    return a.bfloat16().float() if compute_dtype == "bfloat16" else a
+
+
 # ------------------------------- dot_centrality -----------------------------
 
 def dot_centrality_plain(x: torch.Tensor, y: torch.Tensor,
                          xn2: Optional[torch.Tensor],
                          yn2: Optional[torch.Tensor],
                          w: Optional[torch.Tensor], *,
-                         metric: str) -> torch.Tensor:
-    """``S[c] = sum_r w[r] * f(x_c . y_r)`` with the full fp32 Gram."""
-    g = _gram(x, y)
+                         metric: str,
+                         compute_dtype: str = "float32") -> torch.Tensor:
+    """``S[c] = sum_r w[r] * f(x_c . y_r)`` with the full fp32 Gram, of
+    the bf16-rounded rows for ``compute_dtype="bfloat16"`` (whose products
+    are exact in fp32)."""
+    g = _gram(_rounded(x, compute_dtype), _rounded(y, compute_dtype))
     if metric == "cosine":
         v = 1.0 - g
     else:
@@ -110,12 +138,16 @@ def dot_centrality_plain(x: torch.Tensor, y: torch.Tensor,
 def dot_centrality(x: torch.Tensor, y: torch.Tensor,
                    xn2: Optional[torch.Tensor], yn2: Optional[torch.Tensor],
                    w: Optional[torch.Tensor] = None, *,
-                   metric: str) -> torch.Tensor:
+                   metric: str,
+                   compute_dtype: str = "float32") -> torch.Tensor:
     """Row sums of a Gram-metric distance over weighted references.
 
     x: (C, d), y: (R, d) float32; xn2 (C,), yn2 (R,) squared row norms for
     l2/sql2 (None for cosine, whose rows the caller normalised); w: (R,)
-    float32 reference weights or None (all 1). Returns (C,) float32 sums.
+    float32 reference weights or None (all 1). ``compute_dtype`` is
+    ``"float32"`` or ``"bfloat16"`` (x and y rounded to bf16 before each
+    product; the norms are the caller's, of the unrounded rows). Returns
+    (C,) float32 sums.
 
     Replaces ``dot_centrality`` (``src/repro/kernels/pairwise_distance.py``).
     Bound: the long operand's bytes on the skinny rounds (stream path),
@@ -124,6 +156,7 @@ def dot_centrality(x: torch.Tensor, y: torch.Tensor,
     """
     if metric not in DOT_METRICS:
         raise ValueError(f"dot_centrality does not support metric {metric!r}")
+    _check_dtype("dot_centrality", compute_dtype)
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"dot_centrality: bad shapes {tuple(x.shape)}, "
                          f"{tuple(y.shape)}")
@@ -138,12 +171,14 @@ def dot_centrality(x: torch.Tensor, y: torch.Tensor,
                      (w, (r,))):
         _check("dot_centrality", t, torch.float32, shape)
     if not _on_cuda("dot_centrality", x, y, xn2, yn2, w):
-        return dot_centrality_plain(x, y, xn2, yn2, w, metric=metric)
+        return dot_centrality_plain(x, y, xn2, yn2, w, metric=metric,
+                                    compute_dtype=compute_dtype)
     if c == 0 or r == 0:   # an empty sum
         return torch.zeros(c, dtype=torch.float32, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = centrality_plan(c, r, d, sms, crossover=DOT_CENTRALITY_S)
-    return launch_dot_centrality(x, y, xn2, yn2, w, plan, metric)
+    return launch_dot_centrality(x, y, xn2, yn2, w, plan, metric,
+                                 compute_dtype)
 
 
 # ------------------------------- l1_centrality ------------------------------
@@ -315,9 +350,11 @@ def topk_select(rank: torch.Tensor, keep: int) -> torch.Tensor:
 
 # ---------------------------- dot_pairwise / l1_pairwise ---------------------
 
-def dot_pairwise_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-    """``G = x @ y.T`` in full fp32."""
-    return _gram(x, y)
+def dot_pairwise_plain(x: torch.Tensor, y: torch.Tensor, *,
+                       compute_dtype: str = "float32") -> torch.Tensor:
+    """``G = x @ y.T`` in full fp32, of the bf16-rounded rows for
+    ``compute_dtype="bfloat16"``."""
+    return _gram(_rounded(x, compute_dtype), _rounded(y, compute_dtype))
 
 
 def l1_pairwise_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
@@ -475,13 +512,16 @@ def launch_dot_centrality(x: torch.Tensor, y: torch.Tensor,
                           yn2: Optional[torch.Tensor],
                           w: Optional[torch.Tensor],
                           plan: tuple[str, int, int],
-                          metric: str) -> torch.Tensor:
-    """One ``dot_centrality`` launch of ``metric`` on CUDA tensors x (C, d),
-    y (R, d), xn2 (C,) and yn2 (R,) or None (cosine), w (R,) or None with
-    ``plan``, a ``centrality_plan`` result for (C, R, d), C and R >= 1: the
-    wrapper passes the one at ``DOT_CENTRALITY_S``, ``chip_smoke.py`` forces
-    either path to time both on each side of the crossover. Counts in
-    ``LAUNCHES``."""
+                          metric: str,
+                          compute_dtype: str = "float32") -> torch.Tensor:
+    """One ``dot_centrality`` launch of ``metric`` in ``compute_dtype`` on
+    CUDA tensors x (C, d), y (R, d), xn2 (C,) and yn2 (R,) or None
+    (cosine), w (R,) or None with ``plan``, a ``centrality_plan`` result for
+    (C, R, d), C and R >= 1: the wrapper passes the one at
+    ``DOT_CENTRALITY_S``, ``chip_smoke.py`` forces either path to time both
+    on each side of the crossover. Counts in ``LAUNCHES`` under
+    ``"dot_centrality"`` or ``"dot_centrality_bf16"``."""
+    _check_dtype("dot_centrality", compute_dtype)
     c, d = x.shape
     r = y.shape[0]
     kind, grid, splits = plan
@@ -491,19 +531,25 @@ def launch_dot_centrality(x: torch.Tensor, y: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(x.data_ptr(), y.data_ptr(), _ptr(xn2), _ptr(yn2), _ptr(w),
                   _ptr(scratch), _ptr(partial), out.data_ptr(), c, r, d,
-                  DOT_METRICS[metric], _PATH_CODE[kind], grid, splits,
-                  stream)
+                  DOT_METRICS[metric], COMPUTE_DTYPES[compute_dtype],
+                  _PATH_CODE[kind], grid, splits, stream)
     build.check("dot_centrality_launch", code)
-    LAUNCHES["dot_centrality"] += 1
+    LAUNCHES[_launch_name("dot_centrality", compute_dtype)] += 1
     return out
 
 
 def launch_pairwise(name: str, x: torch.Tensor, y: torch.Tensor,
-                    plan: tuple[str, int, int]) -> torch.Tensor:
+                    plan: tuple[str, int, int],
+                    compute_dtype: str = "float32") -> torch.Tensor:
     """One launch of the pairwise kernel ``name`` on CUDA tensors x (C, d),
     y (R, d) with ``plan``, a ``pairwise_plan`` result for (C, R, d): the
     wrappers pass the default one, ``chip_smoke.py`` forces either path to
-    time both on each side of the crossover. Counts in ``LAUNCHES``."""
+    time both on each side of the crossover. ``compute_dtype`` is
+    ``dot_pairwise``'s alone. Counts in ``LAUNCHES`` (the bf16 mode under
+    ``"dot_pairwise_bf16"``)."""
+    _check_dtype(name, compute_dtype)
+    if name != "dot_pairwise" and compute_dtype != "float32":
+        raise ValueError(f"{name} takes no compute_dtype")
     c, d = x.shape
     r = y.shape[0]
     kind, grid, splits = plan
@@ -512,17 +558,19 @@ def launch_pairwise(name: str, x: torch.Tensor, y: torch.Tensor,
                          f"than {_MAX_BLOCKS}")
     out = torch.empty((c, r), dtype=torch.float32, device=x.device)
     fn = build.function(f"{name}_launch")
+    args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), c, r, d)
+    if name == "dot_pairwise":
+        args += (COMPUTE_DTYPES[compute_dtype],)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        code = fn(x.data_ptr(), y.data_ptr(), out.data_ptr(), c, r, d,
-                  _PATH_CODE[kind], grid, splits, stream)
+        code = fn(*args, _PATH_CODE[kind], grid, splits, stream)
     build.check(f"{name}_launch", code)
-    LAUNCHES[name] += 1
+    LAUNCHES[_launch_name(name, compute_dtype)] += 1
     return out
 
 
-def _pairwise(name: str, x: torch.Tensor, y: torch.Tensor,
-              plain) -> torch.Tensor:
+def _pairwise(name: str, x: torch.Tensor, y: torch.Tensor, plain,
+              compute_dtype: str = "float32") -> torch.Tensor:
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"{name}: bad shapes {tuple(x.shape)}, "
                          f"{tuple(y.shape)}")
@@ -535,18 +583,24 @@ def _pairwise(name: str, x: torch.Tensor, y: torch.Tensor,
     if c == 0 or r == 0:
         return torch.empty((c, r), dtype=torch.float32, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return launch_pairwise(name, x, y, pairwise_plan(c, r, d, sms))
+    return launch_pairwise(name, x, y, pairwise_plan(c, r, d, sms),
+                           compute_dtype)
 
 
-def dot_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+def dot_pairwise(x: torch.Tensor, y: torch.Tensor, *,
+                 compute_dtype: str = "float32") -> torch.Tensor:
     """Pairwise inner products: x (C, d), y (R, d) float32 -> (C, R)
-    float32, fp32 accumulation.
+    float32, fp32 accumulation; ``compute_dtype="bfloat16"`` rounds x and y
+    to bf16 before each product.
 
     Replaces ``dot_pairwise`` (``src/repro/kernels/pairwise_distance.py``).
     Bound: the long operand's bytes on the skinny k-medoids shapes (stream
     path), launch latency on the middle halving rounds (tile path); see
     ``csrc/dot_pairwise.cu``."""
-    return _pairwise("dot_pairwise", x, y, dot_pairwise_plain)
+    _check_dtype("dot_pairwise", compute_dtype)
+    return _pairwise("dot_pairwise", x, y,
+                     lambda a, b: dot_pairwise_plain(
+                         a, b, compute_dtype=compute_dtype), compute_dtype)
 
 
 def l1_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

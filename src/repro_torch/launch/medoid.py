@@ -8,6 +8,10 @@ Example (the README's command, on the card):
   PYTHONPATH=src python -m repro_torch.launch.medoid --n 4096 --d 512 \
       --metric l1 --budget-per-arm 30 --dataset rnaseq20k_like \
       --backend pallas_fused --compare
+
+``--precision bf16`` or ``int8`` runs the quantized path; the line then
+carries ``verified`` (true: the quantized certificate held; false: the
+answer came from the exact fp32 re-run).
 """
 from __future__ import annotations
 
@@ -33,7 +37,7 @@ def _sync(device: torch.device) -> None:
 
 def run(n: int, d: int, metric: str, budget_per_arm: int, dataset: str, *,
         seed: int = 0, compare: bool = False, backend: str = "reference",
-        device=None) -> dict:
+        device=None, precision: str = "fp32") -> dict:
     dev = resolve_device(device)
     if dataset in DATASETS:
         metric = metric or DATASETS[dataset][0]
@@ -46,18 +50,20 @@ def run(n: int, d: int, metric: str, budget_per_arm: int, dataset: str, *,
 
     budget = budget_per_arm * n
     out = {"n": n, "d": d, "metric": metric, "budget": budget,
-           "backend": backend, "precision": "fp32", "device": str(dev),
+           "backend": backend, "precision": precision, "device": str(dev),
            "pulls_scheduled": schedule_pulls(n, budget),
            "rounds": [(r.survivors, r.num_refs)
                       for r in round_schedule(n, budget)]}
     _sync(dev)
     t0 = time.perf_counter()
     res = find_medoid(data, key, metric=metric, backend=backend,
-                      budget_per_arm=budget_per_arm)
+                      budget_per_arm=budget_per_arm, precision=precision)
     _sync(dev)
     out["corrsh_s"] = round(time.perf_counter() - t0, 3)
     out["mode"] = backend
     out["medoid"] = res.medoid
+    if precision != "fp32":
+        out["verified"] = res.verified
     if compare:
         t0 = time.perf_counter()
         truth = int(exact_medoid(data, metric))
@@ -79,13 +85,19 @@ def main(argv=None):
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--backend", default="reference",
                     choices=list(list_backends()))
+    ap.add_argument("--precision", default="fp32",
+                    choices=["fp32", "bf16", "int8"],
+                    help="distance precision: quantized distances with "
+                         "margin-widened halving and an exact fp32 check of "
+                         "the finalists (answers stay fp32-exact)")
     ap.add_argument("--compare", action="store_true")
     ap.add_argument("--device", default=None,
                     help="cuda (the default when present) or cpu")
     args = ap.parse_args(argv)
     print(json.dumps(run(args.n, args.d, args.metric, args.budget_per_arm,
                          args.dataset, seed=args.seed, compare=args.compare,
-                         backend=args.backend, device=args.device)))
+                         backend=args.backend, device=args.device,
+                         precision=args.precision)))
 
 
 if __name__ == "__main__":

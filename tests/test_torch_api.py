@@ -80,9 +80,7 @@ def test_small_n_and_config():
 
 
 @pytest.mark.parametrize("overrides", [
-    {"algo": "meddit"}, {"algo": "rand"}, {"telemetry": True},
-    {"precision": "bf16"}, {"backend": "quant_bf16_fused"},
-    {"backend": "quant_int8"}])
+    {"algo": "meddit"}, {"algo": "rand"}, {"telemetry": True}])
 def test_unported_options_raise_with_roadmap_pointer(overrides):
     with pytest.raises(ValueError, match="ROADMAP"):
         tapi.find_medoid(case(16, 4), device="cpu", **overrides)

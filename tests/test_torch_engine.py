@@ -85,8 +85,7 @@ def test_backend_registry_and_unported_names():
     assert thalving.resolve_order_fn("pallas_fused") is \
         thalving.default_order
     for name in ("quant_bf16", "quant_int8", "quant_bf16_fused"):
-        with pytest.raises(ValueError, match="ROADMAP"):
-            tbackend.get_backend(name)
+        assert tbackend.get_backend(name).name == name
     for name in ("pallas_fused", "pallas_fused_topk"):
         assert tbackend.get_backend(name).pairwise("l2") is tops.kernel_l2
     with pytest.raises(ValueError):

@@ -193,6 +193,7 @@ def test_find_medoid_on_card_matches_cpu(cuda):
 # both sides of the stream/tile crossover (from the plan's constant), the
 # middle rounds of a k-medoids halving at n = 20000, and d % 4 != 0
 S = pk.PAIRWISE_S
+DS = pk.DOT_CENTRALITY_S
 
 
 @pytest.mark.parametrize("shape", ((1, 1, 1), (77, 131, 300), (1, 3000, 784),
@@ -243,3 +244,100 @@ def test_kmedoids_on_card_matches_cpu(cuda):
         assert (got.medoids, got.swaps, got.pulls) == \
             (want.medoids, want.swaps, want.pulls)
         np.testing.assert_array_equal(got.labels, want.labels)
+
+
+@pytest.mark.parametrize("metric", ("l2", "sql2", "cosine"))
+@pytest.mark.parametrize("shape", ((1, 1, 1), (77, 131, 300), (2000, 3, 784),
+                                   (3, 3000, 784), (20, 2000, 2048),
+                                   (2500, 16, 2048), (2000, 3, 783),
+                                   (DS, 3000, 784), (3000, DS + 1, 784),
+                                   (157, 135, 784)))
+def test_bf16_centrality_matches_plain(cuda, metric, shape):
+    """``dot_centrality``'s bf16 mode on both forced paths, with and without
+    a random 0/1 reference mask: within rtol 1e-5 (floor 1e-5 of the
+    largest sum; the products of bf16 values are exact in fp32, so only the
+    summation order differs), two launches bit-equal, counted under
+    ``dot_centrality_bf16``."""
+    c, r, d = shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(device=cuda).manual_seed(c * r + d + 1)
+    x0 = torch.rand(c, d, device=cuda, generator=g)
+    y0 = torch.rand(r, d, device=cuda, generator=g)
+    if metric == "cosine":
+        x, y, xn2, yn2 = ops._unit_rows(x0), ops._unit_rows(y0), None, None
+    else:
+        x, y, xn2, yn2 = x0, y0, ops._norms_sq(x0), ops._norms_sq(y0)
+    w = (torch.rand(r, device=cuda, generator=g) > 0.3).float()
+    for mask in (None, w):
+        want = pk.dot_centrality_plain(x, y, xn2, yn2, mask, metric=metric,
+                                       compute_dtype="bfloat16")
+        tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
+        for forced in (32, 0):
+            plan = pk.centrality_plan(c, r, d, sms, crossover=forced)
+            before = pk.LAUNCHES.copy()
+            got, again = (pk.launch_dot_centrality(
+                x, y, xn2, yn2, mask, plan, metric, "bfloat16")
+                for _ in range(2))
+            torch.cuda.synchronize()
+            assert pk.LAUNCHES["dot_centrality_bf16"] == \
+                before["dot_centrality_bf16"] + 2
+            assert pk.LAUNCHES["dot_centrality"] == before["dot_centrality"]
+            assert torch.equal(got, again), plan
+            assert bool(((got - want).abs() <= tol).all()), plan
+        # the wrapper's own plan, through kernel_centrality_sums' glue
+        got = ops.kernel_centrality_sums(x0, y0, metric=metric,
+                                         ref_mask=mask,
+                                         compute_dtype="bfloat16")
+        assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("shape", ((1, 1, 1), (77, 131, 300), (1, 3000, 784),
+                                   (3000, 1, 784), (2000, 10, 257),
+                                   (S, 20000, 784), (S + 1, 5000, 784),
+                                   (157, 135, 784)))
+def test_bf16_dot_pairwise_matches_plain(cuda, shape):
+    """``dot_pairwise``'s bf16 mode on both forced paths: within rtol 1e-5
+    of the plain version (floor 1e-5 of the largest magnitude), two
+    launches bit-equal, counted under ``dot_pairwise_bf16``."""
+    c, r, d = shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(device=cuda).manual_seed(c + r + d + 2)
+    x = torch.randn(c, d, device=cuda, generator=g)
+    y = torch.randn(r, d, device=cuda, generator=g)
+    want = pk.dot_pairwise_plain(x, y, compute_dtype="bfloat16")
+    tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
+    for forced in (32, 0):
+        plan = pk.pairwise_plan(c, r, d, sms, crossover=forced)
+        before = pk.LAUNCHES["dot_pairwise_bf16"]
+        got, again = (pk.launch_pairwise("dot_pairwise", x, y, plan,
+                                         "bfloat16") for _ in range(2))
+        torch.cuda.synchronize()
+        assert pk.LAUNCHES["dot_pairwise_bf16"] == before + 2
+        assert torch.equal(got, again), plan
+        assert bool(((got - want).abs() <= tol).all()), plan
+    got = pk.dot_pairwise(x, y, compute_dtype="bfloat16")
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def test_find_medoid_quantized_on_card_matches_cpu(cuda):
+    """The quantized path on the card: the bf16 fused cells launch the bf16
+    ``dot_centrality`` once per executed round (none in the probe or the
+    check) and answer as the CPU does."""
+    x = np.random.default_rng(1).standard_normal((3000, 64)) \
+        .astype(np.float32)
+    for precision, backend, metric, kern in (
+            ("bf16", "pallas_fused", "l2", "dot_centrality_bf16"),
+            ("bf16", "pallas_fused_topk", "cosine", "dot_centrality_bf16"),
+            ("bf16", "pallas_fused", "l1", "l1_centrality"),
+            ("int8", "pallas_fused", "sql2", None)):
+        pk.reset_launches()
+        got = tapi.find_medoid(x, rng.key(7, cuda), backend=backend,
+                               metric=metric, precision=precision,
+                               device=cuda)
+        want = tapi.find_medoid(x, rng.key(7), backend=backend,
+                                metric=metric, precision=precision,
+                                device="cpu")
+        assert got.verified is True
+        want_launches = {kern: len(got.rounds)} if kern else {}
+        assert dict(pk.LAUNCHES) == want_launches, metric
+        assert (got.medoid, got.pulls) == (want.medoid, want.pulls)

@@ -229,8 +229,8 @@ def test_admission_errors_and_options():
                 else call(data, algo="exact")
     with pytest.raises(ValueError, match="ROADMAP"):
         tapi.find_medoids_ragged([torch.zeros(3, 2)], telemetry=True)
-    with pytest.raises(ValueError, match="ROADMAP"):
-        tapi.find_medoids_batch(data, precision="int8")
+    with pytest.raises(ValueError, match="unknown precision"):
+        tapi.find_medoids_batch(data, precision="int4")
 
 
 def test_ragged_programs_are_one_per_bucket():
