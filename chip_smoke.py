@@ -26,14 +26,17 @@ nonzero:
    at d = 1024 and 4096 around ``CENTRALITY_S``, ``dot_centrality`` for l2
    at d = 784 and cosine at d = 2048 around ``DOT_CENTRALITY_S``; every
    centrality check also holds two launches bit-equal), and
-   ``topk_rank`` at each candidate tile and cluster, checked bit-equal on
-   all-equal and int32-extreme keys and around its tile. Each
-   ``find_medoid`` cell's centrality launches are split by shape class as
-   in phase 4. The bf16 modes: ``dot_centrality``'s on the ragged shapes
-   with masks (l2, sql2, cosine), on both paths around
-   ``DOT_CENTRALITY_S``, and at every widened round shape of the phase-5
-   cells, timed beside its fp32 mode, its plain version and a two-call
-   yardstick (``xr @ yr.T`` of pre-rounded rows, the finish and a row sum);
+   ``topk_smallest`` (one launch: the rank and the select) at each candidate
+   tile and cluster, checked bit-equal to ``argsort(stable=True)[:keep]``
+   for keep in {1, C // 2, C} on all-equal and int32-extreme keys and
+   around its tile. Each ``find_medoid`` cell's centrality launches are
+   split by shape class as in phase 4. The bf16 modes: ``dot_centrality``'s
+   on the ragged shapes with masks (l2, sql2, cosine), on both paths around
+   ``DOT_CENTRALITY_BF16_S``, and at every widened round shape of the
+   phase-5 cells, timed beside its fp32 mode, its plain version and a
+   two-call yardstick (``xr @ yr.T`` of pre-rounded rows, the finish and a
+   row sum), by path and by shape; wherever it takes the stream path it
+   must be bit-equal to the fp32 mode on pre-rounded rows;
    ``dot_pairwise``'s on both paths at the k-medoids pairwise shapes, timed
    beside its plain version, its fp32 mode and ``xr @ yr.T`` (no path
    calls it);
@@ -57,9 +60,10 @@ nonzero:
    beside a two-call yardstick: the (C, R) distance block by one PyTorch
    call (``cdist``, ``cdist(p=1)``, ``1 - x @ y.T`` of unit rows) and a row
    sum or ``@ w``; both centrality kernels must take the stream path in
-   both orientations and the tile path. Then ``topk_rank`` at every C of
-   the main path against ``argsort(stable=True)``, and one line of exact
-   PAM at n = 2048 (printed only);
+   both orientations and the tile path. Then ``topk_smallest`` at every C
+   of the main path against ``argsort(stable=True)``, beside its rank-only
+   mode and a one-element ``zero_()`` (the launch floor), and one line of
+   exact PAM at n = 2048 (printed only);
 5. the quantized path at full size: ``find_medoid(precision=...)`` on the
    four cells below with phase 3's data, key and budget, counters zeroed
    just before each run and held against one centrality launch per
@@ -92,6 +96,7 @@ SEED = 0
 RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12          # fp32 outside the tensor cores
+BF16_TC_OPS_PER_S = 989e12      # bf16 on the tensor cores, dense
 PALLAS = "src/repro/kernels/pairwise_distance.py"
 
 # name, dataset, n, d, metric, backend
@@ -124,10 +129,9 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                        f"{PALLAS}:269"),
     "l1_centrality": ("src/repro_torch/kernels/csrc/l1_centrality.cu",
                       f"{PALLAS}:181"),
-    "topk_rank": ("src/repro_torch/kernels/csrc/topk_smallest.cu",
-                  f"{PALLAS}:355"),
-    "topk_select": ("src/repro_torch/kernels/csrc/topk_smallest.cu",
-                    f"{PALLAS}:366"),
+    # one launch for the TPU's rank and select kernels
+    "topk_smallest": ("src/repro_torch/kernels/csrc/topk_smallest.cu",
+                      f"{PALLAS}:355, {PALLAS}:366"),
     "dot_pairwise": ("src/repro_torch/kernels/csrc/dot_pairwise.cu",
                      f"{PALLAS}:82"),
     "l1_pairwise": ("src/repro_torch/kernels/csrc/l1_pairwise.cu",
@@ -183,8 +187,16 @@ def _device_op(name: str) -> str:
     return f"{m.group(1)} {tags[-1]}" if tags else m.group(1)
 
 
-def _bound_s(nbytes: float, ops: float) -> tuple[float, float]:
-    return nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+def _ops_s(nops: float, tensor_cores: bool = False) -> float:
+    """The least time for ``nops`` operations at the rate of the units that
+    do them: bf16 tensor-core products or fp32 outside the tensor cores."""
+    return nops / (BF16_TC_OPS_PER_S if tensor_cores else FP32_OPS_PER_S)
+
+
+def _bound_s(nbytes: float, ops_s: float) -> tuple[float, float]:
+    """(bytes time, operations time) of one launch; ``ops_s`` from
+    _ops_s."""
+    return nbytes / HBM_BYTES_PER_S, ops_s
 
 
 class Ledger:
@@ -197,9 +209,9 @@ class Ledger:
                          "max_abs_err": 0.0, "launches": 0}
                      for k in KERNELS}
 
-    def add(self, name, ms, plain_ms, nbytes, ops, err, library_ms=None):
+    def add(self, name, ms, plain_ms, nbytes, ops_s, err, library_ms=None):
         row = self.rows[name]
-        b, o = _bound_s(nbytes, ops)
+        b, o = _bound_s(nbytes, ops_s)
         row["ms"] += ms
         row["plain_ms"] += plain_ms
         row["bytes_s"] += b
@@ -239,14 +251,13 @@ def executed_rounds(n: int, budget: int) -> list:
 def halving_plan(rounds, score_kern: str, topk: bool,
                  masked: bool = False) -> list:
     """The launches of one run_halving, as (kernel, C, R, masked): the score
-    kernel at each round's (s_r, t_r) and, on the topk backend, the
-    rank/select pair at each round before the output round."""
+    kernel at each round's (s_r, t_r) and, on the topk backend, one
+    topk_smallest launch at each round before the output round."""
     plan = []
     for i, rd in enumerate(rounds):
         plan.append((score_kern, rd.survivors, rd.num_refs, masked))
         if topk and i < len(rounds) - 1:
-            plan += [("topk_rank", rd.survivors, 0, False),
-                     ("topk_select", rd.survivors, 0, False)]
+            plan.append(("topk_smallest", rd.survivors, 0, False))
     return plan
 
 
@@ -424,8 +435,9 @@ def main() -> int:
 
     def check_centrality(metric, x, y, w, reps=0, dtype="float32"):
         """Kernel vs plain on the card (``dtype``: dot_centrality's
-        compute_dtype); returns (max_abs_err, ms, plain_ms, bytes, ops,
-        library_ms) with times only when reps > 0."""
+        compute_dtype); returns (max_abs_err, ms, plain_ms, bytes, ops_s,
+        library_ms) with times only when reps > 0 (ops_s: the operations'
+        least time, on the tensor cores for the bf16 tile path)."""
         xk, yk, xn2, yn2 = centrality_inputs(metric, x, y)
         if metric == "l1":
             def kern():
@@ -449,14 +461,25 @@ def main() -> int:
         what = f"{metric} {dtype} centrality at C={c} R={r} d={d}"
         _require(torch.equal(got, again), f"{what}: two launches differ")
         err = _agree(got, want, _tolerance(want, metric, x, y, w), what)
+        plan = pk.centrality_plan(c, r, d, sms,
+                                  crossover=pk.dot_crossover(dtype))
+        if dtype == "bfloat16" and plan[0] == pk.STREAM:
+            # the stream path rounds each value once where it is staged,
+            # then does the fp32 mode's operations in the same order
+            fp32 = pk.launch_dot_centrality(
+                xk.bfloat16().float(), yk.bfloat16().float(), xn2, yn2, w,
+                plan, metric)
+            _require(torch.equal(got, fp32), f"{what}: the stream path "
+                     f"differs from the fp32 mode on pre-rounded rows")
         nbytes = 4 * (c * d + r * d + c)
         if metric in ("l2", "sql2"):
             nbytes += 4 * (c + r)
         if w is not None:
             nbytes += 4 * r
-        nops = (3 if metric == "l1" else 2) * c * r * d
+        ops_s = _ops_s((3 if metric == "l1" else 2) * c * r * d,
+                       dtype == "bfloat16" and plan[0] == pk.TILE)
         if reps == 0:
-            return err, 0.0, 0.0, nbytes, nops, None
+            return err, 0.0, 0.0, nbytes, ops_s, None
         if dtype == "bfloat16":
             bf16_more[(metric, c, r, d, w is not None)] = (
                 timed(lambda: kern("float32"), reps),
@@ -465,7 +488,7 @@ def main() -> int:
             twocall[(metric, c, r, d, w is not None)] = timed(
                 yardstick(metric, xk, yk, w), reps)
         return (err, timed(kern, reps), timed(plain, max(1, reps // 4)),
-                nbytes, nops, None)
+                nbytes, ops_s, None)
 
     def bf16_yardstick(metric, xk, yk, xn2, yn2, w):
         """The bf16 mode's two-call yardstick: ``xr @ yr.T`` of the rows
@@ -546,7 +569,7 @@ def main() -> int:
     def check_pairwise_bf16(x, y, reps=0):
         """dot_pairwise's bf16 mode vs its plain version on the card, on
         both forced paths (two launches bit-equal) and the wrapper's plan;
-        returns (max_abs_err, ms, plain_ms, bytes, ops, None) with times
+        returns (max_abs_err, ms, plain_ms, bytes, ops_s, None) with times
         (the wrapper's plan) only when reps > 0."""
         c, d = x.shape
         r = y.shape[0]
@@ -566,22 +589,24 @@ def main() -> int:
             return pk.dot_pairwise(x, y, compute_dtype="bfloat16")
         err = max(err, _agree(kern(), want, tol, f"dot_pairwise bf16 at "
                                                  f"C={c} R={r} d={d}"))
-        nbytes, nops = 4 * (c * d + r * d + c * r), 2 * c * r * d
+        nbytes = 4 * (c * d + r * d + c * r)
+        ops_s = _ops_s(2 * c * r * d,
+                       pk.pairwise_plan(c, r, d, sms)[0] == pk.TILE)
         if reps == 0:
-            return err, 0.0, 0.0, nbytes, nops, None
+            return err, 0.0, 0.0, nbytes, ops_s, None
         xr, yr = x.bfloat16().float(), y.bfloat16().float()
         bf16_more[("pairwise", c, r, d, False)] = (
             timed(lambda: pk.dot_pairwise(x, y), reps),
             timed(lambda: xr @ yr.T, reps))
         return (err, timed(kern, reps), timed(
             lambda: pk.dot_pairwise_plain(x, y, compute_dtype="bfloat16"),
-            max(1, reps // 4)), nbytes, nops, None)
+            max(1, reps // 4)), nbytes, ops_s, None)
 
     def check_pairwise(name, x, y, reps=0):
         """The pairwise kernel ``name`` vs its plain version on the card;
         for dot_pairwise also the sql2/l2 blocks built from it (with the
         self-pair allowance). Returns (max_abs_err, ms, plain_ms, bytes,
-        ops, library_ms) with times only when reps > 0."""
+        ops_s, library_ms) with times only when reps > 0."""
         if name == "dot_pairwise":
             kern, plain = pk.dot_pairwise, pk.dot_pairwise_plain
 
@@ -621,25 +646,29 @@ def main() -> int:
                 got_d = ops.pairwise_kernel(metric)(x, y)
                 _agree(got_d, plain_d, tol, f"{metric} from {what}")
         nbytes = 4 * (c * d + r * d + c * r)
-        nops = (2 if name == "dot_pairwise" else 3) * c * r * d
+        ops_s = _ops_s((2 if name == "dot_pairwise" else 3) * c * r * d)
         if reps == 0:
-            return err, 0.0, 0.0, nbytes, nops, None
+            return err, 0.0, 0.0, nbytes, ops_s, None
         return (err, timed(lambda: kern(x, y), reps),
-                timed(lambda: plain(x, y), max(1, reps // 4)), nbytes, nops,
+                timed(lambda: plain(x, y), max(1, reps // 4)), nbytes, ops_s,
                 timed(library, reps))
 
-    def check_topk(theta):
-        keys = ops.totalorder_keys(theta)
-        rank_k, rank_p = pk.topk_rank(keys), pk.topk_rank_plain(keys)
-        _require(torch.equal(rank_k, rank_p), "topk_rank disagrees")
-        c = theta.shape[0]
-        sel_k = pk.topk_select(rank_k, c)
-        sel_p = pk.topk_select_plain(rank_k, c)
+    def check_topk(keys):
+        """topk_smallest (one launch) against its plain version and
+        argsort(stable=True)[:keep] for keep in {1, C // 2, C}, and the
+        rank-only mode against topk_rank_plain; bit-equal."""
+        c = keys.shape[0]
+        _require(torch.equal(pk.topk_rank(keys), pk.topk_rank_plain(keys)),
+                 f"topk_rank disagrees at C={c}")
         lib = torch.argsort(keys, stable=True)
-        _require(torch.equal(sel_k, sel_p), "topk_select disagrees")
-        _require(torch.equal(sel_k, lib),
-                 "topk pair differs from a stable argsort")
-        return keys, rank_k
+        for keep in sorted({1, max(1, c // 2), c}):
+            got = pk.topk_smallest(keys, keep)
+            _require(torch.equal(got, pk.topk_smallest_plain(keys, keep)),
+                     f"topk_smallest disagrees at C={c} keep={keep}")
+            _require(torch.equal(got, lib[:keep]),
+                     f"topk_smallest differs from a stable argsort at C={c} "
+                     f"keep={keep}")
+        return keys
 
     def tie_heavy(c):
         """Estimates with ties, -0.0/+0.0, +-inf and NaNs of both signs."""
@@ -664,29 +693,25 @@ def main() -> int:
         """Check and time ``kern`` once per shape on rows of dataset ``ds``
         (random rows at the main path's shape; a random 0/1 reference mask
         where the main path masks): the cached (err, ms, plain_ms, bytes,
-        ops, library_ms). The topk pair is keyed by C alone and returns
-        both kernels' tuples."""
-        if kern in ("topk_rank", "topk_select"):
+        ops_s, library_ms). topk_smallest is keyed by C alone, at the main
+        path's keep = C; its cache entry also holds the rank-only mode's
+        time and the launch floor."""
+        if kern == "topk_smallest":
             ck = ("topk", c)
             if ck not in cache:
-                check_topk(tie_heavy(c))
-                keys, rank = check_topk(torch.rand(c, device=dev,
-                                                   generator=gen))
-                out = torch.empty(c, dtype=torch.int64, device=dev)
-                ar = torch.arange(c, device=dev)
-                rank_l = rank.long()
-                # topk_rank's bound: its 8 C bytes (keys in, ranks out)
+                check_topk(ops.totalorder_keys(tie_heavy(c)))
+                keys = check_topk(ops.totalorder_keys(
+                    torch.rand(c, device=dev, generator=gen)))
+                one = torch.empty(1, device=dev)
+                # the bound: its 4 C + 8 keep bytes (keys in, indices out)
                 cache[ck] = {
-                    "topk_rank": (
-                        0.0, timed(lambda: pk.topk_rank(keys), 10),
-                        timed(lambda: pk.topk_rank_plain(keys), 3), 8 * c,
-                        0,
+                    "topk_smallest": (
+                        0.0, timed(lambda: pk.topk_smallest(keys, c), 10),
+                        timed(lambda: pk.topk_smallest_plain(keys, c), 3),
+                        12 * c, 0,
                         timed(lambda: torch.argsort(keys, stable=True), 10)),
-                    "topk_select": (
-                        0.0, timed(lambda: pk.topk_select(rank, c), 10),
-                        timed(lambda: pk.topk_select_plain(rank, c), 10),
-                        12 * c, c,
-                        timed(lambda: out.scatter_(0, rank_l, ar), 10))}
+                    "rank_only_ms": timed(lambda: pk.topk_rank(keys), 10),
+                    "floor_ms": timed(lambda: one.zero_(), 10)}
             return cache[ck][kern]
         ck = (kern, ds, c, r, metric, masked)
         if ck not in cache:
@@ -710,13 +735,13 @@ def main() -> int:
         R, masked)); returns per-kernel (ms, plain_ms, bound_ms, max err)."""
         tot = {}
         for kern, c, r, masked in plan:
-            err, ms, pms, nbytes, nops, lib = shape_time(kern, ds, c, r,
-                                                         metric, masked)
-            led.add(kern, ms, pms, nbytes, nops, err, library_ms=lib)
+            err, ms, pms, nbytes, ops_s, lib = shape_time(kern, ds, c, r,
+                                                          metric, masked)
+            led.add(kern, ms, pms, nbytes, ops_s, err, library_ms=lib)
             t = tot.setdefault(kern, [0.0, 0.0, 0.0, 0.0])
             t[0] += ms
             t[1] += pms
-            t[2] += max(_bound_s(nbytes, nops)) * 1e3
+            t[2] += max(_bound_s(nbytes, ops_s)) * 1e3
             t[3] = max(t[3], err)
         return tot
 
@@ -748,9 +773,9 @@ def main() -> int:
             cls = ("masked refinement" if masked else
                    "middle" if path == pk.TILE else
                    "skinny C-short" if c <= r else "skinny R-short")
-            _, ms, pms, nbytes, nops, _ = shape_time(kern, ds, c, r, metric,
-                                                     masked)
-            b, o = _bound_s(nbytes, nops)
+            _, ms, pms, nbytes, ops_s, _ = shape_time(kern, ds, c, r, metric,
+                                                      masked)
+            b, o = _bound_s(nbytes, ops_s)
             if cls.startswith("skinny") and max(c, r) >= 2500:
                 big[(c, r)] = max(b, o) * 1e3 / ms
             v = by_class.setdefault(cls, [0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0,
@@ -777,7 +802,7 @@ def main() -> int:
 
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     paths = Counter()     # (pairwise kernel, path) -> main-path launches
-    rank_cs = Counter()   # C -> topk_rank launches of the main path
+    rank_cs = Counter()   # C -> topk_smallest launches of the main path
     cen_paths = {k: Counter() for k in CENTRALITY}
     cen_s = {"l1_centrality": pk.CENTRALITY_S,
              "dot_centrality": pk.DOT_CENTRALITY_S}
@@ -913,33 +938,32 @@ def main() -> int:
     rt = pk.RANK_TILE
     for c in (1, 2, 3, 129, 1000, 4097, 20000, rt - 1, rt, rt + 1,
               2 * rt + 1):
-        check_topk(tie_heavy(c))
-        for keys in (torch.full((c,), 7, dtype=torch.int32, device=dev),
-                     torch.where(torch.rand(c, device=dev, generator=gen)
-                                 < 0.5, -2 ** 31, 2 ** 31 - 1).int()):
-            _require(torch.equal(pk.topk_rank(keys), pk.topk_rank_plain(keys)),
-                     f"topk_rank disagrees on all-equal or extreme keys at "
-                     f"C={c}")
-    print("phase2 topk ties, -0.0/+0.0, +-inf, +-nan, all-equal and int32 "
-          "extreme keys: bit-equal", flush=True)
-    # the rank kernel's tile: each candidate tile at the large C of the
-    # main path (one block below the tile, clusters of tiles above it)
+        check_topk(ops.totalorder_keys(tie_heavy(c)))
+        check_topk(torch.full((c,), 7, dtype=torch.int32, device=dev))
+        check_topk(torch.where(torch.rand(c, device=dev, generator=gen)
+                               < 0.5, -2 ** 31, 2 ** 31 - 1).int())
+    print("phase2 topk_smallest (keep 1, C // 2, C) and its rank-only mode "
+          "on ties, -0.0/+0.0, +-inf, +-nan, all-equal and int32 extreme "
+          "keys: bit-equal to argsort(stable=True)", flush=True)
+    # the tile of the one topk launch: each candidate tile at the large C of
+    # the main path (one block below the tile, clusters of tiles above it),
+    # at the main path's keep = C
     tiles = []
     for c in (2048, 4096, 6424, 8192, 10000, 20000):
         keys = ops.totalorder_keys(torch.rand(c, device=dev, generator=gen))
-        want = pk.topk_rank_plain(keys)
+        want = torch.argsort(keys, stable=True)
         us = []
         plans = [pk.topk_rank_plan(c, sms, tile=tile)
                  for tile in (512, 1024, 2048)]
         plans += [(t, 8) for t, cl in plans if c > t and cl < 8]
         for plan in plans:
             tile = plan[0]
-            _require(torch.equal(pk.launch_topk_rank(keys, plan), want),
-                     f"topk_rank {plan} disagrees at C={c}")
+            _require(torch.equal(pk.launch_topk(keys, c, plan)[0], want),
+                     f"topk_smallest {plan} disagrees at C={c}")
             us.append(f"{tile} {plan} "
-                      f"{1e3 * timed(lambda p=plan: pk.launch_topk_rank(keys, p), 10):.2f}")
+                      f"{1e3 * timed(lambda p=plan: pk.launch_topk(keys, c, p), 10):.2f}")
         tiles.append(f"C={c}: " + ", ".join(us) + " us")
-    print("phase2 topk_rank by tile (tile (tile, cluster) time): "
+    print("phase2 topk_smallest by tile (tile (tile, cluster) time): "
           + "; ".join(tiles), flush=True)
     # both paths of each centrality kernel, checked and timed on either
     # side of the crossover at round shapes of the main path: 16 pulls per
@@ -959,13 +983,13 @@ def main() -> int:
           f"both paths checked and timed ({time.perf_counter() - t0:.1f} "
           f"s): " + line, flush=True)
     t0 = time.perf_counter()
-    ds_ = pk.DOT_CENTRALITY_S
     line = centrality_crossover((("l2", 784, 40000), ("sql2", 784, 40000),
                                  ("cosine", 2048, 40000)),
-                                (ds_ - 4, ds_, ds_ + 4), dtype="bfloat16")
+                                (2, 4, 8, 10, 12, 16, 20, 24),
+                                dtype="bfloat16")
     print(f"phase2 dot_centrality bf16 mode on both paths around S_c = "
-          f"{ds_}, checked and timed ({time.perf_counter() - t0:.1f} s): "
-          + line, flush=True)
+          f"{pk.dot_crossover('bfloat16')}, checked and timed "
+          f"({time.perf_counter() - t0:.1f} s): " + line, flush=True)
     # dot_pairwise's bf16 mode at the k-medoids pairwise shapes of the
     # mnist cell (its BUILD and SWAP halving rounds, the (n, k) cache, the
     # (1, n) row), both paths checked at each; no path calls it
@@ -999,7 +1023,8 @@ def main() -> int:
                 print(f"phase2 {name} {cen} by shape: "
                       f"{centrality_classes(cen, plan, ds, d, metric)}",
                       flush=True)
-        rank_cs.update(c for kern, c, _, _ in plan if kern == "topk_rank")
+        rank_cs.update(c for kern, c, _, _ in plan
+                       if kern == "topk_smallest")
 
     # the widened round shapes of the phase-5 cells that run a kernel (the
     # band's buffer width by t_r): checked and timed here, entered in the
@@ -1009,24 +1034,42 @@ def main() -> int:
         if not plan:
             continue
         kern = plan[0][0]
-        sums = [0.0] * 6   # kernel, plain, bound, fp32 mode, yardstick, err
+        # kernel, plain, bound, fp32 mode, yardstick, err, launches; in all
+        # and, for the bf16 mode, by path
+        sums, shapes = {}, []
         for _, c, r, masked in plan:
-            err, ms, pms, nbytes, nops, _ = shape_time(kern, ds, c, r, metric,
-                                                       masked)
+            err, ms, pms, nbytes, ops_s, _ = shape_time(kern, ds, c, r,
+                                                        metric, masked)
             more = bf16_more.get((metric, c, r, d, masked), (0.0, 0.0))
-            for i, add in enumerate((ms, pms, max(_bound_s(nbytes, nops))
-                                     * 1e3, more[0], more[1])):
-                sums[i] += add
-            sums[5] = max(sums[5], err)
-        extra = (f", fp32 mode {sums[3]:.3f} ms, two calls (xr @ yr.T of "
-                 f"pre-rounded rows, finish, row sum) {sums[4]:.3f} ms"
-                 if kern == "dot_centrality_bf16" else
-                 " (the fp32 kernel on bf16-rounded rows)")
+            path = pk.centrality_plan(
+                c, r, d, sms, crossover=pk.dot_crossover("bfloat16"))[0]
+            bound = max(_bound_s(nbytes, ops_s)) * 1e3
+            shapes.append(f"({c}, {r}) {path} {1e3 * ms:.2f} us, fp32 mode "
+                          f"{1e3 * more[0]:.2f} us, {bound / ms:.1%} of the "
+                          f"bound")
+            for key in ("all", path):
+                v = sums.setdefault(key, [0.0] * 7)
+                for i, add in enumerate((ms, pms, bound, more[0], more[1])):
+                    v[i] += add
+                v[5] = max(v[5], err)
+                v[6] += 1
+        tot = sums["all"]
+        if kern == "dot_centrality_bf16":
+            extra = (f", fp32 mode {tot[3]:.3f} ms, two calls (xr @ yr.T of "
+                     f"pre-rounded rows, finish, row sum) {tot[4]:.3f} ms; by "
+                     f"path: " + "; ".join(
+                         f"{p} {v[6]:.0f} shapes: kernel {v[0]:.3f} ms, fp32 mode "
+                         f"{v[3]:.3f} ms, two calls {v[4]:.3f} ms, bound "
+                         f"{v[2]:.4f} ms ({v[2] / v[0]:.1%} of it)"
+                         for p, v in sorted(sums.items()) if p != "all")
+                     + "; by shape: " + "; ".join(shapes))
+        else:
+            extra = " (the fp32 kernel on bf16-rounded rows)"
         print(f"phase2 {name}: {len(plan)} widened round shapes "
               f"{[(c, r) for _, c, r, _ in plan]}: {kern} kernel "
-              f"{sums[0]:.3f} ms, plain {sums[1]:.3f} ms, bound "
-              f"{sums[2]:.4f} ms ({sums[2] / sums[0]:.1%} of it), "
-              f"max_abs_err {sums[5]:.3g}{extra}", flush=True)
+              f"{tot[0]:.3f} ms, plain {tot[1]:.3f} ms, bound "
+              f"{tot[2]:.4f} ms ({tot[2] / tot[0]:.1%} of it), "
+              f"max_abs_err {tot[5]:.3g}{extra}", flush=True)
 
     # ---------------------------------------------- phase 3: main path
     for name, ds, n, d, metric, backend in CELLS:
@@ -1190,9 +1233,9 @@ def main() -> int:
                 continue
             cls = ("(1, n) rows" if (c, r) == (1, n) else
                    "(n, k) caches" if (c, r) == (n, k) else "halving rounds")
-            _, ms, pms, nbytes, nops, lib = shape_time(kern, ds, c, r, metric,
-                                                       masked)
-            b, o = _bound_s(nbytes, nops)
+            _, ms, pms, nbytes, ops_s, lib = shape_time(kern, ds, c, r,
+                                                        metric, masked)
+            b, o = _bound_s(nbytes, ops_s)
             v = by_class.setdefault(cls, [0, 0.0, 0.0, 0.0, 0.0, 0.0, 0.0])
             for i, add in enumerate((1, ms, b * 1e3, o * 1e3, pms, lib)):
                 v[i] += add
@@ -1209,7 +1252,8 @@ def main() -> int:
         cen = "l1_centrality" if metric == "l1" else "dot_centrality"
         print(f"phase4 {name} {cen} by shape: "
               f"{centrality_classes(cen, plan, ds, d, metric)}", flush=True)
-        rank_cs.update(c for kern, c, _, _ in plan if kern == "topk_rank")
+        rank_cs.update(c for kern, c, _, _ in plan
+                       if kern == "topk_smallest")
 
     taken = {p for _, p in paths}
     _require(taken == {pk.STREAM, pk.TILE},
@@ -1223,24 +1267,30 @@ def main() -> int:
                  f"{cen} took the paths {dict(taken)} only")
         print(f"phase4 {cen} launches by path over the main path: "
               f"{dict(taken)}", flush=True)
-    # topk_rank at each C of the main path (times from shape_time; the
-    # launch floor beside it is topk_select's time at the same C)
+    # topk_smallest at each C of the main path (times from shape_time),
+    # beside its rank-only mode and the launch floor: a one-element zero_()
+    # under the same graph replay
     slower = []
+    sums = [0.0, 0.0]   # the main path's launches: fused, rank-only mode
     for c, launches in sorted(rank_cs.items(), reverse=True):
-        rk, sel = cache[("topk", c)]["topk_rank"], \
-            cache[("topk", c)]["topk_select"]
-        us, arg_us = 1e3 * rk[1], 1e3 * rk[5]
+        entry = cache[("topk", c)]
+        tk = entry["topk_smallest"]
+        sums[0] += launches * tk[1]
+        sums[1] += launches * entry["rank_only_ms"]
+        us, arg_us = 1e3 * tk[1], 1e3 * tk[5]
         if us > arg_us:
             slower.append(c)
-        print(f"phase4 topk_rank C={c}: {launches} launches, kernel "
-              f"{us:.2f} us, argsort(stable=True) {arg_us:.2f} us, kernel / "
-              f"argsort {us / arg_us:.2f}, bound {1e6 * 8 * c / HBM_BYTES_PER_S:.4f} "
-              f"us (bytes), launch floor (topk_select at this C) "
-              f"{1e3 * sel[1]:.2f} us, plan {pk.topk_rank_plan(c, sms)}",
-              flush=True)
-    print(f"phase4 topk_rank: {len(rank_cs)} distinct C over "
-          f"{sum(rank_cs.values())} launches; slower than argsort at C = "
-          f"{slower}", flush=True)
+        print(f"phase4 topk_smallest C={c}: {launches} launches, kernel "
+              f"{us:.2f} us (rank-only mode {1e3 * entry['rank_only_ms']:.2f} "
+              f"us), argsort(stable=True) {arg_us:.2f} us, kernel / argsort "
+              f"{us / arg_us:.2f}, bound "
+              f"{1e6 * 12 * c / HBM_BYTES_PER_S:.4f} us (bytes), launch floor "
+              f"(zero_ of one element) {1e3 * entry['floor_ms']:.2f} us, plan "
+              f"{pk.topk_rank_plan(c, sms)}", flush=True)
+    print(f"phase4 topk_smallest: {len(rank_cs)} distinct C over "
+          f"{sum(rank_cs.values())} launches, {sums[0]:.3f} ms (rank-only "
+          f"mode {sums[1]:.3f} ms); slower than argsort at C = {slower}",
+          flush=True)
 
     t0 = time.perf_counter()
     arr, labels = CLUSTER_DATASETS["mnist_like"][1](SEED, 2048, 784, 10)

@@ -20,10 +20,11 @@ and a reference block ``y: (R, d)``. Registered backends:
     card; the (C, R) block never reaches device memory. Its ``pairwise``
     (the k-medoids estimators and caches) is the pairwise kernels'.
 ``pallas_fused_topk``
-    ``pallas_fused`` plus the ``topk_smallest`` rank/select kernel pair as
-    the halving step's survivor ordering: stable, in the IEEE total order,
-    like the JAX backend of that name (the default sort differs only on
-    signed zeros and NaNs, see ``engine.halving.resolve_order_fn``).
+    ``pallas_fused`` plus the ``topk_smallest`` kernel (the TPU's
+    rank/select pair in one launch) as the halving step's survivor
+    ordering: stable, in the IEEE total order, like the JAX backend of that
+    name (the default sort differs only on signed zeros and NaNs, see
+    ``engine.halving.resolve_order_fn``).
 
 The backends keep the JAX names although no Pallas runs here. The
 quantized backends (``quant_bf16``, ``quant_int8``, ``quant_bf16_fused``)
@@ -115,7 +116,7 @@ def _pairwise_rowsum_centrality(metric: str) -> CentralityFn:
 
 
 def _order_epilogue(theta: torch.Tensor) -> torch.Tensor:
-    # The full ordering is the keep == C case of the rank/select pair.
+    # The full ordering is the keep == C case of topk_smallest.
     return kops.kernel_topk_smallest(theta, keep=theta.shape[0])
 
 

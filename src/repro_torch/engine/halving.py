@@ -99,7 +99,7 @@ def resolve_order_fn(backend: BackendLike) -> OrderFn:
 
     The two agree except on signed zeros and NaNs, exactly as in the JAX
     package: ``jnp.argsort`` ties ``-0.0`` with ``+0.0`` and puts every NaN
-    last, while the rank/select kernels order the IEEE total order
+    last, while the ``topk_smallest`` kernel orders the IEEE total order
     (``-NaN < -inf < -0.0 < +0.0 < +inf < +NaN``), like ``lax.top_k``."""
     fn = get_backend(backend).survivor_order
     return fn if fn is not None else default_order

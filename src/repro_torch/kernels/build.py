@@ -44,8 +44,8 @@ SIGNATURES = {
     "l1_centrality_launch": ("l1_centrality",
                              (_P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _I, _I,
                               _I, _P)),
-    "topk_rank_launch": ("topk_smallest", (_P, _P, _LL, _I, _I, _P)),
-    "topk_select_launch": ("topk_smallest", (_P, _P, _I, _I, _P)),
+    "topk_smallest_launch": ("topk_smallest",
+                             (_P, _P, _P, _LL, _LL, _I, _I, _P)),
     "dot_pairwise_launch": ("dot_pairwise",
                             (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P)),
     "l1_pairwise_launch": ("l1_pairwise",

@@ -36,22 +36,38 @@
 //    sums its rows into an (r-tiles, C) partial, and the second pass sums
 //    the r-tiles.
 //
-// The Gram is plain fp32 FFMA on the CUDA cores: a TF32 Gram keeps about
-// three decimal digits and can flip the halving on near-ties, and no round
-// of the main path is bound by flops. d is summed in groups of at most 256
-// columns, no atomics: two launches are bit-equal. The arguments (path,
-// grid, splits) come from centrality_plan; `scratch` (C * R floats) holds
-// the running d sums where the stream path takes several d slabs, `partial`
-// the rows of the second pass (pairwise::centrality_rows); either may be
-// null where unused.
+// The fp32 mode's Gram is plain fp32 FFMA on the CUDA cores: a TF32 Gram
+// keeps about three decimal digits and can flip the halving on near-ties,
+// and no round of the main path is bound by flops. d is summed in groups of
+// at most 256 columns, no atomics: two launches are bit-equal. The
+// arguments (path, grid, splits) come from centrality_plan; `scratch` (C * R
+// floats) holds the running d sums where the stream path takes several d
+// slabs, `partial` the rows of the second pass (pairwise::centrality_rows);
+// either may be null where unused.
 //
 // dtype 1 is the TPU kernel's compute_dtype=bfloat16 mode, the centrality
 // of the quantized path (quant_bf16_fused): the same kernels with
-// pairwise::Bf16GramPair, which rounds both operands to bf16 in registers
-// before each fp32 FFMA. The rows are read as fp32, the norms of the
+// pairwise::Bf16GramPair. The rows are read as fp32, the norms of the
 // unrounded rows reach the finish, and the sums and the finish stay fp32.
-// It moves the same bytes as dtype 0 and is bound the same way; tensor-core
-// bf16 products and bf16 storage of the long operand are left for later.
+// Each operand value is rounded to bf16 once, where it is staged, never at
+// a product:
+//  * stream path: the short rows in shared memory after each slab lands,
+//    each long value in registers right after its load. The path then does
+//    the fp32 mode's FFMAs in the fp32 mode's order on rounded values, so it
+//    is bit-equal to dtype 0 on rows rounded beforehand, and as fast.
+//  * tile path: each slab that lands is rounded into bf16 slabs in shared
+//    memory, and the 32 x 32 tile's Gram runs on the tensor cores
+//    (mma.sync m16n8k16, bf16 in, fp32 out; the product of two bf16 values
+//    is exact in fp32), one fragment a warp, each 16-column product added to
+//    fp32 group sums of at most 256 columns. It beats the stream path from
+//    about 12 short rows on, so the bf16 mode crosses over there
+//    (DOT_CENTRALITY_BF16_S in pairwise_distance.py; 24 for dtype 0).
+// What bounds it is what bounds dtype 0: the bytes of the fp32 rows it reads
+// on the skinny rounds, latency on the middle ones; the function's bytes
+// and bound are those of dtype 0. Left: storing the long operand as bf16
+// (half the bytes of the skinny rounds), which needs the rows gathered in
+// the kernel, since the caller reads the fp32 rows for the norms every round
+// anyway (ops.kernel_centrality_sums).
 #include "pairwise_tile.cuh"
 
 namespace {

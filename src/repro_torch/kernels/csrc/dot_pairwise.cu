@@ -23,8 +23,10 @@
 // tensor cores would buy nothing on shapes that are not bound by flops.
 //
 // dtype 1 is the TPU kernel's compute_dtype=bfloat16 mode: both operands
-// rounded to bf16 in registers (pairwise::Bf16GramPair), fp32 sums. No path
-// of the JAX package or of the port calls it.
+// rounded to bf16 once where they are staged (pairwise::Bf16GramPair), fp32
+// sums; the stream path does the fp32 mode's FFMAs on the rounded values,
+// the tile path multiplies on the tensor cores (see dot_centrality.cu). No
+// path of the JAX package or of the port calls it.
 #include "pairwise_tile.cuh"
 
 extern "C" int dot_pairwise_launch(const float* x, const float* y, float* out,

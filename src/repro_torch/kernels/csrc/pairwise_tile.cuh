@@ -32,10 +32,12 @@
 //    round has 25 tiles, run as 125 blocks in 5-block clusters. Bound:
 //    latency, then the bytes of both operands.
 //
-// Both paths: full fp32 FFMA on the CUDA cores (no TF32, no tensor cores);
-// no running sum spans more than 256 d terms before it joins a sum of group
-// sums (one running sum over d = 4096 terms of simplex rows drifted 6e-5
-// from the plain version on an H100, beyond the 1e-5 tolerance); no atomics
+// Both paths: full fp32 FFMA on the CUDA cores (no TF32), except the tile
+// path of the bf16 mode (Bf16GramPair below), whose products of bf16 values
+// run on the tensor cores; no running sum spans more than 256 d terms
+// before it joins a sum of group sums (one running sum over d = 4096 terms
+// of simplex rows drifted 6e-5 from the plain version on an H100, beyond
+// the 1e-5 tolerance); no atomics
 // and a fixed summation order, so two launches on the same input are
 // bit-equal; 64-bit offsets (an n = 100k, d = 28k matrix exceeds 2^31
 // elements); rows past C or R and columns past d are zeros or guarded,
@@ -55,29 +57,38 @@ namespace pairwise {
 
 namespace cg = cooperative_groups;
 
-// The d-sum operations: pair(acc, a, b) accumulates one d column. A
-// centrality Op adds finish(s, xa, yb), which maps a complete d sum to the
-// pair's distance given per-row and per-reference inputs (squared norms for
-// the Gram metrics, unused by l1).
+// The d-sum operations: pair(acc, a, b) accumulates one d column of two
+// operand values as stage() left them, once, where they were staged (in
+// shared memory or in registers after the load). kBf16: stage() rounds to
+// bf16, and the tile path multiplies on the tensor cores. A centrality Op
+// adds finish(s, xa, yb), which maps a complete d sum to the pair's distance
+// given per-row and per-reference inputs (squared norms for the Gram
+// metrics, unused by l1).
 struct GramPair {
+  static constexpr bool kBf16 = false;
+  static __device__ __forceinline__ float stage(float a) { return a; }
   static __device__ __forceinline__ float pair(float acc, float a, float b) {
     return fmaf(a, b, acc);
   }
 };
 
 // The bf16 mode of the Gram (the TPU kernels' compute_dtype=bfloat16): both
-// operands rounded to bf16, nearest even as astype rounds, in registers;
-// the product of two bf16 values is exact in fp32, so only the fp32 sum
-// rounds. The rows stay fp32 in memory, as the TPU kernel reads fp32
-// blocks and casts them in VMEM.
-struct Bf16GramPair {
-  static __device__ __forceinline__ float pair(float acc, float a, float b) {
-    return fmaf(__bfloat162float(__float2bfloat16_rn(a)),
-                __bfloat162float(__float2bfloat16_rn(b)), acc);
+// operands rounded to bf16, nearest even as astype rounds; the product of
+// two bf16 values is exact in fp32, so only the fp32 sum rounds. The rows
+// stay fp32 in memory, as the TPU kernel reads fp32 blocks and casts them in
+// VMEM. Each value is rounded once where it is staged, so the stream path
+// does the fp32 mode's operations, in its order, on the rounded values: it
+// is bit-equal to the fp32 mode on rows rounded beforehand.
+struct Bf16GramPair : GramPair {
+  static constexpr bool kBf16 = true;
+  static __device__ __forceinline__ float stage(float a) {
+    return __bfloat162float(__float2bfloat16_rn(a));
   }
 };
 
 struct L1Pair {
+  static constexpr bool kBf16 = false;
+  static __device__ __forceinline__ float stage(float a) { return a; }
   static __device__ __forceinline__ float pair(float acc, float a, float b) {
     return acc + fabsf(a - b);
   }
@@ -104,6 +115,9 @@ constexpr int T_THREADS = 256;             // 16 x 16 threads, 2 x 2 each
 constexpr int T_GROUP_SLABS = 256 / T_BK;  // 256 d columns per group sum
 constexpr int T_MAX_CLUSTER = 8;
 constexpr int T_SMEM = 2 * T_STAGES * T_TILE * T_PAD * (int)sizeof(float);
+constexpr int T_BPAD = T_BK + 8;           // bf16 slab row stride: 80 bytes, so
+                                           // an ldmatrix phase's 8 rows of 16
+                                           // bytes fall in distinct banks
 
 template <int VW>
 struct Vec;
@@ -141,6 +155,23 @@ __device__ __forceinline__ float pair_vec(float acc, float4 a, float4 b) {
 template <class Op>
 __device__ __forceinline__ float pair_vec(float acc, float a, float b) {
   return Op::pair(acc, a, b);
+}
+
+// Op::stage on each value; the bf16 round of a float4 as two packed
+// conversions (cvt.rn.bf16x2.f32), the same values as four single ones.
+template <class Op>
+__device__ __forceinline__ float4 stage_vec(float4 a) {
+  if constexpr (Op::kBf16) {
+    const float2 lo = __bfloat1622float2(__floats2bfloat162_rn(a.x, a.y));
+    const float2 hi = __bfloat1622float2(__floats2bfloat162_rn(a.z, a.w));
+    return make_float4(lo.x, lo.y, hi.x, hi.y);
+  } else {
+    return a;
+  }
+}
+template <class Op>
+__device__ __forceinline__ float stage_vec(float a) {
+  return Op::stage(a);
 }
 
 __device__ __forceinline__ float4 vzero(float4) { return make_float4(0.f, 0.f, 0.f, 0.f); }
@@ -188,6 +219,42 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// The tensor-core Gram of the bf16 tile path: ldmatrix fragments of bf16
+// slabs in shared memory and one m16n8k16 product (bf16 in, fp32 out).
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const __nv_bfloat16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a)
+               : "memory");
+}
+__device__ __forceinline__ void ldmatrix_x2(unsigned (&r)[2], const __nv_bfloat16* p) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
+               : "=r"(r[0]), "=r"(r[1])
+               : "r"(a)
+               : "memory");
+}
+// d = a b + d over one 16-column step: A 16 x 16 row-major, B 16 x 8 as
+// 8 rows of 16 (the y rows themselves), D 16 x 8 fp32.
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+// Four fp32 values to bf16, nearest even, into 8 bytes of shared memory.
+__device__ __forceinline__ void store_bf16x4(__nv_bfloat16* dst, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  uint2 u;
+  u.x = *reinterpret_cast<const unsigned*>(&lo);
+  u.y = *reinterpret_cast<const unsigned*>(&hi);
+  *reinterpret_cast<uint2*>(dst) = u;
+}
+
 // Where the d sums D[c, r] go. The pairwise kernels (CEN false) write the
 // (C, R) block to `out`. The centrality kernels (CEN true) write the
 // weighted row sums S[c] = sum_r w[r] * Op::finish(D[c, r], xaux[c], yaux[r])
@@ -205,6 +272,8 @@ __device__ __forceinline__ float aux(const float* a, int64_t i) { return a != nu
 __device__ __forceinline__ float weight(const float* w, int64_t i) { return w != nullptr ? w[i] : 1.f; }
 
 // Stream path. short_x: x (C rows) is the short operand, else y (R rows).
+// Op::stage rounds each short value once per slab, in shared memory, and
+// each long value once, before its M products.
 // MS: the short row count rounded up to a power of two. VW: 4 for float4
 // loads, 1 for scalar ones. A warp takes L long rows a pass, so each
 // shared-memory read of a short value feeds L rows (registers about
@@ -261,6 +330,11 @@ stream_kernel(const float* __restrict__ x, const float* __restrict__ y, Sink sin
     cp_async_commit();
     cp_async_wait<0>();
     __syncthreads();
+    if constexpr (Op::kBf16) {   // round each short value once, in place
+      V* shw = reinterpret_cast<V*>(sh);
+      for (int e = threadIdx.x; e < M * kv; e += S_THREADS) shw[e] = stage_vec<Op>(shw[e]);
+      __syncthreads();
+    }
     const V* shv = reinterpret_cast<const V*>(sh);
 
     for (int64_t n0 = warp0 * L; n0 < N; n0 += nwarps * L) {
@@ -286,12 +360,20 @@ stream_kernel(const float* __restrict__ x, const float* __restrict__ y, Sink sin
         for (int u = 0; u < U; ++u) {
           const int j = j0 + u * 32 + lane;
           if (j < kv) {
+            // the long values rounded here, where they are consumed: rounded
+            // right after their loads, ptxas reused each load's registers
+            // for the next load and so issued the L * U loads of a pass one
+            // after another, which cost the bf16 mode a third of the fp32
+            // mode's time at (20000, 2, 784) on an H100
+            V vs[L];
+#pragma unroll
+            for (int l = 0; l < L; ++l) vs[l] = stage_vec<Op>(v[l][u]);
 #pragma unroll
             for (int m = 0; m < MS; ++m) {
               if (m >= M) break;   // a uniform branch, not MS - M idle steps
               const V sv = shv[m * kv + j];
 #pragma unroll
-              for (int l = 0; l < L; ++l) acc[l][m] = pair_vec<Op>(acc[l][m], v[l][u], sv);
+              for (int l = 0; l < L; ++l) acc[l][m] = pair_vec<Op>(acc[l][m], vs[l], sv);
             }
           }
         }
@@ -378,6 +460,14 @@ __device__ __forceinline__ void load_slab(float (*dst)[T_PAD], const float* __re
 
 // Tile path. A cluster of `splits` consecutive blocks shares one output
 // tile; block rank q sums d columns [q * run, min(d, (q + 1) * run)).
+// fp32: each of the 16 x 16 threads sums a 2 x 2 block with FFMA. bf16
+// (Op::kBf16): a slab that lands is rounded once into bf16 slabs beside the
+// ring, and each of the 8 warps takes one 16 x 8 fragment of the tile (warp
+// w: rows 16 (w % 2), columns 8 (w / 2)) with one m16n8k16 tensor-core
+// product per 16 d columns. Each product starts from zero and its four
+// values are added to the group sums in d order, so no tensor-core sum spans
+// more than 16 columns (its alignment truncates) and the fp32 sums round as
+// the FFMA path's do.
 // Centrality epilogue: rank 0 weights the complete tile, sums each row's 32
 // columns (its own two, then a shuffle tree over the 16 lanes of the row)
 // and writes row r-tile of `partial`, which a second pass sums over the
@@ -390,6 +480,9 @@ tile_kernel(const float* __restrict__ x, const float* __restrict__ y, Sink sink,
   auto xs = reinterpret_cast<float (*)[T_TILE][T_PAD]>(ring);
   auto ys = reinterpret_cast<float (*)[T_TILE][T_PAD]>(ring + T_STAGES * T_TILE * T_PAD);
   __shared__ float part[T_TILE][T_TILE + 1];
+  constexpr bool MMA = Op::kBf16;
+  __shared__ __align__(16) __nv_bfloat16 xb[MMA ? T_TILE : 1][T_BPAD];   // MMA: the slab in bf16
+  __shared__ __align__(16) __nv_bfloat16 yb[MMA ? T_TILE : 1][T_BPAD];
   cg::cluster_group cluster = cg::this_cluster();
   const unsigned rank = cluster.block_rank();
   const unsigned splits = cluster.num_blocks();
@@ -426,18 +519,41 @@ tile_kernel(const float* __restrict__ x, const float* __restrict__ y, Sink sink,
     }
     cp_async_commit();
     const int st = i % T_STAGES;
-#pragma unroll
-    for (int k = 0; k < T_BK; k += 4) {
-      float4 a[2], b[2];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        a[t] = *reinterpret_cast<const float4*>(&xs[st][ty + 16 * t][k]);
-        b[t] = *reinterpret_cast<const float4*>(&ys[st][tx + 16 * t][k]);
+    if constexpr (MMA) {
+      {   // each thread rounds 4 values of row t / 8 of either slab
+        const int row = threadIdx.x >> 3;
+        const int col = (threadIdx.x & 7) * 4;
+        store_bf16x4(&xb[row][col], *reinterpret_cast<const float4*>(&xs[st][row][col]));
+        store_bf16x4(&yb[row][col], *reinterpret_cast<const float4*>(&ys[st][row][col]));
       }
+      __syncthreads();
+      const int lane = threadIdx.x & 31;
+      const int m0 = (threadIdx.x >> 5 & 1) * 16;
+      const int n0 = (threadIdx.x >> 6) * 8;
 #pragma unroll
-      for (int ii = 0; ii < 2; ++ii)
+      for (int k = 0; k < T_BK; k += 16) {
+        unsigned a[4], b[2];
+        ldmatrix_x4(a, &xb[m0 + (lane & 15)][k + (lane >> 4) * 8]);
+        ldmatrix_x2(b, &yb[n0 + (lane & 7)][k + (lane >> 3 & 1) * 8]);
+        float dk[4] = {0.f, 0.f, 0.f, 0.f};
+        mma_bf16(dk, a, b);
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj) grp[ii][jj] = pair_vec<Op>(grp[ii][jj], a[ii], b[jj]);
+        for (int e = 0; e < 4; ++e) grp[e >> 1][e & 1] += dk[e];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < T_BK; k += 4) {
+        float4 a[2], b[2];
+#pragma unroll
+        for (int t = 0; t < 2; ++t) {
+          a[t] = *reinterpret_cast<const float4*>(&xs[st][ty + 16 * t][k]);
+          b[t] = *reinterpret_cast<const float4*>(&ys[st][tx + 16 * t][k]);
+        }
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) grp[ii][jj] = pair_vec<Op>(grp[ii][jj], a[ii], b[jj]);
+      }
     }
     if (i % T_GROUP_SLABS == T_GROUP_SLABS - 1) {
 #pragma unroll
@@ -455,11 +571,23 @@ tile_kernel(const float* __restrict__ x, const float* __restrict__ y, Sink sink,
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
       acc[ii][jj] += grp[ii][jj];
-      part[ty + 16 * ii][tx + 16 * jj] = acc[ii][jj];
+      if constexpr (MMA) {   // fragment value e = 2 ii + jj of warp w
+        const int lane = threadIdx.x & 31;
+        part[(threadIdx.x >> 5 & 1) * 16 + (lane >> 2) + 8 * ii]
+            [(threadIdx.x >> 6) * 8 + (lane & 3) * 2 + jj] = acc[ii][jj];
+      } else {
+        part[ty + 16 * ii][tx + 16 * jj] = acc[ii][jj];
+      }
     }
 
   cluster.sync();   // every rank's partial tile is in its shared memory
   if (rank == 0) {
+    if constexpr (MMA) {   // this rank's tile in the epilogue's 2 x 2 layout
+#pragma unroll
+      for (int ii = 0; ii < 2; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 2; ++jj) acc[ii][jj] = part[ty + 16 * ii][tx + 16 * jj];
+    }
     for (unsigned q = 1; q < splits; ++q) {
       const float* rp = cluster.map_shared_rank(&part[0][0], q);
 #pragma unroll

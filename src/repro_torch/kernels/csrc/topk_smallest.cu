@@ -1,39 +1,44 @@
-// Survivor ordering: the stable ascending order of C int32 total-order keys.
+// Survivor ordering: the first `keep` indices of the stable ascending order
+// of C int32 total-order keys, in one launch.
 //
 // Replaces the TPU kernel pair topk_smallest in
 // src/repro/kernels/pairwise_distance.py: _topk_rank_kernel and
-// _topk_select_kernel. The caller (repro_torch/kernels/ops.py) bitcasts the
-// float estimates to IEEE-totalorder int32 keys, so integer comparison
-// orders them like lax.top_k, -0.0 < +0.0 and +inf included.
+// _topk_select_kernel, which this one kernel computes together. The caller
+// (repro_torch/kernels/ops.py) bitcasts the float estimates to
+// IEEE-totalorder int32 keys, so integer comparison orders them like
+// lax.top_k, -0.0 < +0.0 and +inf included.
 //
-//  * rank:   rank[i] = #{j : v[j] < v[i] or (v[j] == v[i] and j < i)}, a
-//            tiled sort. The composite keys u_i = (v_i + 2^31) << 32 | i are
-//            distinct uint64s, so the stable rank is #{j : u_j < u_i}, which
-//            any sorting network gives. Each thread-block cluster owns a tile
-//            of at most `tile` keys (a power of two, 64-8192; 512 on the
-//            main path) and sorts it in shared memory with a bitonic
-//            network: a key's position there is its rank within the tile.
-//            Every block of the cluster then takes a share of the keys
-//            outside the tile from device memory, coalesced, finds
-//            p = lower_bound(sorted tile, u) by a binary search in shared
-//            memory and adds one to hist[p] (integer shared-memory atomics,
-//            aggregated over the lanes of a warp that share p: integer sums
-//            do not depend on their order). Rank 0 adds the other ranks'
-//            counts through distributed shared memory, and an inclusive scan
-//            gives each position the number of smaller foreign keys: rank =
-//            position + that count. One launch, no host synchronisation, no
-//            count sent back; C <= tile takes one block and no foreign
-//            phase. The strict total order makes rank a permutation of
-//            [0, C).
-//  * select: out[rank[i]] = i for rank[i] < keep, a scatter.
+// A tiled sort gives each key its stable rank
+//   r_i = #{j : v[j] < v[i] or (v[j] == v[i] and j < i)}.
+// The composite keys u_i = (v_i + 2^31) << 32 | i are distinct uint64s, so
+// the stable rank is #{j : u_j < u_i}, which any sorting network gives. Each
+// thread-block cluster owns a tile of at most `tile` keys (a power of two,
+// 64-8192; 512 on the main path) and sorts it in shared memory with a
+// bitonic network: a key's position there is its rank within the tile.
+// Every block of the cluster then takes a share of the keys outside the
+// tile from device memory, coalesced, finds p = lower_bound(sorted tile, u)
+// by a binary search in shared memory and adds one to hist[p] (integer
+// shared-memory atomics, aggregated over the lanes of a warp that share p:
+// integer sums do not depend on their order). Rank 0 adds the other ranks'
+// counts through distributed shared memory, and an inclusive scan gives each
+// position the number of smaller foreign keys: rank = position + that
+// count. C <= tile takes one block and no foreign phase. The strict total
+// order makes the ranks a permutation of [0, C).
 //
-// Bound on an H100: the function moves 8 C bytes (keys in, ranks out),
-// under a microsecond at C = 20000, far below the ~3 us a launch takes, so
-// latency bounds every call. The design keeps that latency short: the work
-// is O(C^2 / tile * log tile) in all, spread over tiles x cluster blocks
-// (topk_rank_plan in pairwise_distance.py), and the tile's sort sets the
-// time of a call. The result equals torch.argsort(keys, stable=True)[:keep]
-// bit for bit.
+// Where the rank is known, in registers, rank 0 writes the select at once:
+// out[r_i] = i for r_i < keep. So the rank never reaches device memory on
+// the main path (ops.kernel_topk_smallest, keep = C every round), and one
+// launch does what the TPU kernels' two did. Where the caller passes a rank
+// buffer (tests, the rank-only wrapper topk_rank) the kernel writes
+// rank[i] = r_i as well; either output may be null, not both.
+//
+// Bound on an H100: the function moves 4 C + 8 keep bytes (keys in,
+// indices out), under 0.1 us at C = 20000, far below the ~3 us a launch
+// takes, so latency bounds every call. The design keeps that latency short:
+// the work is O(C^2 / tile * log tile) in all, spread over tiles x cluster
+// blocks (topk_rank_plan in pairwise_distance.py), and the tile's sort sets
+// the time of a call. The result equals torch.argsort(keys,
+// stable=True)[:keep] bit for bit.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,10 +48,16 @@ namespace {
 namespace cg = cooperative_groups;
 
 constexpr int RANK_MAX_CLUSTER = 8;
-constexpr int SELECT_THREADS = 256;
 
 __device__ __forceinline__ uint64_t compose(int32_t key, int64_t i) {
   return ((uint64_t)((uint32_t)key ^ 0x80000000u) << 32) | (uint64_t)(uint32_t)i;
+}
+
+// Key i has stable rank r: the rank-only output and the select.
+__device__ __forceinline__ void emit(int32_t* rank, int64_t* out, int64_t keep, uint32_t i,
+                                     int64_t r) {
+  if (rank != nullptr) rank[i] = (int32_t)r;
+  if (r < keep) out[r] = (int64_t)i;
 }
 
 // threads a block of a T-key tile
@@ -87,7 +98,8 @@ constexpr int rank_smem() {
 
 template <int T>
 __global__ void __launch_bounds__(RANK_THREADS(T))
-topk_rank_kernel(const int32_t* __restrict__ keys, int32_t* __restrict__ rank, int64_t n) {
+topk_rank_kernel(const int32_t* __restrict__ keys, int32_t* __restrict__ rank,
+                 int64_t* __restrict__ out, int64_t n, int64_t keep) {
   constexpr int NT = RANK_THREADS(T);
   constexpr int ES = T / NT;   // positions a thread scans
   extern __shared__ __align__(16) unsigned char smem[];
@@ -112,7 +124,7 @@ topk_rank_kernel(const int32_t* __restrict__ keys, int32_t* __restrict__ rank, i
 
   if (m == n) {   // one tile: its positions are the ranks
     if (q == 0) {
-      for (int pos = tid; pos < m; pos += NT) rank[(uint32_t)s[pos]] = pos;
+      for (int pos = tid; pos < m; pos += NT) emit(rank, out, keep, (uint32_t)s[pos], pos);
     }
     return;
   }
@@ -177,22 +189,13 @@ topk_rank_kernel(const int32_t* __restrict__ keys, int32_t* __restrict__ rank, i
 #pragma unroll
   for (int e = 0; e < ES; ++e) {
     const int pos = tid * ES + e;
-    if (pos < m) rank[(uint32_t)s[pos]] = pos + before + v[e];
+    if (pos < m) emit(rank, out, keep, (uint32_t)s[pos], pos + before + v[e]);
   }
 }
 
-__global__ void topk_select_kernel(const int32_t* __restrict__ rank,
-                                   int64_t* __restrict__ out, int32_t n,
-                                   int32_t keep) {
-  const int32_t i = blockIdx.x * SELECT_THREADS + threadIdx.x;
-  if (i >= n) return;
-  const int32_t r = rank[i];
-  if (r < keep) out[r] = i;
-}
-
 template <int T>
-int launch_rank(const int32_t* keys, int32_t* rank, int64_t n, int cluster,
-                cudaStream_t stream) {
+int launch_rank(const int32_t* keys, int32_t* rank, int64_t* out, int64_t n, int64_t keep,
+                int cluster, cudaStream_t stream) {
   const int smem = rank_smem<T>();
   {   // dynamic and static shared memory above 48 KB (from T = 4096) only
       // after an opt-in, made once per kernel
@@ -214,7 +217,7 @@ int launch_rank(const int32_t* keys, int32_t* rank, int64_t n, int cluster,
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  const cudaError_t err = cudaLaunchKernelEx(&cfg, topk_rank_kernel<T>, keys, rank, n);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, topk_rank_kernel<T>, keys, rank, out, n, keep);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
@@ -223,26 +226,24 @@ int launch_rank(const int32_t* keys, int32_t* rank, int64_t n, int cluster,
 
 // tile and cluster come from topk_rank_plan (pairwise_distance.py): tile a
 // power of two in [64, 8192], cluster in [1, 8], grid ceil(n / tile) *
-// cluster blocks of min(tile / 2, 1024) threads.
-extern "C" int topk_rank_launch(const int32_t* keys, int32_t* rank, long long n, int tile,
-                                int cluster, cudaStream_t stream) {
-  if (n < 1 || cluster < 1 || cluster > RANK_MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+// cluster blocks of min(tile / 2, 1024) threads. `out` takes the first
+// `keep` indices of the stable order (null where keep is 0), `rank` the
+// ranks of all n keys (or null).
+extern "C" int topk_smallest_launch(const int32_t* keys, int32_t* rank, int64_t* out,
+                                    long long n, long long keep, int tile, int cluster,
+                                    cudaStream_t stream) {
+  if (n < 1 || cluster < 1 || cluster > RANK_MAX_CLUSTER || keep < 0 || keep > n ||
+      (keep > 0) != (out != nullptr) || (rank == nullptr && out == nullptr))
+    return (int)cudaErrorInvalidValue;
   switch (tile) {
-    case 64: return launch_rank<64>(keys, rank, n, cluster, stream);
-    case 128: return launch_rank<128>(keys, rank, n, cluster, stream);
-    case 256: return launch_rank<256>(keys, rank, n, cluster, stream);
-    case 512: return launch_rank<512>(keys, rank, n, cluster, stream);
-    case 1024: return launch_rank<1024>(keys, rank, n, cluster, stream);
-    case 2048: return launch_rank<2048>(keys, rank, n, cluster, stream);
-    case 4096: return launch_rank<4096>(keys, rank, n, cluster, stream);
-    case 8192: return launch_rank<8192>(keys, rank, n, cluster, stream);
+    case 64: return launch_rank<64>(keys, rank, out, n, keep, cluster, stream);
+    case 128: return launch_rank<128>(keys, rank, out, n, keep, cluster, stream);
+    case 256: return launch_rank<256>(keys, rank, out, n, keep, cluster, stream);
+    case 512: return launch_rank<512>(keys, rank, out, n, keep, cluster, stream);
+    case 1024: return launch_rank<1024>(keys, rank, out, n, keep, cluster, stream);
+    case 2048: return launch_rank<2048>(keys, rank, out, n, keep, cluster, stream);
+    case 4096: return launch_rank<4096>(keys, rank, out, n, keep, cluster, stream);
+    case 8192: return launch_rank<8192>(keys, rank, out, n, keep, cluster, stream);
     default: return (int)cudaErrorInvalidValue;
   }
-}
-
-extern "C" int topk_select_launch(const int32_t* rank, int64_t* out, int n,
-                                  int keep, cudaStream_t stream) {
-  const unsigned blocks = (unsigned)((n + SELECT_THREADS - 1) / SELECT_THREADS);
-  topk_select_kernel<<<blocks, SELECT_THREADS, 0, stream>>>(rank, out, n, keep);
-  return (int)cudaGetLastError();
 }

@@ -125,11 +125,11 @@ def totalorder_keys(theta: torch.Tensor) -> torch.Tensor:
 def kernel_topk_smallest(theta: torch.Tensor, *, keep: int) -> torch.Tensor:
     """Indices (int64) of the ``keep`` smallest entries of ``theta (C,)``,
     ascending, ties toward the smaller index — the stable argsort prefix,
-    bit for bit, by the rank/select kernel pair."""
+    bit for bit, by one ``topk_smallest`` launch."""
     c = theta.shape[0]
     if not 0 < keep <= c:
         raise ValueError(f"keep must be in [1, {c}], got {keep}")
-    return pk.topk_select(pk.topk_rank(totalorder_keys(theta)), keep)
+    return pk.topk_smallest(totalorder_keys(theta), keep)
 
 
 def centrality_kernel(metric: str):

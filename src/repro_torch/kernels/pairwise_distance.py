@@ -11,10 +11,11 @@ Wrapper, the TPU kernel it replaces in that file, and its CUDA source in
   ``l1_centrality.cu`` (both centrality kernels take one of the two paths
   of ``pairwise_tile.cuh`` with a centrality epilogue, chosen by
   :func:`centrality_plan`);
-* ``topk_rank``: ``topk_smallest`` / ``_topk_rank_kernel``,
-  ``topk_smallest.cu`` (a tiled sort, planned by :func:`topk_rank_plan`);
-* ``topk_select``: ``topk_smallest`` / ``_topk_select_kernel``,
-  ``topk_smallest.cu``;
+* ``topk_smallest``: ``topk_smallest`` / ``_topk_rank_kernel`` and
+  ``_topk_select_kernel`` in one launch, ``topk_smallest.cu`` (a tiled
+  sort, planned by :func:`topk_rank_plan`, that writes the select where it
+  has the rank); ``topk_rank`` is the same launch with the ranks as its
+  output;
 * ``dot_pairwise``: ``dot_pairwise`` / ``_dot_kernel``, ``dot_pairwise.cu``;
 * ``l1_pairwise``: ``l1_pairwise`` / ``_l1_pairwise_kernel``,
   ``l1_pairwise.cu`` (both pairwise kernels take one of two paths of
@@ -176,7 +177,8 @@ def dot_centrality(x: torch.Tensor, y: torch.Tensor,
     if c == 0 or r == 0:   # an empty sum
         return torch.zeros(c, dtype=torch.float32, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    plan = centrality_plan(c, r, d, sms, crossover=DOT_CENTRALITY_S)
+    plan = centrality_plan(c, r, d, sms,
+                           crossover=dot_crossover(compute_dtype))
     return launch_dot_centrality(x, y, xn2, yn2, w, plan, metric,
                                  compute_dtype)
 
@@ -267,85 +269,105 @@ def topk_rank_plan(n: int, sms: int, *,
     return tile, max(1, min(_RANK_MAX_CLUSTER, per_sm * sms // tiles))
 
 
-def launch_topk_rank(keys: torch.Tensor,
-                     plan: tuple[int, int]) -> torch.Tensor:
-    """One ``topk_rank`` launch on CUDA keys with ``plan``, a
-    ``topk_rank_plan`` result: the wrapper passes the default one,
-    ``chip_smoke.py`` forces other tiles to time them. Counts in
-    ``LAUNCHES``."""
+def launch_topk(keys: torch.Tensor, keep: int, plan: tuple[int, int], *,
+                with_rank: bool = False
+                ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """One ``topk_smallest.cu`` launch on CUDA keys (n >= 1) with ``plan``, a
+    ``topk_rank_plan`` result: the wrappers pass the default one,
+    ``chip_smoke.py`` forces other tiles to time them. Returns the first
+    ``keep`` indices of the stable order, (keep,) int64, and with
+    ``with_rank`` the (n,) int32 ranks too (else None). Counts in
+    ``LAUNCHES`` under ``"topk_smallest"``, or ``"topk_rank"`` where
+    ``keep`` is 0 and the ranks are the only output."""
     n = keys.shape[0]
     tile, cluster = plan
     if -(-n // tile) * cluster > _MAX_BLOCKS:
-        raise ValueError(f"topk_rank: {n} keys need more than {_MAX_BLOCKS} "
-                         f"blocks")
-    rank = torch.empty(n, dtype=torch.int32, device=keys.device)
-    fn = build.function("topk_rank_launch")
+        raise ValueError(f"topk_smallest: {n} keys need more than "
+                         f"{_MAX_BLOCKS} blocks")
+    if not 0 <= keep <= n:
+        raise ValueError(f"topk_smallest: keep must be in [0, {n}], got "
+                         f"{keep}")
+    if not (keep or with_rank):
+        raise ValueError("topk_smallest: keep 0 and no rank output")
+    out = torch.empty(keep, dtype=torch.int64, device=keys.device)
+    rank = torch.empty(n, dtype=torch.int32, device=keys.device) \
+        if with_rank else None
+    fn = build.function("topk_smallest_launch")
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
-        code = fn(keys.data_ptr(), rank.data_ptr(), n, tile, cluster, stream)
-    build.check("topk_rank_launch", code)
-    LAUNCHES["topk_rank"] += 1
-    return rank
+        code = fn(keys.data_ptr(), _ptr(rank), _ptr(out) if keep else None,
+                  n, keep, tile, cluster, stream)
+    build.check("topk_smallest_launch", code)
+    LAUNCHES["topk_smallest" if keep else "topk_rank"] += 1
+    return out, rank
+
+
+def _check_keys(name: str, keys: torch.Tensor) -> int:
+    if keys.ndim != 1:
+        raise ValueError(f"{name}: expected 1-D keys, got "
+                         f"{tuple(keys.shape)}")
+    n = keys.shape[0]
+    _check(name, keys, torch.int32, (n,))
+    if n > 2 ** 31 - 1:
+        raise ValueError(f"{name}: {n} keys exceed the int32 index range")
+    return n
 
 
 def topk_rank(keys: torch.Tensor) -> torch.Tensor:
-    """Stable ascending rank of int32 keys: (n,) int32 -> (n,) int32.
+    """Stable ascending rank of int32 keys: (n,) int32 -> (n,) int32, the
+    rank-only mode of the ``topk_smallest`` launch (tests and timing; the
+    main path never needs the ranks).
 
     Replaces ``_topk_rank_kernel`` of ``topk_smallest``
     (``src/repro/kernels/pairwise_distance.py``). Bound: launch latency;
     its ``8 n`` bytes take under a microsecond (``csrc/topk_smallest.cu``).
     """
-    if keys.ndim != 1:
-        raise ValueError(f"topk_rank: expected 1-D keys, got "
-                         f"{tuple(keys.shape)}")
-    n = keys.shape[0]
-    _check("topk_rank", keys, torch.int32, (n,))
-    if n > 2 ** 31 - 1:
-        raise ValueError(f"topk_rank: {n} keys exceed the int32 index range")
+    n = _check_keys("topk_rank", keys)
     if not _on_cuda("topk_rank", keys):
         return topk_rank_plain(keys)
     if n == 0:
         return torch.empty(0, dtype=torch.int32, device=keys.device)
     sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
-    return launch_topk_rank(keys, topk_rank_plan(n, sms))
+    return launch_topk(keys, 0, topk_rank_plan(n, sms), with_rank=True)[1]
 
 
 def topk_select_plain(rank: torch.Tensor, keep: int) -> torch.Tensor:
-    """``out[rank[i]] = i`` for ``rank[i] < keep`` (int64 indices). Misses
-    go to a spare slot past ``keep`` rather than through a boolean mask, so
-    the device never reports a count back to the host."""
+    """``out[rank[i]] = i`` for ``rank[i] < keep`` (int64 indices), the
+    select phase alone. Misses go to a spare slot past ``keep`` rather than
+    through a boolean mask, so the device never reports a count back to the
+    host."""
     idx = torch.arange(rank.shape[0], device=rank.device)
     slots = torch.where(rank < keep, rank.long(), keep)
     out = torch.empty(keep + 1, dtype=torch.int64, device=rank.device)
     return out.scatter_(0, slots, idx)[:keep]
 
 
-def topk_select(rank: torch.Tensor, keep: int) -> torch.Tensor:
-    """Scatter a rank permutation into the first ``keep`` slots of the
-    order it describes: (n,) int32 -> (keep,) int64 indices.
+def topk_smallest_plain(keys: torch.Tensor, keep: int) -> torch.Tensor:
+    """The first ``keep`` indices of the stable ascending order of int32
+    keys: the rank, then the select."""
+    return topk_select_plain(topk_rank_plain(keys), keep)
 
-    Replaces ``_topk_select_kernel`` of ``topk_smallest``
-    (``src/repro/kernels/pairwise_distance.py``). Bound: its ``12 n``
-    bytes (``csrc/topk_smallest.cu``)."""
-    if rank.ndim != 1:
-        raise ValueError(f"topk_select: expected 1-D rank, got "
-                         f"{tuple(rank.shape)}")
-    n = rank.shape[0]
-    _check("topk_select", rank, torch.int32, (n,))
+
+def topk_smallest(keys: torch.Tensor, keep: int) -> torch.Tensor:
+    """The first ``keep`` indices of the stable ascending order of int32
+    keys, ``argsort(keys, stable=True)[:keep]``: (n,) int32 -> (keep,)
+    int64, one launch.
+
+    Replaces ``topk_smallest``'s ``_topk_rank_kernel`` and
+    ``_topk_select_kernel`` together
+    (``src/repro/kernels/pairwise_distance.py``). Bound: launch latency; its
+    ``4 n + 8 keep`` bytes take under a microsecond
+    (``csrc/topk_smallest.cu``)."""
+    n = _check_keys("topk_smallest", keys)
     if not 0 <= keep <= n:
-        raise ValueError(f"topk_select: keep must be in [0, {n}], got {keep}")
-    if not _on_cuda("topk_select", rank):
-        return topk_select_plain(rank, keep)
-    out = torch.empty(keep, dtype=torch.int64, device=rank.device)
-    if n == 0 or keep == 0:
-        return out
-    fn = build.function("topk_select_launch")
-    with torch.cuda.device(rank.device):
-        stream = torch.cuda.current_stream(rank.device).cuda_stream
-        code = fn(rank.data_ptr(), out.data_ptr(), n, keep, stream)
-    build.check("topk_select_launch", code)
-    LAUNCHES["topk_select"] += 1
-    return out
+        raise ValueError(f"topk_smallest: keep must be in [0, {n}], got "
+                         f"{keep}")
+    if not _on_cuda("topk_smallest", keys):
+        return topk_smallest_plain(keys, keep)
+    if keep == 0:
+        return torch.empty(0, dtype=torch.int64, device=keys.device)
+    sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
+    return launch_topk(keys, keep, topk_rank_plan(n, sms))[0]
 
 
 # ---------------------------- dot_pairwise / l1_pairwise ---------------------
@@ -431,13 +453,25 @@ def _stream_slab(d: int, splits: int) -> int:
 
 # The centrality kernels' crossovers between the same two paths (with a
 # centrality epilogue): the stream path takes every shape whose short side
-# has at most CENTRALITY_S rows (l1_centrality) or DOT_CENTRALITY_S rows
-# (dot_centrality). On an H100 l1's stream path wins every timed case up to
-# 20 short rows and none at 24; dot's, whose FFMA is one instruction a
-# column to l1's three, wins most cases at 24 and few at 28 (chip_smoke.py
-# times both paths of both kernels around their crossovers, PERF.md).
+# has at most CENTRALITY_S rows (l1_centrality), DOT_CENTRALITY_S rows
+# (dot_centrality) or DOT_CENTRALITY_BF16_S rows (dot_centrality's bf16
+# mode). On an H100 l1's stream path wins every timed case up to 20 short
+# rows and none at 24; dot's, whose FFMA is one instruction a column to
+# l1's three, wins most cases at 24 and few at 28. In the bf16 mode the tile
+# path multiplies on the tensor cores and the stream path keeps FFMA, so
+# the stream path wins every case up to 8 short rows, 4 of 6 at 12 and 1 of
+# 6 at 16 (chip_smoke.py times both paths of each kernel and mode around
+# its crossover, PERF.md).
 CENTRALITY_S = 20
 DOT_CENTRALITY_S = 24
+DOT_CENTRALITY_BF16_S = 12
+
+
+def dot_crossover(compute_dtype: str) -> int:
+    """``dot_centrality``'s crossover in ``compute_dtype``."""
+    _check_dtype("dot_centrality", compute_dtype)
+    return DOT_CENTRALITY_S if compute_dtype == "float32" \
+        else DOT_CENTRALITY_BF16_S
 
 
 def centrality_plan(c: int, r: int, d: int, sms: int, *,
@@ -445,7 +479,7 @@ def centrality_plan(c: int, r: int, d: int, sms: int, *,
     """``(path, grid, splits)`` of one ``dot_centrality`` or
     ``l1_centrality`` launch for ``c, r >= 1``: the launch geometry of
     :func:`pairwise_plan` with the kernel's centrality crossover
-    (``DOT_CENTRALITY_S`` for ``dot_centrality``). The stream path's
+    (:func:`dot_crossover` for ``dot_centrality``). The stream path's
     epilogue writes S directly when R is short and a ``(grid, C)`` partial
     when C is short; the tile path's an ``(r-tiles, C)`` partial (see
     :func:`centrality_scratch`)."""
@@ -518,8 +552,8 @@ def launch_dot_centrality(x: torch.Tensor, y: torch.Tensor,
     CUDA tensors x (C, d), y (R, d), xn2 (C,) and yn2 (R,) or None
     (cosine), w (R,) or None with ``plan``, a ``centrality_plan`` result for
     (C, R, d), C and R >= 1: the wrapper passes the one at
-    ``DOT_CENTRALITY_S``, ``chip_smoke.py`` forces either path to time both
-    on each side of the crossover. Counts in ``LAUNCHES`` under
+    ``dot_crossover(compute_dtype)``, ``chip_smoke.py`` forces either path
+    to time both on each side of the crossover. Counts in ``LAUNCHES`` under
     ``"dot_centrality"`` or ``"dot_centrality_bf16"``."""
     _check_dtype("dot_centrality", compute_dtype)
     c, d = x.shape

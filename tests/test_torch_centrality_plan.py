@@ -15,6 +15,8 @@ the arithmetic of the stream path's d slabs and of the tiled sort.
 
 The kernels themselves run only on a card (``tests/test_torch_gpu.py``).
 """
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -83,7 +85,8 @@ def test_plan_picks_the_path_and_fits_the_launch_limits(c, r):
         assert plan[0] == (pk.STREAM if min(c, r) <= pk.CENTRALITY_S
                            else pk.TILE), (c, r, d)
         _check_limits(c, r, d, plan)
-        for forced in (0, pk.DOT_CENTRALITY_S, 32):
+        for forced in (0, pk.DOT_CENTRALITY_BF16_S, pk.DOT_CENTRALITY_S,
+                       32):
             fplan = pk.centrality_plan(c, r, d, SMS, crossover=forced)
             assert fplan[0] == (pk.STREAM if min(c, r) <= forced
                                 else pk.TILE)
@@ -160,6 +163,51 @@ def test_dot_centrality_cell_rounds(metric, d, n):
             assert (pk.centrality_scratch(c, r, d, plan)[0] > 0) == several
             assert not (several and d == 784)
     assert kinds == {(pk.STREAM, False), (pk.STREAM, True), (pk.TILE, None)}
+
+
+def test_dot_crossover_by_mode():
+    """The fp32 mode crosses to the tile path above DOT_CENTRALITY_S short
+    rows, the bf16 mode (tensor-core tiles) above DOT_CENTRALITY_BF16_S."""
+    assert pk.dot_crossover("float32") == pk.DOT_CENTRALITY_S == 24
+    assert pk.dot_crossover("bfloat16") == pk.DOT_CENTRALITY_BF16_S == 12
+    with pytest.raises(ValueError, match="compute_dtype"):
+        pk.dot_crossover("float16")
+
+
+def _widened_rounds(n, budget_per_arm):
+    """The quantized path's widened rounds: each band's buffer width by
+    each t_r, and the output round."""
+    from repro_torch.engine.halving import WIDEN_SLACK
+    from repro_torch.engine.schedule import Schedule
+
+    sched = Schedule.from_budget(n, budget_per_arm * n)
+    stk = sched.stacked(n, slack=WIDEN_SLACK)
+    shapes = [(band.width, t) for band in stk.bands for t in band.num_refs]
+    return sorted(set(shapes + [(min(n, WIDEN_SLACK * stk.sizes[stk.r_stop]),
+                                 sched[stk.r_stop].num_refs)]))
+
+
+@pytest.mark.parametrize("d", (784, 2048))
+def test_bf16_widened_rounds_plan(d):
+    """The 15 widened rounds of the bf16 cells (l2 at d = 784, cosine at
+    d = 2048): the stream path for the six with at most 12 short rows, in
+    both orientations and each in one slab (no C x R scratch), the tile
+    path for the other nine, all within the launch limits."""
+    shapes = _widened_rounds(N, 30)
+    assert len(shapes) == 15
+    kinds = Counter()
+    for c, r in shapes:
+        plan = pk.centrality_plan(c, r, d, SMS,
+                                  crossover=pk.dot_crossover("bfloat16"))
+        _check_limits(c, r, d, plan)
+        if plan[0] == pk.STREAM:
+            assert min(c, r) <= pk.DOT_CENTRALITY_BF16_S
+            assert plan[2] == 1
+            assert pk.centrality_scratch(c, r, d, plan)[0] == 0
+            kinds["C-short" if c <= r else "R-short"] += 1
+        else:
+            kinds[pk.TILE] += 1
+    assert kinds == {"R-short": 3, "C-short": 3, pk.TILE: 9}
 
 
 def _finish(metric, g, xn2, yn2):

@@ -163,12 +163,31 @@ def test_default_order_and_topk_split_signed_zeros_like_jax():
         tops.kernel_topk_smallest(tt, keep=theta.size).numpy(), want_topk)
 
 
+@pytest.mark.parametrize("kind", sorted(_special_thetas()))
+def test_topk_smallest_plain_matches_jax(kind):
+    """``topk_smallest_plain`` (the rank, then the select) on the
+    total-order keys of the same numpy estimates as JAX's
+    ``kernel_topk_smallest`` (its rank/select Pallas pair in interpret
+    mode), bit for bit, for keep in {1, C // 2, C}."""
+    theta = _special_thetas()[kind]
+    c = theta.shape[0]
+    keys = tops.totalorder_keys(torch.from_numpy(theta))
+    for keep in sorted({1, max(1, c // 2), c}):
+        want = np.asarray(jops.kernel_topk_smallest(jnp.asarray(theta),
+                                                    keep=keep))
+        got = pk.topk_smallest_plain(keys, keep)
+        assert got.dtype == torch.int64
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(pk.topk_smallest(keys, keep).numpy(),
+                                      want)
+
+
 def test_topk_rank_select_plain():
     keys = torch.tensor([5, -3, 5, 0, -3, 7], dtype=torch.int32)
     rank = pk.topk_rank(keys)
     assert rank.tolist() == [3, 0, 4, 2, 1, 5]
-    assert pk.topk_select(rank, 6).tolist() == [1, 4, 3, 0, 2, 5]
-    assert pk.topk_select(rank, 2).tolist() == [1, 4]
+    assert pk.topk_smallest(keys, 6).tolist() == [1, 4, 3, 0, 2, 5]
+    assert pk.topk_smallest(keys, 2).tolist() == [1, 4]
     with pytest.raises(ValueError):
         tops.kernel_topk_smallest(torch.zeros(3), keep=0)
 
@@ -187,6 +206,6 @@ def test_wrappers_check_inputs():
     with pytest.raises(ValueError):
         pk.dot_centrality(x, y, None, None, metric="l1")
     with pytest.raises(ValueError):
-        pk.topk_select(torch.zeros(3, dtype=torch.int32), 4)
+        pk.topk_smallest(torch.zeros(3, dtype=torch.int32), 4)
     with pytest.raises(ValueError):      # no kernel and no plain path here
         pk.l1_centrality(x.to("meta"), y.to("meta"))

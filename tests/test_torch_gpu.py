@@ -170,12 +170,62 @@ def test_topk_kernels_bit_equal(cuda, c):
         np.testing.assert_array_equal(rank.cpu().numpy(),
                                       pk.topk_rank_plain(keys.cpu()).numpy())
         np.testing.assert_array_equal(
-            pk.topk_select(rank, c).cpu().numpy(),
+            pk.topk_smallest(keys, c).cpu().numpy(),
             torch.argsort(keys.cpu(), stable=True).numpy())
         if theta is not None:
             np.testing.assert_array_equal(
                 ops.kernel_topk_smallest(theta, keep=c).cpu().numpy(),
                 torch.argsort(keys.cpu(), stable=True).numpy())
+
+
+RANK_TILES = (64, 128, 256, 512, 1024, 2048, 4096, 8192)
+
+
+@pytest.mark.parametrize("c", (1, 2, 129, 5000, T - 1, T, T + 1, 2 * T + 1,
+                               20000))
+def test_topk_smallest_one_launch(cuda, c):
+    """The fused launch at every tile of ``topk_rank_plan`` (with its
+    cluster, and with 8-block clusters where the keys span several tiles)
+    and keep in {1, C // 2, C}: bit-equal to ``argsort(stable=True)[:keep]``
+    on floats with ties, -0.0/+0.0, +-inf and NaNs of both signs, on
+    all-equal keys and on the int32 extremes; one launch each, counted under
+    ``topk_smallest``; with a rank buffer the ranks equal the plain
+    version's."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(device=cuda).manual_seed(c + 3)
+    plans = {pk.topk_rank_plan(c, sms, tile=t) for t in RANK_TILES}
+    plans |= {(t, 8) for t, cl in plans if c > t and cl < 8}
+    for kind in ("floats", "equal", "extremes"):
+        keys, _ = _rank_keys(c, kind, g, cuda)
+        order = torch.argsort(keys.cpu(), stable=True)
+        rank_want = pk.topk_rank_plain(keys.cpu())
+        for keep in sorted({1, max(1, c // 2), c}):
+            np.testing.assert_array_equal(
+                pk.topk_smallest_plain(keys.cpu(), keep).numpy(),
+                order[:keep].numpy())
+            for plan in sorted(plans):
+                before = pk.LAUNCHES.copy()
+                out, rank = pk.launch_topk(keys, keep, plan)
+                torch.cuda.synchronize()
+                assert rank is None
+                assert pk.LAUNCHES["topk_smallest"] == \
+                    before["topk_smallest"] + 1
+                assert pk.LAUNCHES["topk_rank"] == before["topk_rank"]
+                np.testing.assert_array_equal(out.cpu().numpy(),
+                                              order[:keep].numpy(),
+                                              err_msg=f"{kind} {plan} {keep}")
+                out, rank = pk.launch_topk(keys, keep, plan, with_rank=True)
+                np.testing.assert_array_equal(out.cpu().numpy(),
+                                              order[:keep].numpy())
+                np.testing.assert_array_equal(rank.cpu().numpy(),
+                                              rank_want.numpy())
+        before = pk.LAUNCHES["topk_smallest"]
+        np.testing.assert_array_equal(
+            pk.topk_smallest(keys, c).cpu().numpy(), order.numpy())
+        assert pk.LAUNCHES["topk_smallest"] == before + 1
+    assert pk.topk_smallest(keys, 0).shape == (0,)     # no launch
+    with pytest.raises(ValueError):
+        pk.launch_topk(keys, 0, pk.topk_rank_plan(c, sms))   # no output
 
 
 def test_find_medoid_on_card_matches_cpu(cuda):
@@ -194,6 +244,7 @@ def test_find_medoid_on_card_matches_cpu(cuda):
 # middle rounds of a k-medoids halving at n = 20000, and d % 4 != 0
 S = pk.PAIRWISE_S
 DS = pk.DOT_CENTRALITY_S
+DB = pk.DOT_CENTRALITY_BF16_S
 
 
 @pytest.mark.parametrize("shape", ((1, 1, 1), (77, 131, 300), (1, 3000, 784),
@@ -251,6 +302,7 @@ def test_kmedoids_on_card_matches_cpu(cuda):
                                    (3, 3000, 784), (20, 2000, 2048),
                                    (2500, 16, 2048), (2000, 3, 783),
                                    (DS, 3000, 784), (3000, DS + 1, 784),
+                                   (DB, 3000, 784), (3000, DB + 1, 784),
                                    (157, 135, 784)))
 def test_bf16_centrality_matches_plain(cuda, metric, shape):
     """``dot_centrality``'s bf16 mode on both forced paths, with and without
@@ -341,3 +393,94 @@ def test_find_medoid_quantized_on_card_matches_cpu(cuda):
         want_launches = {kern: len(got.rounds)} if kern else {}
         assert dict(pk.LAUNCHES) == want_launches, metric
         assert (got.medoid, got.pulls) == (want.medoid, want.pulls)
+
+
+def _widened_shapes():
+    """The (C, R) shapes of the quantized path's widened rounds at n = 20000
+    and 30 pulls per arm: each band's buffer width by each t_r, and the
+    output round (PERF.md, section 4)."""
+    from repro_torch.engine.halving import WIDEN_SLACK
+    from repro_torch.engine.schedule import Schedule
+
+    n = 20000
+    sched = Schedule.from_budget(n, 30 * n)
+    stk = sched.stacked(n, slack=WIDEN_SLACK)
+    shapes = [(band.width, t) for band in stk.bands for t in band.num_refs]
+    out = (min(n, WIDEN_SLACK * stk.sizes[stk.r_stop]),
+           sched[stk.r_stop].num_refs)
+    return sorted(set(shapes + [out]))
+
+
+def _bf16_inputs(metric, c, r, d, g, device):
+    """Random rows (unit rows for cosine) and the squared norms of the
+    unrounded rows (None for cosine), and a random 0/1 reference mask."""
+    x = torch.rand(c, d, device=device, generator=g)
+    y = torch.rand(r, d, device=device, generator=g)
+    w = (torch.rand(r, device=device, generator=g) > 0.3).float()
+    if metric == "cosine":
+        return ops._unit_rows(x), ops._unit_rows(y), None, None, w
+    return x, y, ops._norms_sq(x), ops._norms_sq(y), w
+
+
+BF16_CELLS = (("l2", 784), ("cosine", 2048))
+
+
+@pytest.mark.parametrize("masked", (False, True))
+@pytest.mark.parametrize("metric, d", BF16_CELLS)
+def test_bf16_stream_path_bit_equal_to_fp32_on_rounded_rows(cuda, metric, d,
+                                                            masked):
+    """At each widened round shape the stream path can take (at most 32
+    short rows), the bf16 mode rounds each value once where it is staged and
+    then does the fp32 mode's operations in its order: bit-equal to the
+    fp32 mode on rows rounded to bf16 beforehand, under the same plan, with
+    the norms of the unrounded rows; two launches bit-equal."""
+    shapes = _widened_shapes()
+    assert len(shapes) == 15
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(device=cuda).manual_seed(d + masked)
+    taken = 0
+    for c, r in shapes:
+        if min(c, r) > 32:
+            continue
+        x, y, xn2, yn2, w = _bf16_inputs(metric, c, r, d, g, cuda)
+        w = w if masked else None
+        xr, yr = x.bfloat16().float(), y.bfloat16().float()
+        plan = pk.centrality_plan(c, r, d, sms, crossover=32)
+        assert plan[0] == pk.STREAM
+        got, again = (pk.launch_dot_centrality(x, y, xn2, yn2, w, plan,
+                                               metric, "bfloat16")
+                      for _ in range(2))
+        want = pk.launch_dot_centrality(xr, yr, xn2, yn2, w, plan, metric)
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (c, r)
+        assert torch.equal(got, want), (c, r, float((got - want).abs().max()))
+        taken += 1
+    assert taken == 8
+
+
+@pytest.mark.parametrize("masked", (False, True))
+@pytest.mark.parametrize("metric, d", BF16_CELLS)
+def test_bf16_tile_path_within_tolerance(cuda, metric, d, masked):
+    """The tile path (tensor-core products of the rows rounded once a slab)
+    at every widened round shape, and at d % 4 != 0 on three of them:
+    within rtol 1e-5 of the plain version with a floor of 1e-5 of the
+    largest sum, two launches bit-equal."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(device=cuda).manual_seed(d + masked + 7)
+    shapes = [(c, r, d) for c, r in _widened_shapes()]
+    shapes += [(5000, 32, d - 1), (626, 254, d - 3), (80, 2000, d - 2)]
+    for c, r, dd in shapes:
+        x, y, xn2, yn2, w = _bf16_inputs(metric, c, r, dd, g, cuda)
+        w = w if masked else None
+        plan = pk.centrality_plan(c, r, dd, sms, crossover=0)
+        assert plan[0] == pk.TILE
+        got, again = (pk.launch_dot_centrality(x, y, xn2, yn2, w, plan,
+                                               metric, "bfloat16")
+                      for _ in range(2))
+        want = pk.dot_centrality_plain(x, y, xn2, yn2, w, metric=metric,
+                                       compute_dtype="bfloat16")
+        torch.cuda.synchronize()
+        assert torch.equal(got, again), (c, r, dd)
+        tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
+        err = (got - want).abs()
+        assert bool((err <= tol).all()), (c, r, dd, float(err.max()))

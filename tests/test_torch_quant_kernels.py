@@ -140,6 +140,40 @@ def test_fused_bf16_backend_matches_jax(metric):
                  per_value_refs=45)
 
 
+@pytest.mark.parametrize("metric", ("l2", "sql2", "cosine"))
+def test_bf16_dot_centrality_plain_matches_jax_kernel(metric):
+    """``dot_centrality_plain(compute_dtype="bfloat16")`` against the JAX
+    kernel ``dot_centrality`` itself in its bf16 mode (interpret mode; its
+    inputs zero-padded to the block, the padded references masked off), with
+    a reference mask, at a d that crosses its 256-wide d tile."""
+    x = case(40, 300, seed=16, positive=metric == "cosine")
+    y = case(90, 300, seed=17, positive=metric == "cosine")
+    m = (np.random.default_rng(3).random(90) > 0.3).astype(np.float32)
+    tx, ty, tm = (torch.from_numpy(a) for a in (x, y, m))
+    if metric == "cosine":
+        tx, ty = tops._unit_rows(tx), tops._unit_rows(ty)
+        xn2 = yn2 = None
+    else:
+        xn2, yn2 = tops._norms_sq(tx), tops._norms_sq(ty)
+    pad = lambda a, r: np.pad(a, ((0, -a.shape[0] % r),   # noqa: E731
+                                  (0, -a.shape[1] % jpk.BD)))
+    xp, yp = pad(tx.numpy(), jpk.BC), pad(ty.numpy(), jpk.BR)
+    # squared norms of the unrounded rows (zeros for cosine), zero-padded
+    xn = np.zeros((xp.shape[0], 1), np.float32)
+    yn = np.zeros((1, yp.shape[0]), np.float32)
+    if xn2 is not None:
+        xn[:40, 0], yn[0, :90] = xn2.numpy(), yn2.numpy()
+    want = np.asarray(jpk.dot_centrality(
+        jnp.asarray(xp), jnp.asarray(yp), jnp.asarray(xn), jnp.asarray(yn),
+        90, metric=metric,
+        ref_mask=jnp.asarray(np.pad(m, (0, yp.shape[0] - 90))),
+        compute_dtype="bfloat16", interpret=True))[:40, 0]
+    got = tpk.dot_centrality_plain(tx, ty, xn2, yn2, tm, metric=metric,
+                                   compute_dtype="bfloat16")
+    assert_close(got, want, metric, np.concatenate([x, y]),
+                 per_value_refs=90)
+
+
 def test_bf16_dot_pairwise_matches_jax():
     """``dot_pairwise(compute_dtype="bfloat16")`` against the JAX kernel's
     bf16 mode (interpret mode; its inputs zero-padded to the block)."""
