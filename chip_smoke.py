@@ -45,7 +45,10 @@ nonzero:
    launch counters zeroed just before each run and read just after. Each
    winner is held against the ``reference`` backend's on the card with the
    same key, and against the exact medoid (l1 at n=4096, d=512, the README
-   command); the planted cells must answer 0;
+   command); the planted cells must answer 0. The first cell runs again
+   with ``telemetry=True``: the same answer and pulls, telemetry rows whose
+   pulls sum to the result's, the hardness present, and the device time of
+   the telemetry rows and of the hardness printed (profiled);
 4. bandit k-medoids at full width: ``repro_torch.api.kmedoids`` with the
    ``KMedoidsConfig`` defaults on the two cells below, counters zeroed just
    before the first call and held against counts derived from the round
@@ -73,7 +76,42 @@ nonzero:
    must be no worse in exact fp32 centrality than fp32 corr_sh's under the
    same key, 0 on the planted cell, and on the bf16 fused cells equal to
    the unfused ``quant_bf16`` backend's (or, both verified, of equal exact
-   centrality).
+   centrality);
+6. serving at full width, counters zeroed before each run and held against
+   the launches derived from the schedules (one pairwise launch per
+   bootstrap and per mutation row, one centrality launch — plus one
+   ``topk_smallest`` on ``pallas_fused_topk`` — per executed round of each
+   re-run and each request a server dispatch answers; the padding slots
+   run nothing), every launch checked and timed as in phase 2 (shapes
+   with C * R * d >= BIG_ELEMS: checked against the plain version on
+   BIG_ROWS rows of x, then one timed call each, the plain version's over
+   all of x in row blocks); the launches of (c) and (d) are checked and
+   timed after the serving, on their corpora's buffers, and their time is
+   printed apart: (a) a ``MedoidServer`` under FIFO (l2, ``SRV_BACKEND``,
+   d = 784, SRV_REQUESTS queries of n log-uniform in SRV_N, budget
+   SRV_BUDGET per arm, max_batch SRV_BATCH, gap telemetry on, a
+   ``TraceSession``) whose answers and pulls must equal the same server's
+   on the ``reference`` backend (an answer may differ only where the last
+   round's gap is within 2 rtol of its estimate); (b) the same traffic
+   under EDF with a third of the requests on a deadline: answered + shed =
+   submitted and the metrics reconcile; (c) a live l2 corpus
+   (``maintain_medoid``, planted n0 = 20000, ``pallas_fused``, the
+   exact-regime budget of ``serve.stream --verify``), LIVE_L2_STEPS
+   mutations (70% inserts of planted rows, the incumbent deleted once),
+   every served answer held by ``check_answer`` against a from-scratch
+   bootstrap on the card and by the same rule against the reference
+   backend's distances (plain PyTorch, no kernel) over the live rows; (d)
+   the same on rnaseq20k_like (l1, d = 4096, ``pallas_fused_topk``),
+   LIVE_L1_STEPS mutations, checked with ``check_answer`` at every 10th
+   version and the last, against the reference where the incumbent goes;
+   in both the maintained centralities at the end must lie within 1e-4
+   (relative) of the reference's and the served answer pass its rule; (e)
+   ``kmedoids_via_service`` on mnist_like (n = 20000, k = 10,
+   ``pallas_fused``): ARI >= 0.95 and the refine pulls equal to the
+   server's scheduled pulls, then ``ClusterStream.add`` of
+   SERVICE_ARRIVALS points and each ``ClusterService`` route. The trace and
+   exposition files of (a)-(d) (under ``build/chip_smoke/``) must pass
+   ``repro_torch.obs.validate``.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the rest
@@ -98,6 +136,20 @@ HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12          # fp32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12      # bf16 on the tensor cores, dense
 PALLAS = "src/repro/kernels/pairwise_distance.py"
+# Phase 6 (serving): the server's traffic, the live corpora's streams, the
+# size above which a launch is checked on BIG_ROWS rows of the plain version
+SRV_REQUESTS = 32
+SRV_N = (1000, 20000)
+SRV_BUDGET = 24
+SRV_BATCH = 8
+SRV_BACKEND = "pallas_fused_topk"
+SRV_DEADLINE_S = 4.0
+LIVE_L2_STEPS = 200
+LIVE_L1_STEPS = 40
+SERVICE_ARRIVALS = 2000
+PROFILE_MUTATIONS = 10
+BIG_ELEMS = 1 << 34
+BIG_ROWS = 512
 
 # name, dataset, n, d, metric, backend
 CELLS = (
@@ -689,6 +741,103 @@ def main() -> int:
     # the bf16 mode's yardstick) on a bf16 mode's inputs
     bf16_more = {}
 
+    def rows_of(ds, c):
+        """c random rows of ``data[ds]``, or all of them and zero rows past
+        its end (as a corpus's dead slots are)."""
+        src = data[ds]
+        n = src.shape[0]
+        if c <= n:
+            return src[torch.randperm(n, device=dev, generator=gen)[:c]]
+        return torch.cat([src, src.new_zeros((c - n, src.shape[1]))])
+
+    def event_ms(fn):
+        """Device ms of one call (CUDA events; these calls run for tens of
+        milliseconds or more, so the launch cost is noise)."""
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def big_time(kern, ds, c, r, metric, masked, square):
+        """Check and time one launch too large to hold against the plain
+        version whole: the kernel (two launches bit-equal) against the
+        plain version on ~BIG_ROWS rows of x (the first 256, the last 256
+        and a stride); then one timed call each of the kernel, the library
+        call and the plain version over all of x, in row blocks whose
+        outputs are dropped. ``square``: x is y, as in a bootstrap."""
+        x = rows_of(ds, c)
+        y = x if square else rows_of(ds, r)
+        d = x.shape[1]
+        idx = torch.unique(torch.cat([
+            torch.arange(min(c, 256)), torch.arange(max(0, c - 256), c),
+            torch.linspace(0, c - 1, BIG_ROWS).long()])).to(dev)
+        what = f"{kern} at C={c} R={r} d={d}"
+        if kern in PAIRWISE:
+            dot = kern == "dot_pairwise"
+            fn = pk.dot_pairwise if dot else pk.l1_pairwise
+            plain = pk.dot_pairwise_plain if dot else pk.l1_pairwise_plain
+            got = fn(x, y)
+            _require(torch.equal(got, fn(x, y)),
+                     f"{what}: two launches differ")
+            want = plain(x[idx], y)
+            err = _agree(got[idx], want,
+                         RTOL * want.abs() + RTOL * want.abs().max(), what)
+            del got
+            ms = event_ms(lambda: fn(x, y))
+            lib = event_ms((lambda: x @ y.T) if dot
+                           else (lambda: torch.cdist(x, y, p=1)))
+            step = max(1, 2 ** 28 // r)        # 1 GiB of output a block
+
+            def plain_all():
+                for i in range(0, c, step):
+                    plain(x[i:i + step], y)
+            pms = event_ms(plain_all)
+            torch.cuda.empty_cache()
+            return (err, ms, pms, 4 * (c * d + r * d + c * r),
+                    _ops_s((2 if dot else 3) * c * r * d), lib)
+        w = (torch.rand(r, device=dev, generator=gen) > 0.3).float() \
+            if masked else None
+        xk, yk, xn2, yn2 = centrality_inputs(metric, x, y)
+
+        def fn(a=xk, an=xn2):
+            if metric == "l1":
+                return pk.l1_centrality(a, yk, w)
+            return pk.dot_centrality(a, yk, an, yn2, w, metric=metric)
+
+        def plain(a, an):
+            if metric == "l1":
+                return pk.l1_centrality_plain(a, yk, w)
+            return pk.dot_centrality_plain(a, yk, an, yn2, w, metric=metric)
+
+        def part(rows):
+            return None if xn2 is None else xn2[rows]
+        def plain_rows(rows):
+            # row blocks of at most 2**31 broadcast elements where the plain
+            # l1 centrality materialises the (rows, R, d) difference, else of
+            # a 1 GiB (rows, R) block
+            step = max(1, 2 ** 31 // (r * d) if metric == "l1"
+                       else 2 ** 28 // r)
+            return torch.cat([plain(xk[rows[i:i + step]],
+                                    part(rows[i:i + step]))
+                              for i in range(0, rows.shape[0], step)])
+        got = fn()
+        _require(torch.equal(got, fn()), f"{what}: two launches differ")
+        want = plain_rows(idx)
+        err = _agree(got[idx], want, _tolerance(want, metric, x[idx], y, w),
+                     what)
+        ms = event_ms(fn)
+        pms = event_ms(lambda: plain_rows(torch.arange(c, device=dev)))
+        nbytes = 4 * (c * d + r * d + c)
+        if metric in ("l2", "sql2"):
+            nbytes += 4 * (c + r)
+        if masked:
+            nbytes += 4 * r
+        return (err, ms, pms, nbytes,
+                _ops_s((3 if metric == "l1" else 2) * c * r * d), None)
+
     def shape_time(kern, ds, c, r=0, metric="", masked=False):
         """Check and time ``kern`` once per shape on rows of dataset ``ds``
         (random rows at the main path's shape; a random 0/1 reference mask
@@ -714,6 +863,9 @@ def main() -> int:
                     "floor_ms": timed(lambda: one.zero_(), 10)}
             return cache[ck][kern]
         ck = (kern, ds, c, r, metric, masked)
+        if ck not in cache and c * r * data[ds].shape[1] >= BIG_ELEMS:
+            cache[ck] = big_time(kern, ds, c, r, metric, masked,
+                                 square=kern in PAIRWISE and c == r)
         if ck not in cache:
             n = data[ds].shape[0]
             x = data[ds][torch.randperm(n, device=dev, generator=gen)[:c]]
@@ -744,6 +896,23 @@ def main() -> int:
             t[2] += max(_bound_s(nbytes, ops_s)) * 1e3
             t[3] = max(t[3], err)
         return tot
+
+    def fmt_shapes(plan, ds, metric, kerns):
+        """The launches of ``plan`` of the kernels ``kerns`` by shape (times
+        from shape_time)."""
+        out = []
+        for (k, c, r, m), nl in sorted(Counter(
+                p for p in plan if p[0] in kerns).items()):
+            err, ms, pms, nbytes, ops_s, lib = shape_time(k, ds, c, r, metric,
+                                                          m)
+            b = max(_bound_s(nbytes, ops_s)) * 1e3
+            out.append(
+                f"{k} ({c}, {r}) x{nl}: kernel {ms * nl:.3f} ms, bound "
+                f"{b * nl:.4f} ms ({b / ms:.1%} of it), plain {pms * nl:.3f} "
+                f"ms" + (f", library {lib * nl:.3f} ms (kernel / library "
+                         f"{ms / lib:.2f})" if lib is not None else "")
+                + f", max_abs_err {err:.3g}")
+        return "; ".join(out)
 
     def fmt_tot(tot):
         return "; ".join(f"{k} kernel {v[0]:.3f} ms, plain {v[1]:.3f} ms, "
@@ -1139,6 +1308,51 @@ def main() -> int:
         print(f"phase3 {name} breakdown: random draws alone "
               f"{draws_ms:.1f} ms; {busy_note(busy, steady)}", flush=True)
 
+    # the first cell again with telemetry=True
+    from repro_torch.core.corr_sh import _medoid_impl
+    from repro_torch.core.hardness import hardness_stats
+
+    name, ds, n, d, metric, backend = CELLS[0]
+    x = data[ds]
+    key = rng.fold_in(rng.key(SEED, dev), 1)
+    kw = dict(metric=metric, backend=backend, budget_per_arm=BUDGET_PER_ARM)
+    plain_res = find_medoid(x, key, **kw)
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    tres = find_medoid(x, key, telemetry=True, **kw)
+    torch.cuda.synchronize()
+    twall = time.perf_counter() - t0
+    counts = dict(pk.LAUNCHES)
+    want = dict(Counter(k for k, *_ in medoid_plan(n, metric, backend)))
+    _require(counts == want, f"{name} telemetry: launches {counts}, "
+                             f"expected {want}")
+    tel = tres.telemetry
+    _require((tres.medoid, tres.pulls, tres.rounds)
+             == (plain_res.medoid, plain_res.pulls, plain_res.rounds),
+             f"{name}: telemetry changed the answer")
+    _require(int(tel["pulls"].sum()) == tres.pulls
+             and len(tel["pulls"]) == len(tres.rounds),
+             f"{name}: telemetry pulls {tel['pulls']} vs {tres.pulls}")
+    _require(tres.hardness is not None and all(
+        np.isfinite(v) for v in tres.hardness.values()),
+        f"{name}: hardness {tres.hardness}")
+    budget = BUDGET_PER_ARM * n
+    b_off = profiled(lambda: _medoid_impl(x, key, budget=budget,
+                                          metric=metric, backend=backend))
+    b_on = profiled(lambda: _medoid_impl(x, key, budget=budget,
+                                         metric=metric, backend=backend,
+                                         telemetry=True))
+    b_hard = profiled(lambda: hardness_stats(x, metric))
+    print(f"phase3 {name} telemetry=True: medoid {tres.medoid} and pulls "
+          f"{tres.pulls} as without, {len(tres.rounds)} rows whose pulls sum "
+          f"to them, last gap {tel['gap'][-1]!r}, hardness {tres.hardness}; "
+          f"wall {twall * 1e3:.1f} ms; launches {counts}; the program's "
+          f"device busy {b_on[1]:.2f} ms over {b_on[0]} activities with the "
+          f"rows, {b_off[1]:.2f} ms over {b_off[0]} without (+"
+          f"{b_on[1] - b_off[1]:.2f} ms, one sort and a few reductions a "
+          f"round); hardness_stats (the O(n^2) block) {b_hard[1]:.2f} ms "
+          f"over {b_hard[0]} activities", flush=True)
+
     # ------------------------------------------- phase 4: k-medoids
     for name, ds, n, d, k, metric, backend in KM_CELLS:
         x = data[ds]
@@ -1397,6 +1611,463 @@ def main() -> int:
 
     print(f"phase5: {time.perf_counter() - t5:.1f} s for the "
           f"{len(Q_CELLS)} cells", flush=True)
+
+    # ------------------------------------ phase 6: serving at full width
+    from repro_torch.api import maintain_medoid
+    from repro_torch.cluster import (ClusterService, ClusterStream,
+                                     kmedoids_via_service)
+    from repro_torch.core.bucketing import bucket_n
+    from repro_torch.core.distances import pairwise
+    from repro_torch.launch.serve_medoid import MedoidServer
+    from repro_torch.obs import TraceSession
+    from repro_torch.obs import validate as obs_validate
+    from repro_torch.serve.stream import (StreamMetrics, check_answer,
+                                          exact_budget_per_arm, exact_state)
+
+    t6 = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    files = []        # (trace, exposition) of 6a-6c, validated at the end
+
+    def slot_plan(dispatches, cen, topk):
+        """The launches of server dispatches, ``(n_bucket, requests)``
+        each: one masked halving per request (the padding slots run
+        nothing)."""
+        plan = []
+        for nb, live_slots in dispatches:
+            plan += halving_plan(executed_rounds(nb, SRV_BUDGET * nb), cen,
+                                 topk, masked=True) * live_slots
+        return plan
+
+    def check_launches(cell, counts, plan):
+        want = dict(Counter(k for k, *_ in plan))
+        _require(counts == want, f"{cell}: launches {counts}, expected "
+                                 f"{want}")
+        for k, v in counts.items():
+            led.rows[k]["launches"] += v
+
+    def mem_note(resident, peak):
+        return (f"max_memory_allocated {peak / 2 ** 20:.1f} MiB = "
+                f"{resident / 2 ** 20:.1f} MiB resident + "
+                f"{(peak - resident) / 2 ** 20:.1f} MiB of its own")
+
+    # 6a/6b: the server, FIFO then EDF, on SRV_REQUESTS queries of n
+    # log-uniform in SRV_N, seeded row subsets of planted_medoid and
+    # mnist_zeros_like (both 20000 x 784); its kernel shapes are timed on
+    # rows of a 32768-point planted set (the largest bucket)
+    data["mnist20k"] = data_from_numpy(
+        DATASETS["mnist_zeros_like"][1](SEED, 20000, 784), dev)
+    data["serve32k"] = data_from_numpy(planted_medoid(SEED + 2, 32768, 784),
+                                       dev)
+    srng = np.random.default_rng(SEED)
+    reqs = []
+    for i in range(SRV_REQUESTS):
+        n_i = int(round(np.exp(srng.uniform(np.log(SRV_N[0]),
+                                            np.log(SRV_N[1])))))
+        src = data["planted"] if i % 2 == 0 else data["mnist20k"]
+        rows = np.sort(srng.choice(src.shape[0], n_i, replace=False))
+        reqs.append(src[torch.from_numpy(rows).to(dev)])
+    deadlined = set(range(0, SRV_REQUESTS, 3))
+
+    def serve(policy, backend, trace=None, steps=None):
+        """A server with every request submitted, drained (or stepped
+        ``steps`` times); returns it and the wall of its steps."""
+        srv = MedoidServer(metric="l2", backend=backend,
+                           budget_per_arm=SRV_BUDGET, max_batch=SRV_BATCH,
+                           seed=SEED, policy=policy, trace=trace, device=dev)
+        for i, q in enumerate(reqs):
+            late = policy == "edf" and i in deadlined
+            srv.submit(q, deadline_s=srv.now() + SRV_DEADLINE_S
+                       if late else None, priority=1 if late else 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if steps is None:
+            srv.drain()
+        else:
+            for _ in range(steps):
+                srv.step()
+        torch.cuda.synchronize()
+        return srv, time.perf_counter() - t0
+
+    def one_dispatch(policy):
+        """(wall s, profile) of a fresh server's first dispatch, unprofiled
+        and then profiled on a second fresh server: a whole run under the
+        profiler costs ~0.1 ms a device activity, ~700k of them."""
+        out = []
+        for profile_it in (False, True):
+            fresh, _ = serve(policy, SRV_BACKEND, steps=0)
+            t0 = time.perf_counter()
+            if profile_it:
+                out.append(profiled(fresh.step))
+            else:
+                fresh.step()
+                torch.cuda.synchronize()
+                out.append(time.perf_counter() - t0)
+        return out
+
+    def run_server(cell, policy):
+        path = out_dir / cell
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        sess = TraceSession(f"{path}.jsonl", meta={"workload": "chip_smoke",
+                                                   "cell": cell})
+        pk.reset_launches()
+        srv, wall = serve(policy, SRV_BACKEND, trace=sess)
+        counts = dict(pk.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        sess.close()
+        path.with_suffix(".txt").write_text(srv.exposition())
+        files.append((f"{path}.jsonl", str(path.with_suffix(".txt"))))
+        spans = [e for e in sess.events
+                 if e["event"] == "span" and e["name"] == "dispatch"]
+        buckets = [int(e["bucket"].split("x")[0]) for e in spans]
+        plan = slot_plan([(nb, e["batch"]) for nb, e in zip(buckets, spans)],
+                         "dot_centrality", SRV_BACKEND == "pallas_fused_topk")
+        check_launches(cell, counts, plan)
+        walls = [e["dur_s"] for e in spans]
+        return (srv, wall, sess.events, buckets, plan, counts, walls,
+                mem_note(resident, peak))
+
+    srv, wall, events, buckets, plan, counts, walls, mem = run_server(
+        "serve_fifo", "fifo")
+    stats = srv.stats()
+    _require(stats["answered"] == SRV_REQUESTS, f"serve_fifo: {stats}")
+    ref, ref_wall = serve("fifo", "reference")
+    last = {}
+    for e in events:
+        if e["event"] == "round":
+            last[e["rid"]] = e
+    near = []
+    for rid, q in srv.done.items():
+        r = ref.done[rid]
+        _require(q.pulls == r.pulls, f"serve_fifo rid {rid}: pulls "
+                                     f"{q.pulls} != {r.pulls}")
+        if q.medoid != r.medoid:
+            lr = last[rid]
+            _require(lr["gap"] is not None and lr["gap"]
+                     <= 2 * RTOL * abs(lr["theta_min"]),
+                     f"serve_fifo rid {rid}: medoid {q.medoid} != reference "
+                     f"{r.medoid}, last gap {lr['gap']}")
+            near.append(rid)
+    one_s, busy = one_dispatch("fifo")
+    one_nb = bucket_n(reqs[0].shape[0], KM_MIN_BUCKET)
+    tot = ledger_add(plan, "serve32k", "l2")
+    print(f"phase6a serve_fifo l2 {SRV_BACKEND} d=784: {SRV_REQUESTS} "
+          f"requests, n {min(q.shape[0] for q in reqs)}.."
+          f"{max(q.shape[0] for q in reqs)}, budget {SRV_BUDGET}/arm, "
+          f"max_batch {SRV_BATCH}, collect_gaps on, traced: "
+          f"{stats['dispatches']} dispatches at n_bucket {buckets}, "
+          f"recompiles {stats['recompiles']}, wall {wall:.3f} s (reference "
+          f"backend {ref_wall:.3f} s), dispatch wall p50 "
+          f"{np.percentile(walls, 50) * 1e3:.1f} ms / p99 "
+          f"{np.percentile(walls, 99) * 1e3:.1f} ms, pulls "
+          f"{stats['total_pulls']}; answers and pulls equal the reference "
+          f"backend's (same seed) but rids {near} (last gap within 2 rtol "
+          f"of theta_min); launches {counts}; one dispatch (n_bucket "
+          f"{one_nb}, {SRV_BATCH} slots) {one_s * 1e3:.1f} ms, "
+          f"{busy_note(busy, one_s)}; {mem}; "
+          f"{time.perf_counter() - t6:.1f} s into phase 6", flush=True)
+    print(f"phase6a serve_fifo kernels: {fmt_tot(tot)}",
+          flush=True)
+
+    srv, wall, events, buckets, plan, counts, walls, mem = run_server(
+        "serve_edf", "edf")
+    ledger_add(plan, "serve32k", "l2")
+    edf_one_s, edf_busy = one_dispatch("edf")
+    stats = srv.stats()
+    snap = srv.metrics()
+
+    def total(fam, **labels):
+        return sum(s["value"] for s in snap.get(fam, {}).get("series", [])
+                   if all(s["labels"].get(k) == v
+                          for k, v in labels.items()))
+    _require(stats["answered"] + stats["shed"] == SRV_REQUESTS,
+             f"serve_edf: {stats}")
+    _require(total("medoid_requests_total") == SRV_REQUESTS
+             and total("medoid_answered_total") == stats["answered"]
+             and total("medoid_shed_total") == stats["shed"]
+             and total("medoid_dispatches_total") == stats["dispatches"]
+             and total("medoid_deadline_total", outcome="met")
+             == stats["deadlines_met"]
+             and total("medoid_deadline_total", outcome="missed")
+             == stats["deadlines_missed"] + stats["shed"]
+             and stats["deadlines_met"] + stats["deadlines_missed"]
+             + stats["shed"] == len(deadlined)
+             and stats["total_pulls"] == total("medoid_pulls_total"),
+             f"serve_edf: the metrics do not reconcile with {stats}")
+    print(f"phase6b serve_edf: {len(deadlined)} of {SRV_REQUESTS} requests "
+          f"with a {SRV_DEADLINE_S} s deadline (priority 1): answered "
+          f"{stats['answered']}, shed {stats['shed']}, deadlines met "
+          f"{stats['deadlines_met']} / missed {stats['deadlines_missed']}, "
+          f"{stats['dispatches']} dispatches at n_bucket {buckets}, wall "
+          f"{wall:.3f} s, dispatch wall p50 "
+          f"{np.percentile(walls, 50) * 1e3:.1f} ms / p99 "
+          f"{np.percentile(walls, 99) * 1e3:.1f} ms; launches {counts}; the "
+          f"metrics reconcile; one dispatch {edf_one_s * 1e3:.1f} ms, "
+          f"{busy_note(edf_busy, edf_one_s)}; {mem}; "
+          f"{time.perf_counter() - t6:.1f} s into phase 6", flush=True)
+
+    def reference_state(store):
+        """The exact state of ``store``'s version by the reference backend's
+        distances (``repro_torch.core.distances``, plain PyTorch, none of
+        the kernels) over the live rows on the card, in row blocks (the l1
+        one materialises its (rows, n, d) difference): (exact slot,
+        centralities in live-slot order, summed in float64)."""
+        slots = store.live_slots()
+        xs = store.buf.index_select(0, torch.from_numpy(slots).to(dev))
+        m, d = xs.shape
+        pw = pairwise(store.metric)
+        step = max(1, 2 ** 31 // (m * d) if store.metric == "l1"
+                   else 2 ** 28 // m)
+        cent = torch.cat([pw(xs[i:i + step], xs).double().sum(1)
+                          for i in range(0, m, step)]).cpu().numpy()
+        return int(slots[int(cent.argmin())]), cent
+
+    def reference_check(store, slot, what):
+        """``check_answer``'s rule against :func:`reference_state`; returns
+        the state."""
+        want, cent = reference_state(store)
+        lo = float(cent.min())
+        got = float(cent[int(np.searchsorted(store.live_slots(), slot))])
+        _require(slot == want or got <= lo + 1e-3 * max(1.0, abs(lo)),
+                 f"{what}: served slot {slot} (centrality {got}) against the "
+                 f"reference's {want} ({lo})")
+        return want, cent
+
+    # 6c/6d: a live corpus; served answers checked with check_answer (a
+    # from-scratch bootstrap on the card) at every check_every-th version
+    # and the last, and against the reference backend's recompute at the
+    # steps ``ref_steps``
+    def live(cell, ds, n0, metric, backend, steps, check_every, ref_steps,
+             pool):
+        budget = exact_budget_per_arm(n0 + steps, KM_MIN_BUCKET)
+        topk = backend == "pallas_fused_topk"
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        path = out_dir / cell
+        sess = TraceSession(f"{path}.jsonl", meta={"workload": "chip_smoke",
+                                                   "cell": cell})
+        metrics = StreamMetrics()
+        mrng = np.random.default_rng(SEED + 6)
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        mm = maintain_medoid(data[ds][:n0], metric=metric, backend=backend,
+                             budget_per_arm=budget, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        boot_s = time.perf_counter() - t0
+        store = mm.store
+        cap = store.capacity
+        checked, rerun_ns, nxt, mut_s = [], [n0], 0, 0.0
+        ref_checked, ref_s, peak = [], 0.0, 0
+
+        def path_peak():
+            # the path's peak so far; the checks' own memory is not its
+            nonlocal peak
+            torch.cuda.synchronize()
+            peak = max(peak, torch.cuda.max_memory_allocated(dev))
+
+        for step in range(steps):
+            t0 = time.perf_counter()
+            if step == steps // 2:                  # the incumbent goes
+                kind, upd = "delete", mm.delete(mm.query()[0])
+            elif mrng.random() < 0.7:
+                kind, upd = "insert", mm.insert(pool[nxt])
+                nxt += 1
+            else:
+                kind, upd = "delete", mm.delete(
+                    int(mrng.choice(store.live_slots())))
+            slot, version = mm.query()
+            torch.cuda.synchronize()
+            mut_s += time.perf_counter() - t0
+            if upd.reran:
+                rerun_ns.append(store.n)
+            metrics.record(kind, upd)
+            sess.event("mutation", kind=kind, version=version,
+                       reason=upd.reason, reran=upd.reran, n=store.n)
+            sess.event("select", winner=slot, pulls=int(upd.pulls),
+                       n=store.n, version=version)
+            path_peak()
+            if (step + 1) % check_every == 0 or step == steps - 1:
+                saved = Counter(pk.LAUNCHES)      # checks are not the path
+                _require(check_answer(store, slot),
+                         f"{cell} version {version}: served slot {slot} "
+                         f"fails check_answer")
+                pk.LAUNCHES.clear()
+                pk.LAUNCHES.update(saved)
+                checked.append(version)
+            if step in ref_steps:
+                t0 = time.perf_counter()
+                reference_check(store, slot, f"{cell} version {version}")
+                ref_s += time.perf_counter() - t0
+                ref_checked.append(version)
+            torch.cuda.reset_peak_memory_stats(dev)
+        path_peak()
+        counts = dict(pk.LAUNCHES)
+        inserts, deletes = store.inserts, store.deletes
+        metrics.finalize(mm)
+        sess.close()
+        path.with_suffix(".txt").write_text(metrics.exposition())
+        files.append((f"{path}.jsonl", str(path.with_suffix(".txt"))))
+        st = mm.stats()
+        _require(st["mutations"] == steps and store.capacity == cap,
+                 f"{cell}: {st}")
+        pair = "l1_pairwise" if metric == "l1" else "dot_pairwise"
+        cen = "l1_centrality" if metric == "l1" else "dot_centrality"
+        # one (cap, cap) bootstrap, one (1, cap) row per mutation, and each
+        # re-run's rounds (the adoption's first) at its bucket
+        plan = [(pair, cap, cap, False)] + [(pair, 1, cap, False)] * steps
+        for n_run in rerun_ns:
+            nb = bucket_n(n_run, KM_MIN_BUCKET)
+            plan += halving_plan(executed_rounds(nb, budget * nb), cen, topk,
+                                 masked=True)
+        check_launches(cell, counts, plan)
+        ex_slot, ex_cent = exact_state(store)
+        live_idx = torch.from_numpy(store.live_slots()).to(dev)
+        got = store.cent[live_idx].cpu().numpy().astype(np.float64)
+        rel = float(np.max(np.abs(got - ex_cent) / np.abs(ex_cent)))
+        t0 = time.perf_counter()
+        final_slot = mm.query()[0]
+        ref_slot, ref_cent = reference_check(store, final_slot,
+                                             f"{cell} at the end")
+        ref_s += time.perf_counter() - t0
+        ref_rel = float(np.max(np.abs(got - ref_cent) / np.abs(ref_cent)))
+        _require(ref_rel <= 1e-4, f"{cell}: maintained cent off the "
+                                  f"reference's by {ref_rel:.3g} (relative)")
+        # the device-busy share of PROFILE_MUTATIONS more inserts (kept
+        # ones: one (1, cap) row each), unprofiled and then profiled
+        extra = pool[nxt:nxt + 2 * PROFILE_MUTATIONS]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for p_row in extra[:PROFILE_MUTATIONS]:
+            mm.insert(p_row)
+        torch.cuda.synchronize()
+        ins_s = time.perf_counter() - t0
+        ins_busy = profiled(lambda: [mm.insert(p_row) for p_row
+                                     in extra[PROFILE_MUTATIONS:]])
+        data[f"{cell}_buf"] = store.buf
+        print(f"phase6 {cell} n0={n0} d={store.d} {metric} {backend}, cap "
+              f"{cap}, exact-regime budget {budget}/arm: {steps} mutations "
+              f"({inserts} inserts, {deletes} deletes, the "
+              f"incumbent deleted at step {steps // 2}), kept {st['kept']} "
+              f"({st['kept_frac']:.1%}), reruns {st['reruns']} (the "
+              f"adoption's included) at n {rerun_ns}, pulls "
+              f"{st['total_pulls']} (init {st['init_pulls']}, incremental "
+              f"{st['incremental_pulls']}, rerun {st['rerun_pulls']}); "
+              f"bootstrap and adoption re-run {boot_s * 1e3:.1f} ms, "
+              f"{mut_s / steps * 1e3:.2f} ms per mutation (query and "
+              f"re-runs included); versions checked with check_answer: "
+              + (f"all {len(checked)}" if check_every == 1 else f"{checked}")
+              + "; versions held against the reference backend's recompute "
+              f"(plain PyTorch distances, float64 sums) at the end and at "
+              + (f"all {len(ref_checked)}" if len(ref_checked) == steps
+                 else f"{ref_checked}") + f" ({ref_s:.1f} s)"
+              + f"; final served slot {final_slot} (recompute {ex_slot}, "
+              f"reference {ref_slot}), maintained cent max rel err against "
+              f"the recompute {rel:.3g}, against the reference {ref_rel:.3g}"
+              f"; launches {counts}; {mem_note(resident, peak)}; "
+              f"{PROFILE_MUTATIONS} more inserts {ins_s * 1e3:.1f} ms, "
+              f"{busy_note(ins_busy, ins_s)}; "
+              f"{time.perf_counter() - t6:.1f} s into phase 6", flush=True)
+
+        def shapes():
+            ledger_add(plan, f"{cell}_buf", metric)
+            print(f"phase6 {cell} kernels: "
+                  f"{fmt_shapes(plan, f'{cell}_buf', metric, (pair, cen))}",
+                  flush=True)
+        corpus_shapes.append(shapes)
+        return st
+
+    pool = data_from_numpy(planted_medoid(
+        SEED + 1, LIVE_L2_STEPS + 2 * PROFILE_MUTATIONS + 1, 784)[1:], dev)
+    corpus_shapes = []     # the live cells' launches, checked and timed last
+    live("live_l2", "planted", 20000, "l2", "pallas_fused", LIVE_L2_STEPS,
+         1, range(LIVE_L2_STEPS), pool)
+    pool = data_from_numpy(DATASETS["rnaseq20k_like"][1](
+        SEED + 1, LIVE_L1_STEPS + 2 * PROFILE_MUTATIONS, 4096), dev)
+    live("live_l1", "rnaseq20k_like", 20000, "l1", "pallas_fused_topk",
+         LIVE_L1_STEPS, 10, (LIVE_L1_STEPS // 2,), pool)
+
+    # 6e: k-medoids with the refinement served by a MedoidServer, then a
+    # ClusterStream of arrivals and each ClusterService route
+    ds, n, d, k = "mnist_like", 20000, 784, 10
+    x = data[ds]
+    key = rng.fold_in(rng.key(SEED, dev), 1)
+    torch.cuda.synchronize()
+    resident = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    pk.reset_launches()
+    t0 = time.perf_counter()
+    res, ksrv = kmedoids_via_service(x, k, key, backend="pallas_fused",
+                                     device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(pk.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev)
+    ari = adjusted_rand_index(res.labels, km_labels[ds])
+    _require(ari >= 0.95, f"kmedoids_via_service: ARI {ari}")
+    served = sum(q.pulls for q in ksrv.done.values())
+    _require(res.refine_pulls == served, f"kmedoids_via_service: refine "
+             f"pulls {res.refine_pulls} != the server's {served}")
+    per_swap = schedule_pulls(n, KM_SWAP * n) + n
+    executed = res.swap_pulls // per_swap
+    kb = [int(s["labels"]["bucket"].split("x")[0])
+          for s in ksrv.metrics()["medoid_dispatches_total"]["series"]
+          for _ in range(int(s["value"]))]
+    # one masked halving per refinement request, at its bucket
+    plan = kmedoids_plan(n, k, "l2", "pallas_fused", sorted(Counter(
+        bucket_n(q.n, ksrv.min_bucket) for q in ksrv.done.values()).items()),
+        executed, 1 + (res.refine_updates > 0))
+    check_launches("kmedoids_via_service", counts, plan)
+    ledger_add(plan, ds, "l2")
+    stream_rng = np.random.default_rng(SEED + 7)
+    arrivals = x[torch.from_numpy(stream_rng.choice(
+        n, SERVICE_ARRIVALS, replace=False)).to(dev)] \
+        + 0.01 * torch.randn(SERVICE_ARRIVALS, d, device=dev, generator=gen)
+    t0 = time.perf_counter()
+    cs = ClusterStream(x, k, key, backend="pallas_fused", device=dev)
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    added = cs.add(arrivals)
+    torch.cuda.synchronize()
+    add_s = time.perf_counter() - t0
+    more = x[torch.from_numpy(stream_rng.choice(
+        n, SERVICE_ARRIVALS, replace=False)).to(dev)] \
+        + 0.01 * torch.randn(SERVICE_ARRIVALS, d, device=dev, generator=gen)
+    add_busy = profiled(lambda: cs.add(more))
+    svc = ClusterService(ksrv, stream=cs)
+    routes = {r: svc.handle(r) for r in svc.routes()}
+    _require(set(routes) == {"/buckets", "/metrics", "/stats", "/stream"}
+             and routes["/stats"]["answered"] == len(ksrv.done)
+             and "# TYPE medoid_requests_total counter" in routes["/metrics"]
+             and routes["/stream"]["arrivals"] == 2 * SERVICE_ARRIVALS,
+             "ClusterService routes")
+    print(f"phase6 kmedoids_via_service mnist_like n={n} d={d} k={k} l2 "
+          f"pallas_fused: medoids {res.medoids}, ARI {ari:.4f}, pulls "
+          f"{res.pulls} (refine {res.refine_pulls} = the server's scheduled "
+          f"pulls), server {ksrv.stats()['dispatches']} dispatches at "
+          f"n_bucket {kb}, wall {wall:.3f} s, launches {counts}, "
+          f"{mem_note(resident, peak)}; ClusterStream fit {fit_s:.3f} s, "
+          f"add({SERVICE_ARRIVALS}) {add_s:.3f} s: affected "
+          f"{added['affected']}, medoid updates {added['medoid_updates']}, "
+          f"pulls {added['pulls']}; a second add profiled: "
+          f"{busy_note(add_busy, add_s)}; routes {sorted(routes)}: /buckets "
+          f"{routes['/buckets']}; {time.perf_counter() - t6:.1f} s into "
+          f"phase 6", flush=True)
+
+    for trace, expo in files:
+        tv = obs_validate.validate_trace(trace)
+        ev = obs_validate.validate_exposition(expo)
+        print(f"phase6 validate {Path(trace).name}: {tv}; "
+              f"{Path(expo).name}: {ev}", flush=True)
+    print(f"phase6: {time.perf_counter() - t6:.1f} s (serving)", flush=True)
+    t0 = time.perf_counter()
+    for shapes in corpus_shapes:
+        shapes()
+    print(f"phase6 corpus shapes (the live cells' launches checked, and "
+          f"timed with the plain versions over their full shapes): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
     for kern, row in led.rows.items():
         _require(row["launches"] > 0 or kern in UNCALLED,
                  f"{kern} was never launched on the main path")

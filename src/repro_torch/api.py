@@ -9,6 +9,8 @@
     meds = find_medoids_batch(batch, key)                 # (B,) indices
     meds = find_medoids_ragged([q1, q2, q3], key=key)     # any sizes
     clust = kmedoids(data, k=8, key=key)                  # KMedoidsResult
+    live = maintain_medoid(data)                          # MaintainedMedoid
+    live.insert(x); live.delete(slot); live.query()       # mutable corpus
 
 ``data`` is a torch tensor (it keeps its device) or anything numpy takes (it
 goes to CUDA); ``device=`` overrides both, and ``device="cpu"`` runs the
@@ -21,9 +23,9 @@ Ported so far: ``algo="corr_sh"`` (the paper's Algorithm 1) for one query,
 a batch and ragged queries, in fp32 and in the quantized precisions
 (``precision="bf16"`` / ``"int8"``: quantized distances, margin-widened
 halving, an exact fp32 check of the finalists, and a same-key fp32 re-run
-when the margins overflowed), ``algo="exact"``, and bandit k-medoids with
-the in-process refiner, all without telemetry. The other algorithms and
-options (``meddit``/``rand``, telemetry, the service refiner) raise
+when the margins overflowed), with per-round telemetry
+(``telemetry=True``), ``algo="exact"``, bandit k-medoids, and the live
+corpus (:func:`maintain_medoid`). ``algo="meddit"`` / ``"rand"`` raise
 ``ValueError`` naming the ROADMAP item that holds them.
 """
 from __future__ import annotations
@@ -42,12 +44,14 @@ from repro_torch.core.corr_sh import _batch_impl, _medoid_impl, ragged_medoids
 from repro_torch.core.exact import exact_medoid
 from repro_torch.engine import rng
 from repro_torch.engine.schedule import round_schedule, stop_round
+from repro_torch.obs import telemetry as obs_telemetry
+from repro_torch.obs import telemetry_to_host
 
 ALGOS = ("corr_sh", "meddit", "rand", "exact")
 
 __all__ = ["ALGOS", "KMedoidsConfig", "MedoidConfig", "MedoidResult",
            "find_medoid", "find_medoids_batch", "find_medoids_ragged",
-           "kmedoids"]
+           "kmedoids", "maintain_medoid"]
 
 
 @dataclass(frozen=True)
@@ -61,7 +65,12 @@ class MedoidConfig:
     (``quant_error_model``: measured ``"probe"`` or worst-case
     ``"analytic"``), the finalists are checked in exact fp32, and a run
     whose widened margins overflowed falls back to a same-key fp32 re-run,
-    so the answer is exact either way. ``corr_sh`` only."""
+    so the answer is exact either way. ``corr_sh`` only.
+
+    ``telemetry`` also returns the per-round telemetry of
+    :mod:`repro_torch.obs.telemetry` (host numpy, one row per executed
+    round) and, for one query, the instance's hardness; the answer is the
+    same with it on or off. ``corr_sh`` only."""
     metric: str = "l2"
     backend: str = "reference"
     budget_per_arm: int = 24
@@ -96,7 +105,11 @@ class MedoidResult:
     ``precision`` echoes the config. ``verified`` is ``None`` for fp32; for
     a quantized run it is ``True`` when the widened margins held all the
     way down and ``False`` when they overflowed, and then ``medoid`` comes
-    from the same-key fp32 re-run, whose pulls ``pulls`` includes."""
+    from the same-key fp32 re-run, whose pulls ``pulls`` includes (and
+    whose telemetry replaces the quantized run's). ``hardness`` (telemetry
+    runs only) holds the Theorem 2.1 quantities of
+    :mod:`repro_torch.core.hardness`: the gap ``delta2``, ``sigma``, ``h2``
+    and ``h2_tilde``."""
     medoid: int
     pulls: int
     n: int
@@ -127,6 +140,15 @@ def _key(key: Optional[rng.Key], seed: int, dev: torch.device) -> rng.Key:
     return rng.key(seed, dev) if key is None else key.to(dev)
 
 
+def _split_telemetry(out, telemetry: bool):
+    """A program's outputs as (the answer part, the telemetry dict or
+    None): with telemetry the dict comes last."""
+    if not telemetry:
+        return out, None
+    *rest, tel = out
+    return (rest[0] if len(rest) == 1 else tuple(rest)), tel
+
+
 def _check_ported(cfg: MedoidConfig) -> None:
     if cfg.algo not in ALGOS:
         raise ValueError(f"unknown algo {cfg.algo!r}; one of {ALGOS}")
@@ -136,12 +158,12 @@ def _check_ported(cfg: MedoidConfig) -> None:
             raise ValueError("precision != 'fp32' requires algo='corr_sh' "
                              "(only the engine round loop has the "
                              "widened-margin + verification path)")
+    if cfg.telemetry and cfg.algo != "corr_sh":
+        raise ValueError("telemetry=True requires algo='corr_sh' (only the "
+                         "engine round loop is instrumented)")
     if cfg.algo in ("meddit", "rand"):
         raise ValueError(f"algo={cfg.algo!r} is not ported to repro_torch "
                          "yet: see ROADMAP Queue 1 item 7")
-    if cfg.telemetry:
-        raise ValueError("telemetry=True is not ported to repro_torch yet: "
-                         "see ROADMAP Queue 1 item 10")
 
 
 def find_medoid(data, key: Optional[rng.Key] = None, *,
@@ -168,15 +190,19 @@ def find_medoid(data, key: Optional[rng.Key] = None, *,
     if n == 1:
         return MedoidResult(medoid=0, pulls=0, n=1, algo="corr_sh",
                             metric=cfg.metric, backend=cfg.backend,
+                            telemetry=telemetry_to_host(obs_telemetry.empty())
+                            if cfg.telemetry else None,
                             precision=cfg.precision,
                             verified=True if quantized else None)
     out = _medoid_impl(data, key, budget=budget, metric=cfg.metric,
-                       backend=cfg.backend, precision=cfg.precision,
+                       backend=cfg.backend, telemetry=cfg.telemetry,
+                       precision=cfg.precision,
                        error_model=cfg.quant_error_model)
     rounds = round_schedule(n, budget)
     executed = rounds[: stop_round(rounds) + 1]
     pulls = sum(r.pulls for r in executed)
     verified = None
+    out, tel = _split_telemetry(out, cfg.telemetry)
     if not quantized:
         medoid = int(out)
     else:
@@ -188,26 +214,45 @@ def find_medoid(data, key: Optional[rng.Key] = None, *,
         else:
             # The widened margins overflowed a buffer somewhere and the
             # quantized answer lost its certificate: re-run in fp32 with
-            # the same key (the same draws, exact estimates).
-            medoid = int(_medoid_impl(data, key, budget=budget,
-                                      metric=cfg.metric, backend=cfg.backend))
+            # the same key (the same draws, exact estimates, and the exact
+            # telemetry in place of the quantized run's).
+            fout = _medoid_impl(data, key, budget=budget, metric=cfg.metric,
+                                backend=cfg.backend, telemetry=cfg.telemetry)
+            if cfg.telemetry:
+                fout, tel = fout
+            medoid = int(fout)
             pulls += sum(r.pulls for r in executed)
+    hardness = None
+    if cfg.telemetry:
+        from repro_torch.core.hardness import hardness_stats
+
+        tel = telemetry_to_host(tel)
+        hs = hardness_stats(data, metric=cfg.metric)
+        hardness = {"delta2": float(hs.delta[1]), "sigma": float(hs.sigma),
+                    "h2": float(hs.h2), "h2_tilde": float(hs.h2_tilde)}
     return MedoidResult(medoid=medoid, pulls=pulls, n=n, algo="corr_sh",
                         metric=cfg.metric, backend=cfg.backend,
                         rounds=tuple((r.survivors, r.num_refs)
                                      for r in executed),
-                        precision=cfg.precision, verified=verified)
+                        telemetry=tel, precision=cfg.precision,
+                        verified=verified, hardness=hardness)
 
 
-def _with_fallback(out, precision: str, fp32_run) -> torch.Tensor:
+def _with_fallback(out, cfg: MedoidConfig, fp32_run):
     """The medoids of a batch or ragged run: a quantized run's unverified
-    queries take the answers of one same-key fp32 re-run of the batch."""
-    if precision == "fp32":
-        return out
-    medoids, verified = out
-    if bool(verified.all()):
-        return medoids
-    return torch.where(verified, medoids, fp32_run())
+    queries take the answers of one same-key fp32 re-run of the batch
+    (without telemetry: the batch keeps the quantized run's rows, as in
+    JAX). With telemetry, ``(medoids, host telemetry)``."""
+    out, tel = _split_telemetry(out, cfg.telemetry)
+    if cfg.precision == "fp32":
+        medoids = out
+    else:
+        medoids, verified = out
+        if not bool(verified.all()):
+            medoids = torch.where(verified, medoids, fp32_run())
+    if tel is not None:
+        return medoids, telemetry_to_host(tel)
+    return medoids
 
 
 def _check_multi(cfg: MedoidConfig, mode: str) -> None:
@@ -222,7 +267,8 @@ def find_medoids_batch(data, key: Optional[rng.Key] = None, *,
                        **overrides) -> torch.Tensor:
     """Answer a ``(B, n, d)`` batch of independent medoid queries (one
     shared schedule, per-query reference draws). Returns the ``(B,)`` int64
-    medoid indices on the data's device."""
+    medoid indices on the data's device, or with ``telemetry=True``
+    ``(indices, telemetry)`` with host ``(B, R)`` leaves."""
     cfg = _resolve(config, overrides)
     _check_multi(cfg, "batched")
     dev = resolve_device(device, data)
@@ -231,10 +277,10 @@ def find_medoids_batch(data, key: Optional[rng.Key] = None, *,
     key = _key(key, cfg.seed, dev)
     kw = dict(budget=cfg.budget_per_arm * max(n, 1), metric=cfg.metric,
               backend=cfg.backend)
-    out = _batch_impl(data, key, precision=cfg.precision,
+    out = _batch_impl(data, key, telemetry=cfg.telemetry,
+                      precision=cfg.precision,
                       error_model=cfg.quant_error_model, **kw)
-    return _with_fallback(out, cfg.precision,
-                          lambda: _batch_impl(data, key, **kw))
+    return _with_fallback(out, cfg, lambda: _batch_impl(data, key, **kw))
 
 
 def find_medoids_ragged(data, lengths=None, key: Optional[rng.Key] = None, *,
@@ -245,7 +291,9 @@ def find_medoids_ragged(data, lengths=None, key: Optional[rng.Key] = None, *,
     ``(B, n_max, d)`` array with per-query ``lengths (B,)``. The budget is
     ``budget_per_arm * n_bucket``; padding is masked inside every round,
     and a query that fills its bucket gets the single-query answer. Returns
-    the ``(B,)`` int64 indices, each below its query's length."""
+    the ``(B,)`` int64 indices, each below its query's length, or with
+    ``telemetry=True`` ``(indices, telemetry)`` with host ``(B, R)``
+    leaves (the bucket's schedule columns)."""
     cfg = _resolve(config, overrides)
     _check_multi(cfg, "ragged")
     if isinstance(data, (list, tuple)):
@@ -266,10 +314,42 @@ def find_medoids_ragged(data, lengths=None, key: Optional[rng.Key] = None, *,
     key = _key(key, cfg.seed, dev)
     kw = dict(budget=cfg.budget_per_arm * n_bucket, metric=cfg.metric,
               backend=cfg.backend, min_bucket=cfg.min_bucket)
-    out = ragged_medoids(data, lengths, key, precision=cfg.precision,
+    out = ragged_medoids(data, lengths, key, telemetry=cfg.telemetry,
+                         precision=cfg.precision,
                          error_model=cfg.quant_error_model, **kw)
-    return _with_fallback(out, cfg.precision,
+    return _with_fallback(out, cfg,
                           lambda: ragged_medoids(data, lengths, key, **kw))
+
+
+def maintain_medoid(data=None, *, d: Optional[int] = None,
+                    config: Optional[MedoidConfig] = None, device=None,
+                    **overrides):
+    """A live, incrementally maintained medoid over a mutable corpus: a
+    :class:`repro_torch.serve.MaintainedMedoid`. ``insert(x)`` /
+    ``delete(slot)`` cost one exact (1, cap) distance row each,
+    ``query()`` serves the maintained answer of the current corpus version,
+    and only a dethroned (or deleted) incumbent re-runs correlated SH,
+    through the same ragged programs as :func:`find_medoids_ragged`, under
+    the key ``fold_in(key(seed), version)``. Pass ``data (n, d)`` to
+    bootstrap from a corpus, or ``d=`` alone to start empty. The store
+    lives on ``device`` (CUDA unless ``device="cpu"``)."""
+    from repro_torch.serve import CorpusStore, MaintainedMedoid
+
+    cfg = _resolve(config, overrides)
+    if cfg.algo != "corr_sh":
+        raise ValueError(f"maintain_medoid requires algo='corr_sh', "
+                         f"got {cfg.algo!r}")
+    kw = dict(metric=cfg.metric, backend=cfg.backend,
+              min_bucket=cfg.min_bucket, precision=cfg.precision,
+              device=device)
+    if data is not None:
+        store = CorpusStore.from_points(data, **kw)
+    elif d is not None:
+        store = CorpusStore(d, **kw)
+    else:
+        raise ValueError("pass data (n, d) or d= to start an empty corpus")
+    return MaintainedMedoid(store, budget_per_arm=cfg.budget_per_arm,
+                            seed=cfg.seed)
 
 
 def kmedoids(data, k: int, key: Optional[rng.Key] = None, *,
@@ -278,18 +358,14 @@ def kmedoids(data, k: int, key: Optional[rng.Key] = None, *,
     """Bandit k-medoids (BUILD -> ragged refinement -> bandit SWAP) on the
     port's engine. Returns a :class:`repro_torch.cluster.KMedoidsResult`
     (point indices, labels, cost, scheduled pull counters). ``refiner``
-    replaces the in-process refiner of the per-cluster subproblems; the
-    service refiner is not ported (``repro_torch.cluster.
-    kmedoids_via_service`` raises). ``telemetry=True`` raises
-    ``ValueError`` naming its ROADMAP item. A ``quant_*`` backend runs the
-    phases on quantized distances, as in the JAX package; there is no
-    ``precision`` option (``KMedoidsConfig`` has no such field, so it
-    raises ``TypeError`` like any unknown field)."""
+    replaces the in-process refiner of the per-cluster subproblems (see
+    :func:`repro_torch.cluster.service.kmedoids_via_service` for the
+    medoid server's). A ``quant_*`` backend runs the phases on quantized
+    distances, as in the JAX package; ``KMedoidsConfig`` has no
+    ``precision`` or ``telemetry`` field, so either raises ``TypeError``
+    like any unknown field, as in JAX."""
     from repro_torch.cluster.kmedoids import _kmedoids_impl
 
-    if overrides.pop("telemetry", False):
-        raise ValueError("kmedoids telemetry=True is not ported to "
-                         "repro_torch yet: see ROADMAP Queue 1 item 10")
     cfg = _resolve(config, overrides, KMedoidsConfig)
     dev = resolve_device(device, data)
     return _kmedoids_impl(

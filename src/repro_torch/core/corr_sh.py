@@ -53,30 +53,35 @@ def correlated_sequential_halving(data: torch.Tensor, budget: int,
 
 def _medoid_impl(data: torch.Tensor, key: rng.Key, *, budget: int,
                  metric: str = "l2", backend: str = "reference",
-                 precision: str = "fp32", error_model: str = "probe"):
+                 telemetry: bool = False, precision: str = "fp32",
+                 error_model: str = "probe"):
     """Single-query medoid: run the cached program for this
-    (budget, metric, backend, precision, error model). Returns a 0-d int64
-    tensor, or ``(index, verified)`` when quantized."""
+    (budget, metric, backend, telemetry, precision, error model). Returns a
+    0-d int64 tensor, or ``(index, verified)`` when quantized, with the
+    per-round telemetry dict last when ``telemetry``."""
     instrument.note_dispatch("medoid")
     fn = programs.medoid_program(budget=budget, metric=metric,
-                                 backend=backend, precision=precision,
+                                 backend=backend, telemetry=telemetry,
+                                 precision=precision,
                                  error_model=error_model)
     return fn(data, key)
 
 
 def _batch_impl(data: torch.Tensor, key: rng.Key, *, budget: int,
                 metric: str = "l2", backend: str = "reference",
-                precision: str = "fp32", error_model: str = "probe"):
+                telemetry: bool = False, precision: str = "fp32",
+                error_model: str = "probe"):
     """Batched medoid: ``data (B, n, d) -> (B,)`` int64 indices (and
-    ``(B,)`` verified when quantized), one shared schedule and an
-    independent reference draw per query."""
+    ``(B,)`` verified when quantized, and ``(B, R)`` telemetry leaves with
+    ``telemetry``), one shared schedule and an independent reference draw
+    per query."""
     if data.ndim != 3:
         raise ValueError(f"expected (B, n, d) batch, got shape "
                          f"{tuple(data.shape)}")
     instrument.note_dispatch("batch")
     fn = programs.batch_program(budget=budget, metric=metric,
-                                backend=backend, precision=precision,
-                                error_model=error_model)
+                                backend=backend, telemetry=telemetry,
+                                precision=precision, error_model=error_model)
     return fn(data, key)
 
 
@@ -90,17 +95,21 @@ def ragged_medoids(data: torch.Tensor, lengths, key: rng.Key, *,
                    budget: int, metric: str = "l2",
                    backend: str = "reference",
                    min_bucket: int = DEFAULT_MIN_BUCKET,
-                   precision: str = "fp32", error_model: str = "probe"):
+                   telemetry: bool = False, precision: str = "fp32",
+                   error_model: str = "probe", live: int | None = None):
     """Ragged multi-query medoid: ``data (B, n_max, d)`` + per-query
     ``lengths (B,)`` -> ``(B,)`` int64 indices, each below its query's
-    length (and ``(B,)`` verified when quantized). ``n_max`` is padded up
+    length (and ``(B,)`` verified when quantized, and ``(B, R)`` telemetry
+    leaves with ``telemetry``). ``n_max`` is padded up
     to its power-of-two bucket and one schedule runs for ``(n_bucket,
     budget)``; padded arms are masked out of every round. A query with
     ``length == n_bucket`` gets ``find_medoid(data[i], split_many(key,
-    B)[i])``'s answer.
+    B)[i])``'s answer. With ``live`` only the first ``live`` queries run
+    (each under the key it has without ``live``); the rest are padding and
+    answer 0 (verified, telemetry rows without an alive arm).
 
-    Raises ``ValueError`` on a length below 1 or above ``n_max``, before
-    any work."""
+    Raises ``ValueError`` on a length below 1 or above ``n_max``, or a
+    ``live`` outside ``1 .. B``, before any work."""
     if data.ndim != 3:
         raise ValueError(f"expected (B, n_max, d) batch, got shape "
                          f"{tuple(data.shape)}")
@@ -115,6 +124,8 @@ def ragged_medoids(data: torch.Tensor, lengths, key: rng.Key, *,
     if (lens > data.shape[1]).any():
         raise ValueError(f"length exceeds padded arm count {data.shape[1]}: "
                          f"lengths={lens.tolist()}")
+    if live is not None and not 1 <= live <= data.shape[0]:
+        raise ValueError(f"live={live} outside 1 .. {data.shape[0]}")
     n_bucket = bucket_n(data.shape[1], min_bucket)
     if data.shape[1] < n_bucket:
         data = torch.nn.functional.pad(data,
@@ -122,6 +133,6 @@ def ragged_medoids(data: torch.Tensor, lengths, key: rng.Key, *,
     instrument.note_dispatch("ragged")
     fn = programs.ragged_program(n_bucket=n_bucket, budget=budget,
                                  metric=metric, backend=backend,
-                                 precision=precision,
+                                 telemetry=telemetry, precision=precision,
                                  error_model=error_model)
-    return fn(data, lengths.to(data.device), key)
+    return fn(data, lengths.to(data.device), key, live)

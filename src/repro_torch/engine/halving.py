@@ -43,6 +43,14 @@ band's full buffer width against its exact ``t_r`` references (JAX's
 weighted ``ref_cap`` prefix of the same draw), and ``margin_ok`` records
 whether a band boundary ever cut the live set, as in JAX.
 
+**Telemetry** (``telemetry=True``): each executed round adds one
+:func:`repro_torch.obs.telemetry.round_stats` row of the masked estimates
+its ordering sees, kept on the device and stacked once after the loop into
+``HalvingOutcome.telemetry`` — extra outputs only, so the answer is the
+same with it on or off. The plain loop's rounds have ``s_r`` entries where
+JAX's scanned rounds have the band's width with dead slots at ``+inf``; the
+statistics are over the finite entries, so the rows are the same.
+
 The loop reads no device value back to the host.
 """
 from __future__ import annotations
@@ -56,6 +64,7 @@ from repro_torch.core.backend import DistanceBackend, get_backend
 from repro_torch.engine import rng
 from repro_torch.engine.estimators import ArmEstimator
 from repro_torch.engine.schedule import Round, as_schedule, stop_round
+from repro_torch.obs import telemetry as obs_telemetry
 
 BackendLike = Union[str, DistanceBackend, None]
 OrderFn = Callable[[torch.Tensor], torch.Tensor]
@@ -132,16 +141,19 @@ class HalvingOutcome:
     global indices), ``theta`` the output round's estimates over
     ``survivors``, the estimator's ``aux`` of that round, and ``r_stop``.
 
-    Margin-widened runs also report ``live``, the 0-d count of live
-    finalists at the front of ``survivors``, and ``margin_ok``, a 0-d bool
-    that is true iff every widened survivor set fit its buffer all the way
-    down. Plain runs leave both ``None``."""
+    ``telemetry`` is ``None`` unless the run carried round telemetry, then
+    the per-round dict of :mod:`repro_torch.obs.telemetry` (one row per
+    executed round). Margin-widened runs also report ``live``, the 0-d
+    count of live finalists at the front of ``survivors``, and
+    ``margin_ok``, a 0-d bool that is true iff every widened survivor set
+    fit its buffer all the way down. Plain runs leave both ``None``."""
     winner: torch.Tensor
     winner_pos: torch.Tensor
     survivors: torch.Tensor
     theta: torch.Tensor
     aux: Any
     r_stop: int
+    telemetry: Any = None
     live: Optional[torch.Tensor] = None
     margin_ok: Optional[torch.Tensor] = None
 
@@ -163,8 +175,16 @@ def _score_round(problem: HalvingProblem, idx: torch.Tensor, sub: rng.Key,
     return sums / torch.clamp_min(w.sum(), 1.0), aux
 
 
+def _telemetry(rows: list, sched, r_stop: int):
+    if rows is None:
+        return None
+    return obs_telemetry.assemble(sched[: r_stop + 1],
+                                  obs_telemetry.stack(rows))
+
+
 def _run_halving_widened(problem: HalvingProblem, sched, order_fn: OrderFn,
-                         key: rng.Key, widen) -> HalvingOutcome:
+                         key: rng.Key, widen,
+                         telemetry: bool = False) -> HalvingOutcome:
     """The ``widen`` body of :func:`run_halving` (see the module
     docstring): JAX's ``_run_halving_widened`` with its positional masks."""
     data, arm_mask = problem.data, problem.arm_mask
@@ -174,6 +194,7 @@ def _run_halving_widened(problem: HalvingProblem, sched, order_fn: OrderFn,
     idx = torch.arange(n, device=dev)
     live = torch.full((), n, dtype=torch.int64, device=dev)
     ok = torch.ones((), dtype=torch.bool, device=dev)
+    rows = [] if telemetry else None
     for band in stk.bands:
         # The band boundary is the only place a margin-kept arm can drop.
         ok = ok & (live <= band.width)
@@ -187,6 +208,8 @@ def _run_halving_widened(problem: HalvingProblem, sched, order_fn: OrderFn,
             theta = torch.where(pos < live, theta, torch.inf)
             if arm_mask is not None:
                 theta = torch.where(arm_mask[idx], theta, torch.inf)
+            if telemetry:
+                rows.append(obs_telemetry.round_stats(theta))
             order = order_fn(theta)
             # The cut is the keep-th smallest estimate; an +inf cut (fewer
             # than keep finite arms) keeps every finite arm.
@@ -206,15 +229,20 @@ def _run_halving_widened(problem: HalvingProblem, sched, order_fn: OrderFn,
                         torch.inf)
     if arm_mask is not None:
         theta = torch.where(arm_mask[survivors], theta, torch.inf)
+    if telemetry:
+        rows.append(obs_telemetry.round_stats(theta))
     pos = torch.argmin(theta)
     return HalvingOutcome(winner=survivors[pos], winner_pos=pos,
                           survivors=survivors, theta=theta, aux=aux,
-                          r_stop=stk.r_stop, live=live, margin_ok=ok)
+                          r_stop=stk.r_stop,
+                          telemetry=_telemetry(rows, sched, stk.r_stop),
+                          live=live, margin_ok=ok)
 
 
 def run_halving(problem: HalvingProblem, schedule: Sequence[Round],
                 backend: BackendLike = None, *, key: rng.Key,
                 survivor_order: Optional[OrderFn] = None,
+                telemetry: bool = False,
                 widen: Optional[torch.Tensor] = None) -> HalvingOutcome:
     """Run correlated sequential halving over ``schedule`` (non-empty:
     ``n == 1`` has an empty schedule and the caller answers arm 0).
@@ -225,7 +253,8 @@ def run_halving(problem: HalvingProblem, schedule: Sequence[Round],
     switches to margin-widened halving, which also reports ``live`` and
     ``margin_ok``; ``widen=None`` runs the plain loop. A zero ``widen`` is
     not the plain loop: it still keeps exact ties at the cut and uses the
-    widened buffers.
+    widened buffers. ``telemetry`` fills ``HalvingOutcome.telemetry`` (see
+    the module docstring).
     """
     sched = as_schedule(schedule)
     if not len(sched):
@@ -234,19 +263,24 @@ def run_halving(problem: HalvingProblem, schedule: Sequence[Round],
     order_fn = survivor_order if survivor_order is not None \
         else resolve_order_fn(backend)
     if widen is not None:
-        return _run_halving_widened(problem, sched, order_fn, key, widen)
+        return _run_halving_widened(problem, sched, order_fn, key, widen,
+                                    telemetry)
     data, arm_mask = problem.data, problem.arm_mask
     n = data.shape[0]
     r_stop = stop_round(list(sched))
     idx = torch.arange(n, device=data.device)
+    rows = [] if telemetry else None
     for r in range(r_stop + 1):
         key, sub = rng.split(key)
         theta, aux = _score_round(problem, idx, sub, sched[r].num_refs)
         if arm_mask is not None:
             theta = torch.where(arm_mask[idx], theta, torch.inf)
+        if telemetry:
+            rows.append(obs_telemetry.round_stats(theta))
         if r < r_stop:
             idx = idx[order_fn(theta)][:sched[r + 1].survivors]
 
     pos = torch.argmin(theta)
     return HalvingOutcome(winner=idx[pos], winner_pos=pos, survivors=idx,
-                          theta=theta, aux=aux, r_stop=r_stop)
+                          theta=theta, aux=aux, r_stop=r_stop,
+                          telemetry=_telemetry(rows, sched, r_stop))

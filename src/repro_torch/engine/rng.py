@@ -13,7 +13,11 @@ module reproduces what ``jax.random`` does with its default settings (impl
   ``i < n`` (the 64-bit counter is ``i``: its high word is 0 below 2**32);
 * ``permutation(key, n)`` is ``jax._src.random._shuffle``: ``ceil(3 ln n /
   ln(2**32 - 1))`` rounds, each ``key, sub = split(key)`` followed by a
-  *stable* sort of the current order by ``bits(sub, n)``.
+  *stable* sort of the current order by ``bits(sub, n)``;
+* ``uniform(key, shape)`` sets the 23 mantissa bits of 1.0 from the top of
+  each 32-bit draw and subtracts 1, bit for bit; ``normal(key, shape)`` is
+  ``sqrt(2) * erfinv(u)`` of a uniform on ``(-1, 1)``, equal to JAX's up to
+  the last bits of ``erfinv``.
 
 uint32 words are carried in int64 tensors masked with ``0xFFFFFFFF`` (torch's
 uint32 arithmetic is incomplete). Every function runs on the key's device and
@@ -103,6 +107,30 @@ def bits(k: Key, n: int) -> torch.Tensor:
     h0, h1 = _hash_counters(k, torch.arange(n, dtype=torch.int64,
                                             device=k.device))
     return h0 ^ h1
+
+
+def _bits_shaped(k: Key, shape) -> torch.Tensor:
+    size = int(np.prod(shape, dtype=np.int64))
+    return bits(k, size).reshape(tuple(shape))
+
+
+def uniform(k: Key, shape=(), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
+    f = ((_bits_shaped(k, shape) >> 9) | 0x3F800000).to(torch.int32) \
+        .view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    return torch.maximum(lo, f * (hi - lo) + lo)
+
+
+def normal(k: Key, shape=()) -> torch.Tensor:
+    """``jax.random.normal(key, shape, float32)``, up to ``erfinv``'s last
+    bits."""
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+    u = uniform(k, shape, lo, 1.0)
+    return torch.erfinv(u) * torch.tensor(np.float32(np.sqrt(2)),
+                                          device=k.device)
 
 
 def shuffle_rounds(n: int) -> int:

@@ -79,8 +79,7 @@ def test_small_n_and_config():
         tapi.find_medoid(x, config=object(), device="cpu")
 
 
-@pytest.mark.parametrize("overrides", [
-    {"algo": "meddit"}, {"algo": "rand"}, {"telemetry": True}])
+@pytest.mark.parametrize("overrides", [{"algo": "meddit"}, {"algo": "rand"}])
 def test_unported_options_raise_with_roadmap_pointer(overrides):
     with pytest.raises(ValueError, match="ROADMAP"):
         tapi.find_medoid(case(16, 4), device="cpu", **overrides)

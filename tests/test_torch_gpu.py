@@ -484,3 +484,111 @@ def test_bf16_tile_path_within_tolerance(cuda, metric, d, masked):
         tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
         err = (got - want).abs()
         assert bool((err <= tol).all()), (c, r, dd, float(err.max()))
+
+
+# ------------------------- the live corpus's shapes --------------------------
+# A corpus of cap slots bootstraps with one (cap, cap) pairwise block and
+# prices each mutation with one (1, cap) row (repro_torch.engine.programs).
+
+def _block_close(got, want, what, rows=4096):
+    """rtol 1e-5 with a floor of 1e-5 of the largest magnitude, a block of
+    rows at a time (the big blocks' temporaries stay small)."""
+    top = float(want.abs().max())
+    for r0 in range(0, want.shape[0], rows):
+        w = want[r0:r0 + rows]
+        tol = 1e-5 * w.abs() + 1e-5 * top
+        assert bool(((got[r0:r0 + rows] - w).abs() <= tol).all()), \
+            f"{what}: rows {r0}.."
+
+
+@pytest.mark.parametrize("cap", (4096, 32768))
+@pytest.mark.parametrize("rows", ("square", "row"))
+def test_corpus_pairwise_shapes_match_plain(cuda, cap, rows):
+    """dot_pairwise (with its l2 and cosine epilogues) at d = 784 and
+    l1_pairwise at d = 64 on the bootstrap square and on a mutation row;
+    two launches bit-equal."""
+    g = torch.Generator(device=cuda).manual_seed(cap)
+    for name, d in (("dot_pairwise", 784), ("l1_pairwise", 64)):
+        y = torch.rand(cap, d, device=cuda, generator=g)
+        x = y if rows == "square" else y[cap // 3:cap // 3 + 1]
+        kern = pk.dot_pairwise if name == "dot_pairwise" else pk.l1_pairwise
+        plain = (pk.dot_pairwise_plain if name == "dot_pairwise"
+                 else pk.l1_pairwise_plain)
+        before = pk.LAUNCHES[name]
+        got = kern(x, y)
+        assert torch.equal(got, kern(x, y))
+        assert pk.LAUNCHES[name] == before + 2
+        want = plain(x, y)
+        _block_close(got, want, f"{name} ({x.shape[0]}, {cap}, {d})")
+        del got
+        if name != "dot_pairwise" or x.shape[0] * cap > 2 ** 28:
+            continue          # the epilogues are torch code: smaller blocks
+        # the epilogues, from the Gram's tolerance e: a square within 2e
+        # (and the norms' own rounding) of the plain one, its root within
+        # the roots of that interval, cosine within e over the norms'
+        # product
+        e = 1e-5 * want.abs() + 1e-5 * want.abs().max()
+        x2, y2 = ops._norms_sq(x), ops._norms_sq(y)
+        sq = torch.clamp_min(x2[:, None] + y2[None, :] - 2 * want, 0)
+        e_sq = 2 * e + 1e-5 * (x2[:, None] + y2[None, :])
+        l2 = torch.sqrt(sq)
+        e_l2 = torch.maximum(torch.sqrt(sq + e_sq) - l2,
+                             l2 - torch.sqrt(torch.clamp_min(sq - e_sq, 0)))
+        for metric, ref, tol in (("l2", l2, e_l2), ("cosine", None, None)):
+            out = ops.pairwise_kernel(metric)(x, y)
+            if metric == "cosine":
+                den = torch.sqrt(x2)[:, None] * torch.sqrt(y2)[None, :]
+                ref, tol = 1 - want / den, e / den + 1e-6
+            assert bool(((out - ref).abs() <= tol).all()), metric
+            del out
+
+
+def test_pairwise_block_past_two_to_the_31(cuda):
+    """A (49152, 49152) l1 block has 2.4e9 > 2^31 elements: 64-bit output
+    offsets. Its first and last rows against the plain version of those
+    rows; two launches bit-equal."""
+    n, d = 49152, 16
+    g = torch.Generator(device=cuda).manual_seed(31)
+    x = torch.rand(n, d, device=cuda, generator=g)
+    got = pk.l1_pairwise(x, x)
+    assert got.numel() > 2 ** 31
+    for r0 in (0, n - 256, n // 2):
+        want = pk.l1_pairwise_plain(x[r0:r0 + 256], x)
+        _block_close(got[r0:r0 + 256], want, f"rows {r0}")
+    tail = got[-3:].clone()
+    del got
+    again = pk.l1_pairwise(x, x)
+    assert torch.equal(again[-3:], tail)
+
+
+def test_maintained_medoid_on_card_matches_cpu(cuda):
+    """The same mutation stream on the card (pallas_fused: the pairwise
+    kernels for the bootstrap and the rows, dot_centrality for re-runs)
+    and on the CPU (their plain versions): equal updates at every version,
+    and centralities within rtol 1e-5 plus the l2 self-pair allowance."""
+    from repro_torch.serve import CorpusStore, MaintainedMedoid
+
+    rs = np.random.default_rng(8)
+    pts = rs.standard_normal((300, 8)).astype(np.float32)
+    mms = [MaintainedMedoid(CorpusStore.from_points(
+        pts, backend="pallas_fused", device=dev), budget_per_arm=64, seed=3)
+        for dev in (cuda, "cpu")]
+    for step in range(60):
+        if step % 20 == 10:
+            slot = mms[1].query()[0]
+            assert mms[0].query()[0] == slot
+            ups = [m.delete(slot) for m in mms]
+        elif rs.random() < 0.7:
+            x = rs.standard_normal(8).astype(np.float32)
+            ups = [m.insert(x) for m in mms]
+        else:
+            slot = int(rs.choice(mms[1].store.live_slots()))
+            ups = [m.delete(slot) for m in mms]
+        assert ups[0] == ups[1], step
+        live = mms[1].store.live_slots()
+        got = mms[0].store.cent.cpu().numpy()[live]
+        want = mms[1].store.cent.numpy()[live]
+        tol = 1e-5 * np.abs(want) + 1e-5 * np.abs(want).max() \
+            + 1e-3 * np.linalg.norm(pts, axis=1).max()
+        assert (np.abs(got - want) <= tol).all(), step
+    assert mms[0].stats() == mms[1].stats()
