@@ -111,7 +111,26 @@ nonzero:
    server's scheduled pulls, then ``ClusterStream.add`` of
    SERVICE_ARRIVALS points and each ``ClusterService`` route. The trace and
    exposition files of (a)-(d) (under ``build/chip_smoke/``) must pass
-   ``repro_torch.obs.validate``.
+   ``repro_torch.obs.validate``;
+7. the paper's baselines and the distributed engines at full width: (a) on
+   mnist_zeros_like (n = 6424, d = 784, l2) and rnaseq20k_like (n = 20000,
+   d = 4096, l1), ``find_medoid`` with ``algo="corr_sh"`` (pallas_fused),
+   ``"meddit"`` (the facade's defaults: batch 64, sigma 1, a cap of 1000 n
+   pulls), ``"rand"`` with RAND_REFS references and ``"exact"``, each with
+   its medoid against exact's, pulls, wall, launches and peak memory;
+   RAND's pulls must be n * refs, Med-dit's n + 64 a step below the cap
+   plus a batch, with one ``threefry`` launch a chunk and one
+   ``topk_smallest`` a step; Med-dit's steps, chunks and a profiled run's
+   device busy share are printed, and a capped run (MEDDIT_CAPPED_CHUNKS
+   chunks) on the captured graph with the kernel's draws must be bit-equal
+   (medoid, pulls, means) to the same run eagerly on the plain draws;
+   ``threefry`` is checked bit-equal to its plain loop at the main path's
+   (K, B, n) and timed beside its bound (the chain's K hashes on one
+   thread) and ``topk_smallest`` at (C = n, keep = 64); (b) v1 and v2
+   through ``find_medoid(mesh=)`` at world size 1 on NCCL (an in-process
+   group on a file store) on planted (n = 20000, d = 784, l2) and
+   rnaseq20k_like (l1), pallas_fused: the planted medoid or exact's, one
+   centrality launch a round and one ``topk_smallest`` a halving per shard.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the rest
@@ -135,6 +154,14 @@ RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12          # fp32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12      # bf16 on the tensor cores, dense
+# threefry.cu's chain: one threefry2x32 hash a step on one thread, about two
+# dependent integer instructions a round over its 20 rounds plus the key
+# injections (45, counted from the source), at an assumed 4 cycles each at
+# the H100 SXM's 1980 MHz boost clock (data sheet)
+HASH_DEPENDENT_INSTR = 45
+INT_LATENCY_CYCLES = 4
+SM_CLOCK_HZ = 1.98e9
+HASH_S = HASH_DEPENDENT_INSTR * INT_LATENCY_CYCLES / SM_CLOCK_HZ
 PALLAS = "src/repro/kernels/pairwise_distance.py"
 # Phase 6 (serving): the server's traffic, the live corpora's streams, the
 # size above which a launch is checked on BIG_ROWS rows of the plain version
@@ -193,6 +220,10 @@ KERNELS = {   # name -> (source, TPU kernel it replaces)
                             f"{PALLAS}:269"),
     "dot_pairwise_bf16": ("src/repro_torch/kernels/csrc/dot_pairwise.cu",
                           f"{PALLAS}:82"),
+    # no TPU kernel: XLA fuses Med-dit's draws into its while_loop
+    "threefry": ("src/repro_torch/kernels/csrc/threefry.cu",
+                 "none (the draws XLA fuses into "
+                 "src/repro/core/meddit.py:86-87)"),
 }
 PAIRWISE = ("dot_pairwise", "l1_pairwise")
 CENTRALITY = ("l1_centrality", "dot_centrality")
@@ -200,6 +231,17 @@ CENTRALITY = ("l1_centrality", "dot_centrality")
 # mode: its ledger entry sums one launch at each k-medoids pairwise shape
 # of phase 2 and its main-path launch count stays 0.
 UNCALLED = ("dot_pairwise_bf16",)
+
+# Phase 7, the paper's comparison (bench_algorithms.py's datasets): dataset,
+# n, d, metric; RAND's reference counts; Med-dit's capped comparison run
+P7_CELLS = (("mnist_zeros_like", 6424, 784, "l2"),
+            ("rnaseq20k_like", 20000, 4096, "l1"))
+RAND_REFS = (30, 1000)
+MEDDIT_BATCH = 64
+MEDDIT_CAPPED_CHUNKS = 3
+MEDDIT_PROFILED_CHUNKS = 8
+# the distributed engines at world size 1: dataset, metric
+P7_DIST = (("planted", "l2"), ("rnaseq20k_like", "l1"))
 
 # Phase 5, the quantized path: name, dataset, n, d, metric, precision, base
 # backend; find_medoid at BUDGET_PER_ARM on phase 3's data.
@@ -2068,6 +2110,215 @@ def main() -> int:
     print(f"phase6 corpus shapes (the live cells' launches checked, and "
           f"timed with the plain versions over their full shapes): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    # ------------------- phase 7: the paper's baselines and distributed
+    import tempfile
+
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.meddit import CHUNK, clear_graphs, meddit_medoid
+    from repro_torch.kernels.threefry import (threefry_draws,
+                                              threefry_draws_plain)
+
+    t7 = time.perf_counter()
+
+    def threefry_time(n):
+        """One main-path threefry launch (CHUNK steps of MEDDIT_BATCH draws
+        over [0, n)) bit-equal to its plain loop on the card, both timed:
+        (err, ms, plain_ms, bytes, ops_s, library_ms). The bound: its
+        writes, or the chain's CHUNK hashes and the last step's randint
+        (two more) on one thread."""
+        ck = ("threefry", n)
+        if ck not in cache:
+            key = rng.fold_in(rng.key(SEED + 9, dev), n)
+            subs, nxt, refs = threefry_draws(key, CHUNK, MEDDIT_BATCH, n)
+            psubs, pnxt, prefs = threefry_draws_plain(key, CHUNK,
+                                                      MEDDIT_BATCH, n)
+            _require(torch.equal(refs, prefs) and torch.equal(subs, psubs)
+                     and torch.equal(nxt.data, pnxt.data),
+                     f"threefry at K={CHUNK} n={n} differs from its plain "
+                     f"version")
+            cache[ck] = (
+                0.0, timed(lambda: threefry_draws(key, CHUNK, MEDDIT_BATCH,
+                                                  n), 20),
+                event_ms(lambda: threefry_draws_plain(key, CHUNK,
+                                                      MEDDIT_BATCH, n)),
+                4 * CHUNK * MEDDIT_BATCH + 16 * CHUNK + 32,
+                (CHUNK + 2) * HASH_S, None)
+        return cache[ck]
+
+    def select_time(c, keep):
+        """topk_smallest at Med-dit's (C = n, keep = 64), bit-equal to a
+        stable argsort's prefix on random and tie-heavy keys, timed beside
+        its plain version and that argsort."""
+        ck = ("select", c, keep)
+        if ck not in cache:
+            for theta in (tie_heavy(c),
+                          torch.rand(c, device=dev, generator=gen)):
+                keys = ops.totalorder_keys(theta)
+                got = pk.topk_smallest(keys, keep)
+                _require(torch.equal(got, torch.argsort(
+                    keys, stable=True)[:keep]) and torch.equal(
+                    got, pk.topk_smallest_plain(keys, keep)),
+                    f"topk_smallest at C={c} keep={keep} disagrees")
+            cache[ck] = (
+                0.0, timed(lambda: pk.topk_smallest(keys, keep), 10),
+                timed(lambda: pk.topk_smallest_plain(keys, keep), 3),
+                4 * c + 8 * keep, 0,
+                timed(lambda: torch.argsort(keys, stable=True), 10))
+        return cache[ck]
+
+    def ledger_many(kern, entry, launches):
+        err, ms, pms, nbytes, ops_s, lib = entry
+        for _ in range(launches):
+            led.add(kern, ms, pms, nbytes, ops_s, err, library_ms=lib)
+
+    def main_path(fn):
+        """One run with the counters zeroed just before and read just
+        after: (result, wall s, launches, memory note)."""
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        pk.reset_launches()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return (res, wall, dict(pk.LAUNCHES),
+                mem_note(resident, torch.cuda.max_memory_allocated(dev)))
+
+    # 7a: the paper's comparison on two of its datasets' lookalikes
+    exact7 = {}
+    for ds, n, d, metric in P7_CELLS:
+        x = data[ds]
+        key = rng.fold_in(rng.key(SEED, dev), 1)
+        cap = 1000 * n
+        # a capped Med-dit run on the graph and kernel path, then the same
+        # run eagerly on the plain draws: bit-equal (the first call also
+        # captures the chunk graph)
+        kw = dict(metric=metric, max_pulls=n + MEDDIT_BATCH * CHUNK
+                  * MEDDIT_CAPPED_CHUNKS)
+        t0 = time.perf_counter()
+        g = meddit_medoid(x, key, graph=True, **kw)
+        torch.cuda.synchronize()
+        g_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        e = meddit_medoid(x, key, graph=False, **kw)
+        torch.cuda.synchronize()
+        e_s = time.perf_counter() - t0
+        _require(int(g.medoid) == int(e.medoid) and int(g.pulls)
+                 == int(e.pulls) and torch.equal(g.means, e.means),
+                 f"phase7 {ds}: the capped Med-dit run on the graph differs "
+                 f"from the eager run on the plain draws")
+        print(f"phase7 {ds} meddit capped at {kw['max_pulls']} pulls: graph "
+              f"and kernel draws {g_s:.3f} s (with the capture), eager on "
+              f"the plain draws {e_s:.3f} s: medoid {int(g.medoid)}, pulls "
+              f"{int(g.pulls)} and all {n} means bit-equal", flush=True)
+
+        lines = {}
+        res, wall, counts, mem = main_path(lambda: find_medoid(
+            x, key, metric=metric, algo="exact"))
+        _require(counts == {} and res.pulls == n * n,
+                 f"phase7 {ds} exact: launches {counts}, pulls {res.pulls}")
+        exact7[ds] = truth = res.medoid
+        lines["exact"] = (res, wall, counts, mem, "")
+
+        plan = medoid_plan(n, metric, "pallas_fused")
+        res, wall, counts, mem = main_path(lambda: find_medoid(
+            x, key, metric=metric, backend="pallas_fused",
+            budget_per_arm=BUDGET_PER_ARM))
+        check_launches(f"phase7 {ds} corr_sh", counts, plan)
+        ledger_add(plan, ds, metric)
+        _require(res.pulls == sum(s * t for s, t in res.rounds),
+                 f"phase7 {ds} corr_sh: pull accounting")
+        lines["corr_sh"] = (res, wall, counts, mem, "")
+
+        for refs in RAND_REFS:
+            res, wall, counts, mem = main_path(lambda: find_medoid(
+                x, key, metric=metric, algo="rand", budget_per_arm=refs))
+            _require(counts == {} and res.pulls == n * refs,
+                     f"phase7 {ds} rand {refs}: launches {counts}, pulls "
+                     f"{res.pulls} != n * refs")
+            lines[f"rand {refs} refs"] = (res, wall, counts, mem, "")
+
+        res, wall, counts, mem = main_path(lambda: find_medoid(
+            x, key, metric=metric, algo="meddit"))
+        steps, rem = divmod(res.pulls - n, MEDDIT_BATCH)
+        chunks = -(-steps // CHUNK)
+        _require(rem == 0 and res.pulls < cap + MEDDIT_BATCH,
+                 f"phase7 {ds} meddit: pulls {res.pulls} are not n + "
+                 f"{MEDDIT_BATCH} a step within the cap {cap}")
+        check_launches(f"phase7 {ds} meddit", counts,
+                       [("threefry",)] * chunks
+                       + [("topk_smallest",)] * (chunks * CHUNK))
+        ledger_many("threefry", threefry_time(n), chunks)
+        ledger_many("topk_smallest", select_time(n, MEDDIT_BATCH),
+                    chunks * CHUNK)
+        prof_kw = dict(metric=metric, max_pulls=n + MEDDIT_BATCH * CHUNK
+                       * MEDDIT_PROFILED_CHUNKS)
+        t0 = time.perf_counter()
+        meddit_medoid(x, key, **prof_kw)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+        busy = profiled(lambda: meddit_medoid(x, key, **prof_kw))
+        lines["meddit"] = (res, wall, counts, mem, (
+            f", {steps} steps ({'at the cap' if res.pulls >= cap else 'stopped'}"
+            f" of {cap} pulls), {chunks} chunks of {CHUNK}, "
+            f"{wall / max(steps, 1) * 1e6:.1f} us a step; a run of "
+            f"{MEDDIT_PROFILED_CHUNKS} chunks {prof_s * 1e3:.1f} ms, "
+            f"{busy_note(busy, prof_s)}"))
+        for algo, (res, wall, counts, mem, extra) in lines.items():
+            print(f"phase7 {ds} n={n} d={d} {metric} {algo}: medoid "
+                  f"{res.medoid} (exact {truth}: "
+                  f"{'equal' if res.medoid == truth else 'differs'}), pulls "
+                  f"{res.pulls} ({res.pulls / n:.1f} per arm), wall "
+                  f"{wall:.3f} s, launches {counts}, {mem}{extra}",
+                  flush=True)
+        e1 = threefry_time(n)
+        e2 = select_time(n, MEDDIT_BATCH)
+        print(f"phase7 {ds} kernels of Med-dit: threefry (K={CHUNK}, "
+              f"B={MEDDIT_BATCH}) {e1[1] * 1e3:.2f} us a launch, bound "
+              f"{max(_bound_s(e1[3], e1[4])) * 1e6:.2f} us (the chain), plain "
+              f"{e1[2]:.1f} ms; topk_smallest (C={n}, keep={MEDDIT_BATCH}) "
+              f"{e2[1] * 1e3:.2f} us, plain {e2[2] * 1e3:.1f} us, "
+              f"argsort(stable=True) {e2[5] * 1e3:.2f} us; "
+              f"{time.perf_counter() - t7:.1f} s into phase 7", flush=True)
+    clear_graphs()
+
+    # 7b: v1 and v2 at world size 1 on NCCL (an in-process group with a
+    # file store); the multi-rank behaviour is held on the CPU (gloo tests)
+    store = Path(tempfile.mkdtemp(dir=out_dir)) / "store"
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,))
+        for ds, metric in P7_DIST:
+            x = data[ds]
+            n = x.shape[0]
+            key = rng.fold_in(rng.key(SEED, dev), 1)
+            truth = 0 if ds == "planted" else exact7[ds]
+            cen = "l1_centrality" if metric == "l1" else "dot_centrality"
+            plan = halving_plan(executed_rounds(n, BUDGET_PER_ARM * n), cen,
+                                True)
+            for impl in ("v1", "v2"):
+                res, wall, counts, mem = main_path(lambda: find_medoid(
+                    x, key, mesh=mesh, distributed_impl=impl, metric=metric,
+                    backend="pallas_fused", budget_per_arm=BUDGET_PER_ARM))
+                check_launches(f"phase7 {ds} {impl}", counts, plan)
+                ledger_add(plan, ds, metric)
+                _require(res.medoid == truth and res.algo
+                         == f"corr_sh_distributed_{impl}",
+                         f"phase7 {ds} {impl}: medoid {res.medoid}, want "
+                         f"{truth}")
+                print(f"phase7 distributed {impl} x1 (nccl) {ds} n={n} "
+                      f"d={x.shape[1]} {metric} pallas_fused: medoid "
+                      f"{res.medoid} (= {'planted' if ds == 'planted' else 'exact'}"
+                      f" {truth}), pulls {res.pulls}, wall {wall:.3f} s, "
+                      f"launches per shard {counts}, {mem}", flush=True)
+    finally:
+        dist.destroy_process_group()
+    print(f"phase7: {time.perf_counter() - t7:.1f} s", flush=True)
+
     for kern, row in led.rows.items():
         _require(row["launches"] > 0 or kern in UNCALLED,
                  f"{kern} was never launched on the main path")

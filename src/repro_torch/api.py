@@ -19,14 +19,18 @@ input raises. ``key`` is a :class:`repro_torch.engine.rng.Key`
 (``rng.key(seed)``, or :func:`repro_torch.convert.key_from_jax_data` for a
 JAX key); ``None`` means ``rng.key(config.seed)``.
 
-Ported so far: ``algo="corr_sh"`` (the paper's Algorithm 1) for one query,
-a batch and ragged queries, in fp32 and in the quantized precisions
+Every ``algo`` is ported: ``"corr_sh"`` (the paper's Algorithm 1) for one
+query, a batch and ragged queries, in fp32 and in the quantized precisions
 (``precision="bf16"`` / ``"int8"``: quantized distances, margin-widened
 halving, an exact fp32 check of the finalists, and a same-key fp32 re-run
 when the margins overflowed), with per-round telemetry
-(``telemetry=True``), ``algo="exact"``, bandit k-medoids, and the live
-corpus (:func:`maintain_medoid`). ``algo="meddit"`` / ``"rand"`` raise
-``ValueError`` naming the ROADMAP item that holds them.
+(``telemetry=True``); the paper's baselines ``"meddit"`` (UCB, its steps a
+CUDA graph on the card) and ``"rand"``; and ``"exact"``. Beside them:
+bandit k-medoids, the live corpus (:func:`maintain_medoid`), and the
+distributed engines behind ``find_medoid(..., mesh=)``::
+
+    mesh = init_device_mesh("cuda", (world,))             # under torchrun
+    res = find_medoid(data, key, mesh=mesh, distributed_impl="v2")
 """
 from __future__ import annotations
 
@@ -42,6 +46,8 @@ from repro_torch.core.bucketing import (DEFAULT_MIN_BUCKET, bucket_n,
                                         pack_queries)
 from repro_torch.core.corr_sh import _batch_impl, _medoid_impl, ragged_medoids
 from repro_torch.core.exact import exact_medoid
+from repro_torch.core.meddit import meddit_medoid
+from repro_torch.core.rand import rand_medoid
 from repro_torch.engine import rng
 from repro_torch.engine.schedule import round_schedule, stop_round
 from repro_torch.obs import telemetry as obs_telemetry
@@ -161,19 +167,30 @@ def _check_ported(cfg: MedoidConfig) -> None:
     if cfg.telemetry and cfg.algo != "corr_sh":
         raise ValueError("telemetry=True requires algo='corr_sh' (only the "
                          "engine round loop is instrumented)")
-    if cfg.algo in ("meddit", "rand"):
-        raise ValueError(f"algo={cfg.algo!r} is not ported to repro_torch "
-                         "yet: see ROADMAP Queue 1 item 7")
 
 
 def find_medoid(data, key: Optional[rng.Key] = None, *,
                 config: Optional[MedoidConfig] = None, device=None,
+                mesh=None, distributed_impl: str = "v2",
                 **overrides) -> MedoidResult:
     """Find the medoid of ``data (n, d)`` — the paper's correlated
-    sequential halving on the configured backend (``algo="corr_sh"``), or
-    the exact O(n^2) oracle (``algo="exact"``)."""
+    sequential halving on the configured backend (``algo="corr_sh"``), the
+    Med-dit or RAND baseline (``"meddit"``, ``"rand"`` with
+    ``budget_per_arm`` references), or the exact O(n^2) oracle
+    (``"exact"``).
+
+    ``mesh=`` (a :class:`torch.distributed.device_mesh.DeviceMesh`, every
+    rank of it calling) runs the distributed engine instead
+    (``distributed_impl="v2"`` communication-optimal, ``"v1"`` replicated):
+    ``data`` is a DTensor row-sharded over every mesh dimension
+    (:func:`repro_torch.core.distributed.shard_rows`) or a tensor that every
+    rank holds whole; each rank scores its own rows and all return the same
+    answer."""
     cfg = _resolve(config, overrides)
     _check_ported(cfg)
+    if mesh is not None:
+        return _find_medoid_distributed(data, key, cfg, mesh,
+                                        distributed_impl)
     dev = resolve_device(device, data)
     data = _tensor(data, dev)
     if data.ndim != 2:
@@ -186,6 +203,16 @@ def find_medoid(data, key: Optional[rng.Key] = None, *,
         return MedoidResult(medoid=int(exact_medoid(data, cfg.metric)),
                             pulls=n * n, n=n, algo="exact",
                             metric=cfg.metric, backend=cfg.backend)
+    if cfg.algo == "rand":
+        refs = max(1, cfg.budget_per_arm)
+        m = rand_medoid(data, key, num_refs=refs, metric=cfg.metric)
+        return MedoidResult(medoid=int(m), pulls=n * refs, n=n, algo="rand",
+                            metric=cfg.metric, backend=cfg.backend)
+    if cfg.algo == "meddit":
+        res = meddit_medoid(data, key, metric=cfg.metric)
+        return MedoidResult(medoid=int(res.medoid), pulls=int(res.pulls),
+                            n=n, algo="meddit", metric=cfg.metric,
+                            backend=cfg.backend)
     quantized = cfg.precision != "fp32"
     if n == 1:
         return MedoidResult(medoid=0, pulls=0, n=1, algo="corr_sh",
@@ -236,6 +263,63 @@ def find_medoid(data, key: Optional[rng.Key] = None, *,
                                      for r in executed),
                         telemetry=tel, precision=cfg.precision,
                         verified=verified, hardness=hardness)
+
+
+DISTRIBUTED_IMPLS = ("v1", "v2")
+
+
+def _find_medoid_distributed(data, key: Optional[rng.Key],
+                             cfg: MedoidConfig, mesh,
+                             impl: str) -> MedoidResult:
+    """``find_medoid``'s ``mesh=`` branch (see there)."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    from repro_torch.core import distributed, distributed_v2
+
+    if cfg.telemetry or cfg.precision != "fp32":
+        raise ValueError("telemetry=True and precision != 'fp32' require "
+                         "find_medoid without mesh= (only the engine round "
+                         "loop is instrumented and widened)")
+    if cfg.algo != "corr_sh":
+        raise ValueError(f"mesh= requires algo='corr_sh', got {cfg.algo!r}")
+    impls = {"v1": distributed.distributed_corr_sh,
+             "v2": distributed_v2.distributed_corr_sh_v2}
+    if impl not in impls:
+        raise ValueError(f"distributed_impl must be one of "
+                         f"{sorted(impls)}, got {impl!r}")
+    lay = distributed.mesh_layout(mesh)
+    if isinstance(data, DTensor):
+        if data.device_mesh != mesh or any(
+                p != Shard(0) for p in data.placements):
+            raise ValueError("a DTensor must be row-sharded over every "
+                             "dimension of mesh (make_row_sharding)")
+        n = int(data.shape[0])
+        local = data.to_local().float().contiguous()
+    else:
+        whole = _tensor(data, resolve_device(mesh.device_type, data))
+        n = int(whole.shape[0])
+        lo = lay.shard_id * (n // lay.shards)
+        local = whole[lo:lo + n // lay.shards].contiguous()
+    if local.ndim != 2:
+        raise ValueError(f"expected (n, d) data, got {local.ndim} dims")
+    if n % lay.shards or local.shape[0] * lay.shards != n:
+        raise ValueError(f"n={n} must be divisible by device count "
+                         f"{lay.shards}")
+    want = "nccl" if local.is_cuda else "gloo"
+    if want not in dist.get_backend(lay.group):
+        raise ValueError(f"{local.device.type} rows need a {want} process "
+                         f"group, got {dist.get_backend(lay.group)!r}")
+    key = _key(key, cfg.seed, local.device)
+    budget = cfg.budget_per_arm * n
+    medoid = int(impls[impl](local, key, mesh, budget=budget,
+                             metric=cfg.metric, backend=cfg.backend))
+    rounds = round_schedule(n, budget)
+    return MedoidResult(medoid=medoid, pulls=sum(r.pulls for r in rounds),
+                        n=n, algo=f"corr_sh_distributed_{impl}",
+                        metric=cfg.metric, backend=cfg.backend,
+                        rounds=tuple((r.survivors, r.num_refs)
+                                     for r in rounds))
 
 
 def _with_fallback(out, cfg: MedoidConfig, fp32_run):

@@ -64,6 +64,7 @@ from repro_torch.core.backend import DistanceBackend, get_backend
 from repro_torch.engine import rng
 from repro_torch.engine.estimators import ArmEstimator
 from repro_torch.engine.schedule import Round, as_schedule, stop_round
+from repro_torch.kernels import ops as kops
 from repro_torch.obs import telemetry as obs_telemetry
 
 BackendLike = Union[str, DistanceBackend, None]
@@ -94,6 +95,25 @@ def sample_refs_masked(key: rng.Key, n: int, t: int,
     perm = rng.permutation(key, n)
     order = torch.argsort(torch.where(valid[perm], 0, 1), stable=True)
     return perm[order][:t]
+
+
+def default_select(theta: torch.Tensor, keep: int) -> torch.Tensor:
+    """Survivor selection of the distributed engines and Med-dit: the
+    indices (int64) of the ``keep`` smallest estimates, ascending, ties to
+    the smaller index — ``lax.top_k(-theta, keep)[1]``, order included.
+    ``lax.top_k`` orders the IEEE total order (``-NaN < -inf < -0.0 < +0.0
+    < +inf < +NaN``), which :func:`default_order` does not; a CUDA tensor
+    takes the ``topk_smallest`` kernel, a CPU tensor a stable sort of the
+    same integer keys."""
+    n = theta.shape[0]
+    if not 0 <= keep <= n:
+        raise ValueError(f"default_select: keep must be in [0, {n}], got "
+                         f"{keep}")
+    if theta.is_cuda:
+        if keep == 0:
+            return theta.new_empty(0, dtype=torch.int64)
+        return kops.kernel_topk_smallest(theta, keep=keep)
+    return torch.argsort(kops.totalorder_keys(theta), stable=True)[:keep]
 
 
 def default_order(theta: torch.Tensor) -> torch.Tensor:

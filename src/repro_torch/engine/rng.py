@@ -11,6 +11,11 @@ module reproduces what ``jax.random`` does with its default settings (impl
 * ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))``;
 * ``bits(key, n)`` is ``hi ^ lo`` of ``threefry2x32(key, (0, i))`` for
   ``i < n`` (the 64-bit counter is ``i``: its high word is 0 below 2**32);
+* ``randint(key, shape, minval, maxval)`` is ``jax._src.random._randint``
+  for int32: ``k1, k2 = split(key)``, ``hi = bits(k1)``, ``lo = bits(k2)``
+  and the offset ``((hi % span) * mult + lo % span) % span`` with ``mult =
+  (2**16 % span)**2 % span``, each product and sum wrapping at 2**32 as
+  uint32 does (so ``mult`` is 0 once ``span > 2**16``);
 * ``permutation(key, n)`` is ``jax._src.random._shuffle``: ``ceil(3 ln n /
   ln(2**32 - 1))`` rounds, each ``key, sub = split(key)`` followed by a
   *stable* sort of the current order by ``bits(sub, n)``;
@@ -131,6 +136,21 @@ def normal(k: Key, shape=()) -> torch.Tensor:
     u = uniform(k, shape, lo, 1.0)
     return torch.erfinv(u) * torch.tensor(np.float32(np.sqrt(2)),
                                           device=k.device)
+
+
+def randint(k: Key, shape, minval: int, maxval: int) -> torch.Tensor:
+    """``jax.random.randint(key, shape, minval, maxval, int32)`` for int32
+    bounds, as an int64 tensor (see the module docstring)."""
+    minval, maxval = int(minval), int(maxval)
+    for v in (minval, maxval):
+        if not -2 ** 31 <= v < 2 ** 31:
+            raise ValueError(f"randint: bound {v} does not fit int32")
+    k1, k2 = split(k)
+    hi, lo = _bits_shaped(k1, shape), _bits_shaped(k2, shape)
+    span = (maxval - minval) & _MASK if maxval > minval else 1
+    mult = ((2 ** 16 % span) ** 2 & _MASK) % span
+    off = ((hi % span) * mult & _MASK) + lo % span
+    return minval + (off & _MASK) % span
 
 
 def shuffle_rounds(n: int) -> int:

@@ -31,7 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
               "-split-compile=0")
 SOURCES = ("dot_centrality", "l1_centrality", "topk_smallest",
-           "dot_pairwise", "l1_pairwise")
+           "dot_pairwise", "l1_pairwise", "threefry")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
@@ -50,6 +50,8 @@ SIGNATURES = {
                             (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P)),
     "l1_pairwise_launch": ("l1_pairwise",
                            (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _P)),
+    "threefry_draws_launch": ("threefry",
+                              (_P, _P, _P, _P, _LL, _LL, _LL, _P)),
 }
 
 _LOCK = threading.Lock()

@@ -592,3 +592,82 @@ def test_maintained_medoid_on_card_matches_cpu(cuda):
             + 1e-3 * np.linalg.norm(pts, axis=1).max()
         assert (np.abs(got - want) <= tol).all(), step
     assert mms[0].stats() == mms[1].stats()
+
+
+@pytest.mark.parametrize("k", (1, 2, 7, 1000))
+def test_threefry_draws_bit_equal_to_plain(cuda, k):
+    """One launch of ``threefry.cu`` against the plain loop of split and
+    randint (on the CPU: integer arithmetic, the same bits), B = 64, for
+    spans below and above 2**16 and several keys (one key at k = 1000)."""
+    from repro_torch.kernels.threefry import (threefry_draws,
+                                              threefry_draws_plain)
+
+    for seed in ((0, 7, 2 ** 32 - 1) if k < 1000 else (5,)):
+        key = rng.fold_in(rng.key(seed), 3)
+        for n in (2, 6424, 20000, 70000):
+            before = pk.LAUNCHES["threefry"]
+            subs, nxt, refs = threefry_draws(key.to(cuda), k, 64, n)
+            torch.cuda.synchronize()
+            assert pk.LAUNCHES["threefry"] == before + 1
+            psubs, pnxt, prefs = threefry_draws_plain(key, k, 64, n)
+            assert refs.dtype == torch.int32 and refs.shape == (k, 64)
+            assert torch.equal(refs.cpu(), prefs), (seed, n)
+            assert torch.equal(subs.cpu(), psubs)
+            assert torch.equal(nxt.data.cpu(), pnxt.data)
+
+
+@pytest.mark.parametrize("metric", ("l1", "l2", "cosine"))
+def test_meddit_graph_matches_eager_and_cpu(cuda, metric):
+    """A capped Med-dit run (a few chunks) on the captured graph with the
+    kernel's draws, the same run eagerly on the plain draws, and on the
+    CPU: bit-equal medoid, pulls and means (integer rows, so every paired
+    distance is exact in any summation order). The graph run launches
+    threefry once a chunk and topk_smallest once a step."""
+    from repro_torch.core.meddit import meddit_medoid
+
+    x = torch.from_numpy(np.random.default_rng(4).integers(
+        -3, 4, (3000, 24)).astype(np.float32))
+    kw = dict(metric=metric, max_pulls=3000 + 64 * 300, chunk=64)
+    before = pk.LAUNCHES.copy()
+    g = meddit_medoid(x.to(cuda), rng.key(2, cuda), graph=True, **kw)
+    torch.cuda.synchronize()
+    steps = (int(g.pulls) - 3000) // 64
+    chunks = -(-steps // 64)
+    assert 0 < steps <= 300
+    assert pk.LAUNCHES["threefry"] == before["threefry"] + chunks
+    assert pk.LAUNCHES["topk_smallest"] == before["topk_smallest"] \
+        + 64 * chunks
+    e = meddit_medoid(x.to(cuda), rng.key(2, cuda), graph=False, **kw)
+    c = meddit_medoid(x, rng.key(2), **kw)
+    for other in (e, c):
+        assert int(g.medoid) == int(other.medoid)
+        assert int(g.pulls) == int(other.pulls)
+        assert torch.equal(g.means.cpu(), other.means.cpu())
+    # the graph is reused: a second call gives the same answer
+    again = meddit_medoid(x.to(cuda), rng.key(2, cuda), graph=True, **kw)
+    assert torch.equal(again.means, g.means)
+
+
+def test_distributed_world_size_one_on_nccl(cuda, tmp_path):
+    """v1 and v2 on an in-process NCCL group of one rank (a file store):
+    the planted medoid, as the single-device engine finds it."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    from repro_torch.core.distributed import shard_rows
+    from repro_torch.data.medoid_datasets import planted_medoid
+
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        mesh = init_device_mesh("cuda", (1,))
+        x = torch.from_numpy(planted_medoid(0, 2048, 64)).to(cuda)
+        for impl in ("v1", "v2"):
+            for data in (x, shard_rows(x, mesh)):
+                res = tapi.find_medoid(data, rng.key(1, cuda), mesh=mesh,
+                                       distributed_impl=impl,
+                                       backend="pallas_fused")
+                assert res.medoid == 0
+                assert res.algo == f"corr_sh_distributed_{impl}"
+    finally:
+        dist.destroy_process_group()
