@@ -130,7 +130,30 @@ nonzero:
    through ``find_medoid(mesh=)`` at world size 1 on NCCL (an in-process
    group on a file store) on planted (n = 20000, d = 784, l2) and
    rnaseq20k_like (l1), pallas_fused: the planted medoid or exact's, one
-   centrality launch a round and one ``topk_smallest`` a halving per shard.
+   centrality launch a round and one ``topk_smallest`` a halving per shard;
+8. the LM scaffold's serving path at full width (no kernel of its own: its
+   attention and products are plain PyTorch): (a) ``launch.serve.Server``
+   on internlm2-1.8b's full config in bf16 (weights from a seeded generator
+   on the card), LM_REQUESTS requests of the CLI's prompts through
+   LM_SLOTS slots, no kernel launched, steps and tokens as the schedule
+   gives them, ms per prefill and per decode step, tokens/s, weight bytes
+   and peak memory; then on an fp32 copy the serving invariant of
+   ``tests/test_decode_consistency.py`` (prefill on S tokens and one decode
+   step against the teacher-forced logits, rtol = atol = 2e-3); (b) two
+   layers at that width on the card against the same weights on the CPU
+   (fp32, rtol = atol = LM_CARD_CPU_TOL; greedy tokens equal wherever the
+   top-two gap exceeds twice it); (c) gemma3-27b at full width cut to 7
+   layers (local and global layers, both thetas) in fp32: the invariant on
+   a 1536-token prompt (several query and KV blocks); (d) ``examples/embedding_medoid_torch.py``'s embeddings
+   of 2048 sequences of 64 tokens on (a)'s weights, (2048, 92544) fp32:
+   ``find_medoid`` (key 2, 20 per arm) on ``reference`` and
+   ``pallas_fused``, each exact's medoid or within phase 3's gap rule, every
+   ``dot_centrality`` launch checked against its plain version and timed
+   (row 1e), then ``kmedoids`` (k = 8) and 6 uneven shards through a
+   ``MedoidServer``, both on ``pallas_fused`` with derived launch counts
+   and the ``reference`` backend's answers; (e) the sidecar
+   (``examples/serve_lm_torch.py``'s 8 cosine queries of (512, 64)) on
+   ``pallas_fused``, the ``reference`` backend's medoids.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the rest
@@ -139,6 +162,7 @@ result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import re
 import subprocess
@@ -242,6 +266,23 @@ MEDDIT_CAPPED_CHUNKS = 3
 MEDDIT_PROFILED_CHUNKS = 8
 # the distributed engines at world size 1: dataset, metric
 P7_DIST = (("planted", "l2"), ("rnaseq20k_like", "l1"))
+
+# Phase 8, the LM serving path at full width: the server (internlm2-1.8b,
+# the CLI's prompts), the decode-vs-forward bound of
+# tests/test_decode_consistency.py, the card-vs-CPU bound, gemma3's cut (its
+# 6-layer window pattern plus one) and prompt (beyond its 1024 window), the
+# embedding corpus, k-medoids, shards and the sidecar's batch
+LM_ARCH = "internlm2-1.8b"
+LM_SLOTS, LM_MAX_LEN, LM_REQUESTS, LM_PROMPT, LM_NEW = 4, 256, 8, 64, 32
+LM_LOGIT_TOL = 2e-3
+# 8b's bound, as tests/test_torch_lm_gpu.py's: about 9x the largest error
+# read on an H100 with TF32 off (1.1e-5); TF32 rounds each product's inputs
+# to 2^-11 (4.9e-4) relative, five times the bound
+LM_CARD_CPU_TOL = 1e-4
+LM_CARD_CPU_STEPS = 4
+GEMMA_LAYERS, GEMMA_PROMPT = 7, 1536
+EMB_SEQS, EMB_LEN, EMB_BUDGET, EMB_K, EMB_QUERIES = 2048, 64, 20, 8, 6
+SIDECAR_B, SIDECAR_N, SIDECAR_BUDGET = 8, 512, 24
 
 # Phase 5, the quantized path: name, dataset, n, d, metric, precision, base
 # backend; find_medoid at BUDGET_PER_ARM on phase 3's data.
@@ -2318,6 +2359,353 @@ def main() -> int:
     finally:
         dist.destroy_process_group()
     print(f"phase7: {time.perf_counter() - t7:.1f} s", flush=True)
+
+    # ------------------- phase 8: the LM serving path at full width
+    from repro_torch.configs import get_config
+    from repro_torch.core.bucketing import bucket_n
+    from repro_torch.launch.serve import Request, Server, prompts
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import embedding_medoid_torch as emb_ex
+    import serve_lm_torch as lm_ex
+
+    t8 = time.perf_counter()
+
+    def lm_close(what, got, want, tol):
+        """|got - want| <= tol + tol |want| everywhere (numpy's allclose
+        rule, rtol = atol = tol); returns the largest |got - want|."""
+        got, want = got.float(), want.float().to(got.device)
+        err = (got - want).abs()
+        _require(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+        _require(bool((err <= tol + tol * want.abs()).all()),
+                 f"{what}: max err {float(err.max())} beyond rtol = atol = "
+                 f"{tol}")
+        return float(err.max())
+
+    def decode_vs_forward(cfg, params, s, batch, what):
+        """tests/test_decode_consistency.py's invariant: the teacher-forced
+        logits at positions S - 1 and S against prefill on S tokens and one
+        decode step, within LM_LOGIT_TOL. Returns (prefill err, decode err,
+        seconds)."""
+        toks = torch.randint(0, cfg.vocab_size, (batch, s + 1), device=dev,
+                             generator=gen)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full, _, _ = T.transformer_forward(params, cfg, toks)
+        lp, cache = T.transformer_prefill(params, cfg, toks[:, :s], s + 4)
+        ld, _ = T.transformer_decode_step(params, cfg, toks[:, s], cache, s)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        e1 = lm_close(f"{what} prefill", lp, full[:, s - 1], LM_LOGIT_TOL)
+        e2 = lm_close(f"{what} decode", ld, full[:, s], LM_LOGIT_TOL)
+        return e1, e2, secs
+
+    def fp32_copy(params, cfg32, keep=None):
+        """The weights in fp32 on their device (``keep``: the first layers
+        only)."""
+        sd = {k: v.float() for k, v in params.state_dict().items()
+              if keep is None or not k.startswith("layers.")
+              or int(k.split(".")[1]) < keep}
+        model = T.transformer_init(None, cfg32, "meta")
+        model.load_state_dict(sd, assign=True)
+        return model
+
+    # 8a: the server, bf16 weights from a seeded generator on the card
+    cfg = get_config(LM_ARCH)
+    V = cfg.vocab_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    srv = Server(LM_ARCH, smoke=False, batch_slots=LM_SLOTS,
+                 max_len=LM_MAX_LEN, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    params = srv.params
+    wbytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    calls = {"prefill": [0, 0.0], "decode_step": [0, 0.0]}
+
+    def clocked(name, fn):
+        """The model's ``name`` with its host time to a device sync and a
+        finiteness check of its logits."""
+        def call(*a, **kw):
+            t = time.perf_counter()
+            logits, cache = fn(*a, **kw)
+            torch.cuda.synchronize()
+            calls[name][0] += 1
+            calls[name][1] += time.perf_counter() - t
+            _require(bool(torch.isfinite(logits).all()),
+                     f"phase8a {name}: non-finite logits")
+            return logits, cache
+        return call
+
+    srv.model = dataclasses.replace(
+        srv.model, prefill=clocked("prefill", srv.model.prefill),
+        decode_step=clocked("decode_step", srv.model.decode_step))
+    srv.run([Request(rid=-1, prompt=p, max_new=3)      # warm-up
+             for p in prompts(1, LM_PROMPT, V, dev, seed=8)])
+    for v in calls.values():
+        v[:] = [0, 0.0]
+    reqs = [Request(rid=i, prompt=p, max_new=LM_NEW)
+            for i, p in enumerate(prompts(LM_REQUESTS, LM_PROMPT, V, dev))]
+    pk.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    stats = srv.run(reqs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    _require(dict(pk.LAUNCHES) == {}, f"phase8a: kernel launches "
+                                      f"{dict(pk.LAUNCHES)} on the LM path")
+    want_steps = -(-LM_REQUESTS // LM_SLOTS) * (LM_NEW - 1)
+    _require(stats["decode_steps"] == want_steps
+             and stats["tokens"] == LM_REQUESTS * LM_NEW
+             and calls["prefill"][0] == LM_REQUESTS
+             and calls["decode_step"][0] == LM_REQUESTS * (LM_NEW - 1)
+             and all(r.done and len(r.out) == LM_NEW for r in reqs),
+             f"phase8a server: {stats}, calls {calls}")
+    _require(all(0 <= t < V for r in reqs for t in r.out),
+             "phase8a: a token outside the vocabulary")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"phase8a server {LM_ARCH} full config ({cfg.num_layers} layers, "
+          f"d_model {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"head_dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff}, vocab {V}) "
+          f"bf16, {wbytes / 1e9:.3f} GB of weights built in {init_s:.2f} s; "
+          f"{LM_REQUESTS} requests of {LM_PROMPT} tokens, max_new {LM_NEW}, "
+          f"{LM_SLOTS} slots, max_len {LM_MAX_LEN}: {stats['decode_steps']} "
+          f"decode steps, {stats['tokens']} tokens, wall {wall:.3f} s, "
+          f"{calls['prefill'][1] / calls['prefill'][0] * 1e3:.2f} ms a "
+          f"prefill, {calls['decode_step'][1] / calls['decode_step'][0] * 1e3:.2f}"
+          f" ms a decode step (one slot at batch 1), "
+          f"{stats['tokens'] / wall:.1f} tokens/s, max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB; request 0 generated {reqs[0].out[:8]}...",
+          flush=True)
+
+    # where a decode step's time goes: one step (slot 0's prompt, position
+    # LM_PROMPT) timed, then under the profiler
+    lp, pcache = T.transformer_prefill(params, cfg, reqs[0].prompt[None],
+                                       LM_MAX_LEN)
+    tok = torch.argmax(lp, -1)
+
+    def one_step():
+        return T.transformer_decode_step(params, cfg, tok, pcache, LM_PROMPT)
+
+    one_step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    one_step()
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    print(f"phase8a one decode step {step_s * 1e3:.2f} ms; "
+          f"{busy_note(profiled(one_step), step_s)}", flush=True)
+    del lp, pcache
+
+    cfg32 = cfg.scaled(dtype="float32")
+    p32 = fp32_copy(params, cfg32)
+    e1, e2, secs = decode_vs_forward(cfg32, p32, LM_PROMPT, 2,
+                                     "phase8a fp32")
+    print(f"phase8a decode vs forward, fp32 copy (S = {LM_PROMPT}, B = 2): "
+          f"prefill max err {e1:.3g}, decode max err {e2:.3g} (rtol = atol "
+          f"= {LM_LOGIT_TOL}), {secs:.2f} s", flush=True)
+
+    # 8b: two layers at full width, the same weights on the card and the CPU
+    cfg2 = cfg32.scaled(num_layers=2)
+    card2 = fp32_copy(p32, cfg2, keep=2)
+    cpu2 = T.transformer_init(None, cfg2, "meta")
+    cpu2.load_state_dict({k: v.cpu() for k, v in card2.state_dict().items()},
+                         assign=True)
+    del p32
+    torch.cuda.empty_cache()
+    prompt = prompts(1, LM_PROMPT, V, dev, seed=9)[0][None]
+    n_slots = LM_PROMPT + LM_CARD_CPU_STEPS + 1
+    lg, cg = T.transformer_prefill(card2, cfg2, prompt, n_slots)
+    lc, cc = T.transformer_prefill(cpu2, cfg2, prompt.cpu(), n_slots)
+    errs = [lm_close("phase8b prefill card vs cpu", lg, lc, LM_CARD_CPU_TOL)]
+    compared = 0
+    for step in range(LM_CARD_CPU_STEPS):
+        tok = torch.argmax(lg, -1)
+        top2 = torch.topk(lc, 2).values[0]
+        if float(top2[0] - top2[1]) > 2 * LM_CARD_CPU_TOL * (
+                1 + float(top2[0].abs())):
+            compared += 1
+            _require(int(torch.argmax(lc, -1)[0]) == int(tok[0]),
+                     f"phase8b step {step}: greedy token differs")
+        pos = LM_PROMPT + step
+        lg, cg = T.transformer_decode_step(card2, cfg2, tok, cg, pos)
+        lc, cc = T.transformer_decode_step(cpu2, cfg2, tok.cpu(), cc, pos)
+        errs.append(lm_close(f"phase8b decode {step} card vs cpu", lg, lc,
+                             LM_CARD_CPU_TOL))
+    _require(compared >= 1,
+             f"phase8b: no decode step had a top-two gap beyond twice "
+             f"{LM_CARD_CPU_TOL}, so no greedy token was compared")
+    print(f"phase8b card vs cpu, {cfg2.num_layers} layers at {LM_ARCH}'s "
+          f"full width in fp32 (TF32 off), prefill of {LM_PROMPT} tokens and "
+          f"{LM_CARD_CPU_STEPS} decode steps: max err "
+          f"{', '.join(f'{e:.3g}' for e in errs)} (rtol = atol = "
+          f"{LM_CARD_CPU_TOL}); greedy tokens equal at the {compared} of "
+          f"{LM_CARD_CPU_STEPS} steps whose top-two gap exceeds twice it",
+          flush=True)
+    del card2, cpu2, cg, cc
+    torch.cuda.empty_cache()
+
+    # 8c: gemma3's windows and both thetas at full width, 7 layers, fp32
+    gcfg = get_config("gemma3-27b").scaled(num_layers=GEMMA_LAYERS,
+                                           dtype="float32")
+    _require(set(gcfg.layer_windows()) == {0, 1024}
+             and len(set(gcfg.layer_thetas())) == 2,
+             f"phase8c: windows {gcfg.layer_windows()}, thetas "
+             f"{gcfg.layer_thetas()}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    gparams = build_model(gcfg).init(torch.Generator(device=dev)
+                                     .manual_seed(SEED), dev)
+    torch.cuda.synchronize()
+    ginit_s = time.perf_counter() - t0
+    gbytes = sum(p.numel() * p.element_size() for p in gparams.parameters())
+    e1, e2, secs = decode_vs_forward(gcfg, gparams, GEMMA_PROMPT, 1,
+                                     "phase8c gemma3")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"phase8c gemma3-27b full width cut to {GEMMA_LAYERS} layers "
+          f"(windows {gcfg.layer_windows()}, thetas {gcfg.layer_thetas()}), "
+          f"fp32, {gbytes / 1e9:.2f} GB built in {ginit_s:.2f} s; decode vs "
+          f"forward on a {GEMMA_PROMPT}-token prompt: prefill max err "
+          f"{e1:.3g}, decode max err {e2:.3g} (rtol = atol = "
+          f"{LM_LOGIT_TOL}); forward "
+          f"+ prefill + decode {secs:.2f} s, max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB", flush=True)
+    del gparams
+    torch.cuda.empty_cache()
+
+    # 8d: the embedding medoid on internlm2's bf16 weights of 8a
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embs = emb_ex.embed_corpus(cfg, params, EMB_SEQS, EMB_LEN, dev)
+    torch.cuda.synchronize()
+    emb_s = time.perf_counter() - t0
+    _require(embs.shape == (EMB_SEQS, V) and embs.dtype == torch.float32
+             and bool(torch.isfinite(embs).all()),
+             f"phase8d embeddings {tuple(embs.shape)} {embs.dtype}")
+    toks = rng.randint(rng.fold_in(rng.key(1, dev), 0), (32, EMB_LEN), 0, V)
+    t0 = time.perf_counter()
+    emb_ex.embed_sequences(cfg, params, toks)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    note = busy_note(profiled(
+        lambda: emb_ex.embed_sequences(cfg, params, toks)), batch_s)
+    print(f"phase8d one batch of the embedding pass (32 x {EMB_LEN} tokens) "
+          f"{batch_s * 1e3:.2f} ms; {note}", flush=True)
+    del srv, params
+    torch.cuda.empty_cache()
+    n = EMB_SEQS
+    data["lm_embed"] = embs
+    t0 = time.perf_counter()
+    truth = int(exact_medoid(embs, "l2"))
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    ref = correlated_sequential_halving(embs, EMB_BUDGET * n,
+                                        rng.key(2, dev), metric="l2",
+                                        backend="reference")
+    theta = torch.sort(ref.theta_hat).values
+    gap = float(theta[1] - theta[0])
+    fm_plan = halving_plan(executed_rounds(n, EMB_BUDGET * n),
+                           "dot_centrality", False)
+    for backend in ("reference", "pallas_fused"):
+        res, wall, counts, mem = main_path(
+            lambda: emb_ex.representative(embs, backend))
+        plan = fm_plan if backend == "pallas_fused" else []
+        check_launches(f"phase8d find_medoid {backend}", counts, plan)
+        _require(res.medoid == truth or gap <= 2 * RTOL * float(
+            theta[0].abs()), f"phase8d {backend}: medoid {res.medoid}, "
+                             f"exact {truth}, output-round gap {gap}")
+        print(f"phase8d find_medoid {backend} on ({n}, {V}) embeddings "
+              f"(key 2, {EMB_BUDGET} per arm, l2): medoid {res.medoid} "
+              f"(exact {truth}: {'equal' if res.medoid == truth else 'differs'}"
+              f", output-round gap {gap:.6g}), pulls {res.pulls}, wall "
+              f"{wall:.3f} s, launches {counts}, {mem}", flush=True)
+    tot = ledger_add(fm_plan, "lm_embed", "l2")
+    print(f"phase8d 1e ⊂ 1: embedding rounds (C, R, {V}): "
+          f"{fmt_shapes(fm_plan, 'lm_embed', 'l2', ('dot_centrality',))}; "
+          f"in all {fmt_tot(tot)}", flush=True)
+    print(f"phase8d embedding pass: {EMB_SEQS} sequences of {EMB_LEN} tokens "
+          f"in batches of 32, {emb_s:.2f} s ({EMB_SEQS * EMB_LEN / emb_s:.0f} "
+          f"tokens/s); exact medoid {truth} in {exact_s:.3f} s", flush=True)
+
+    direct = make_direct_refiner(metric="l2", backend="pallas_fused",
+                                 budget_per_arm=KM_REFINE,
+                                 min_bucket=KM_MIN_BUCKET)
+    sizes = []
+
+    def refiner(arrays, rkey):
+        sizes.append([a.shape[0] for a in arrays])
+        return direct(arrays, rkey)
+
+    res, wall, counts, mem = main_path(lambda: kmedoids(
+        embs, EMB_K, rng.key(3, dev), metric="l2", backend="pallas_fused",
+        refiner=refiner))
+    _require(len(sizes) == 1, f"phase8d kmedoids: {len(sizes)} sweeps")
+    per_swap = schedule_pulls(n, KM_SWAP * n) + n
+    _require(res.swap_pulls % per_swap == 0,
+             f"phase8d kmedoids: swap pulls {res.swap_pulls}")
+    km_plan = kmedoids_plan(
+        n, EMB_K, "l2", "pallas_fused",
+        [(nb, next_pow2(len(idxs))) for nb, idxs in
+         plan_buckets(sizes[0], KM_MIN_BUCKET).items()],
+        res.swap_pulls // per_swap, 1 + (res.refine_updates > 0))
+    check_launches("phase8d kmedoids", counts, km_plan)
+    km_ref = emb_ex.cluster(embs, EMB_K, "reference")
+    same = km_ref.medoids == res.medoids and np.array_equal(
+        np.asarray(km_ref.labels), np.asarray(res.labels))
+    _require(same or abs(km_ref.cost - res.cost) <= RTOL * abs(km_ref.cost),
+             f"phase8d kmedoids: {res.medoids} cost {res.cost!r}, reference "
+             f"{km_ref.medoids} cost {km_ref.cost!r}")
+    tot = ledger_add(km_plan, "lm_embed", "l2")
+    print(f"phase8d kmedoids k={EMB_K} pallas_fused: medoids {res.medoids} "
+          f"(reference backend equal: {same}), cost {res.cost:.6g}, swaps "
+          f"{res.swaps}, pulls {res.pulls}, wall {wall:.3f} s, launches "
+          f"{counts}, {mem}; {fmt_tot(tot)}", flush=True)
+
+    shards = emb_ex.shard_bounds(n, EMB_QUERIES)
+    (ssrv, rids), wall, counts, mem = main_path(
+        lambda: emb_ex.shard_representatives(embs, EMB_QUERIES,
+                                             "pallas_fused"))
+    sh_plan = slot_plan(sorted(Counter(bucket_n(b - a, KM_MIN_BUCKET)
+                                       for a, b in shards).items()),
+                        "dot_centrality", False)
+    check_launches("phase8d shards", counts, sh_plan)
+    rsrv, rrids = emb_ex.shard_representatives(embs, EMB_QUERIES,
+                                               "reference")
+    got = {rids[r]: int(ssrv.done[r].medoid) for r in rids}
+    want = {rrids[r]: int(rsrv.done[r].medoid) for r in rrids}
+    _require(got == want, f"phase8d shards: {got} != reference {want}")
+    tot = ledger_add(sh_plan, "lm_embed", "l2")
+    print(f"phase8d {len(shards)} shards {shards} through a MedoidServer "
+          f"(pallas_fused, {ssrv.dispatches} dispatches): medoids "
+          f"{[a + m for (a, _), m in sorted(got.items())]} (the reference "
+          f"backend's), wall {wall:.3f} s, launches {counts}, {mem}; "
+          f"{fmt_tot(tot)}", flush=True)
+    del embs, data["lm_embed"]
+    torch.cuda.empty_cache()
+
+    # 8e: the sidecar, B cosine queries of (512, 64) in one dispatch
+    want = lm_ex.serve_medoid_queries(SIDECAR_B, "reference", device=dev)
+    out, wall, counts, mem = main_path(
+        lambda: lm_ex.serve_medoid_queries(SIDECAR_B, "pallas_fused",
+                                           device=dev))
+    sc_plan = halving_plan(executed_rounds(SIDECAR_N,
+                                           SIDECAR_BUDGET * SIDECAR_N),
+                           "dot_centrality", False) * SIDECAR_B
+    check_launches("phase8e sidecar", counts, sc_plan)
+    _require(out["medoids"] == want["medoids"],
+             f"phase8e: {out['medoids']} != reference {want['medoids']}")
+    key = rng.key(0, dev)
+    data["lm_sidecar"] = rng.normal(rng.fold_in(key, 1), (
+        SIDECAR_B * SIDECAR_N, out["d"]))
+    tot = ledger_add(sc_plan, "lm_sidecar", "cosine")
+    print(f"phase8e sidecar: {SIDECAR_B} cosine queries of ({SIDECAR_N}, "
+          f"{out['d']}) pallas_fused: medoids {out['medoids']} (the reference "
+          f"backend's), wall {wall:.3f} s, launches {counts}, {mem}; "
+          f"{fmt_tot(tot)}", flush=True)
+    print(f"phase8: {time.perf_counter() - t8:.1f} s", flush=True)
 
     for kern, row in led.rows.items():
         _require(row["launches"] > 0 or kern in UNCALLED,

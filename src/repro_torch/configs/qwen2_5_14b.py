@@ -1,0 +1,13 @@
+"""qwen2.5-14b — dense GQA with QKV bias [hf:Qwen/Qwen2.5; hf]."""
+from repro_torch.configs.base import ModelCfg
+
+CONFIG = ModelCfg(
+    name="qwen2.5-14b", family="dense",
+    num_layers=48, d_model=5120, num_heads=40, num_kv_heads=8,
+    d_ff=13824, vocab_size=152064, head_dim=128,
+    rope_theta=1_000_000.0, qkv_bias=True,
+    source="hf:Qwen/Qwen2.5-0.5B; hf",
+)
+
+SMOKE = CONFIG.scaled(num_layers=2, d_model=64, num_heads=4, num_kv_heads=2,
+                      d_ff=128, vocab_size=256, head_dim=16)

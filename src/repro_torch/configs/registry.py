@@ -1,0 +1,47 @@
+"""Architecture registry of the port (``repro.configs.registry`` without
+the dry run's ``ShapeDtypeStruct`` specs: ``input_specs`` and
+``cache_specs`` come with the dry-run slice, ROADMAP item 14f)."""
+from __future__ import annotations
+
+import importlib
+from typing import Dict
+
+from repro_torch.configs.base import SHAPES, ModelCfg, cell_is_supported
+
+_MODULES = {
+    "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
+    "command-r-35b": "repro_torch.configs.command_r_35b",
+    "qwen2.5-14b": "repro_torch.configs.qwen2_5_14b",
+    "gemma3-27b": "repro_torch.configs.gemma3_27b",
+    "llama-3.2-vision-11b": "repro_torch.configs.llama_3_2_vision_11b",
+    "granite-moe-3b-a800m": "repro_torch.configs.granite_moe_3b_a800m",
+    "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "xlstm-1.3b": "repro_torch.configs.xlstm_1_3b",
+    "whisper-small": "repro_torch.configs.whisper_small",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
+}
+
+ARCH_NAMES = tuple(_MODULES)
+
+
+def get_config(name: str) -> ModelCfg:
+    if name not in _MODULES:
+        raise KeyError(f"unknown arch {name!r}; one of {ARCH_NAMES}")
+    return importlib.import_module(_MODULES[name]).CONFIG
+
+
+def get_smoke_config(name: str) -> ModelCfg:
+    return importlib.import_module(_MODULES[name]).SMOKE
+
+
+def list_configs() -> Dict[str, ModelCfg]:
+    return {n: get_config(n) for n in ARCH_NAMES}
+
+
+def all_cells():
+    """Yield (arch_name, shape, supported, reason) for all 40 cells."""
+    for name in ARCH_NAMES:
+        cfg = get_config(name)
+        for shape in SHAPES.values():
+            ok, reason = cell_is_supported(cfg, shape)
+            yield name, shape, ok, reason

@@ -1,0 +1,151 @@
+"""Shared building blocks: norms, RoPE, MLPs, initializers.
+
+The port of ``repro.models.layers``. A node of parameters is anything read
+as ``p["name"]``: a plain dict of tensors or the ``nn.ParameterDict`` a
+model holds them in. Weights keep the JAX layout ``(d_in, d_out)`` and every product is
+``x @ w``, so the arithmetic is the reference's. Compute dtype is bf16 by
+default with f32 norms and f32 logits.
+
+Initializers draw from a ``torch.Generator`` the caller passes with the
+reference's distributions: normal * 1/sqrt(d_in) for a dense weight,
+normal * 0.02 for an embedding. They build on ``device``, else on the
+generator's device, else by the port's device rule (CUDA, or raise). On the
+``meta`` device they draw nothing and only give shapes and dtypes (the
+converter's expected tree).
+
+The JAX package's ``sharding.constrain`` annotations are the identity
+without a mesh, so the port leaves them out; they come back with the mesh
+slice (ROADMAP item 14f).
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.convert import resolve_device
+
+
+def init_device(gen, device=None) -> torch.device:
+    """Where an initializer builds: ``device``, else the generator's
+    device, else the port's device rule."""
+    if device is None and isinstance(gen, torch.Generator):
+        device = gen.device
+    return resolve_device(device)
+
+
+def _normal(gen, shape, std: float, dtype, device) -> torch.Tensor:
+    """f32 normal draws times ``std``, cast to ``dtype`` (shape only on the
+    meta device)."""
+    device = init_device(gen, device)
+    if device.type == "meta":
+        return torch.empty(shape, dtype=dtype, device=device)
+    return (torch.randn(shape, generator=gen, device=device,
+                        dtype=torch.float32) * std).to(dtype)
+
+
+def dense_init(gen, d_in: int, d_out: int, dtype, scale: float = 1.0,
+               device=None) -> torch.Tensor:
+    return _normal(gen, (d_in, d_out), scale / math.sqrt(d_in), dtype, device)
+
+
+def embed_init(gen, vocab: int, d: int, dtype, device=None) -> torch.Tensor:
+    return _normal(gen, (vocab, d), 0.02, dtype, device)
+
+
+def rmsnorm_init(d: int, device=None) -> dict:
+    device = resolve_device(device)
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """f32 inside, cast back to x's dtype."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    out = xf * torch.rsqrt(var + eps) * params["scale"]
+    return out.to(x.dtype)
+
+
+def layernorm_init(d: int, device=None) -> dict:
+    device = resolve_device(device)
+    return {"scale": torch.ones((d,), dtype=torch.float32, device=device),
+            "bias": torch.zeros((d,), dtype=torch.float32, device=device)}
+
+
+def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """f32 inside (population variance, as ``jnp.var``), cast back."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.var(xf, dim=-1, keepdim=True, correction=0)
+    out = (xf - mu) * torch.rsqrt(var + eps) * params["scale"] \
+        + params["bias"]
+    return out.to(x.dtype)
+
+
+# ----------------------------------------------------------------- RoPE ----
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Inverse frequencies ``theta ** -(arange(0, hd, 2) / hd)`` in f32
+    (theta taken as an f32 scalar, as the reference's per-layer array)."""
+    exponents = torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    # a Python scalar base, not a tensor built from it: a host-to-device
+    # copy of it would wait for the card's queue at every layer
+    return 1.0 / torch.pow(float(theta), exponents)         # (head_dim/2,)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor,
+               theta: float) -> torch.Tensor:
+    """x: (..., S, n_heads, head_dim), positions: (..., S) integers.
+
+    Split-half rotation (the first and second halves of the head are the
+    pair), not interleaved; the angles are f32 products of the integer
+    positions and the f32 inverse frequencies."""
+    hd = x.shape[-1]
+    inv = rope_freqs(hd, theta, x.device)                      # (hd/2,)
+    ang = positions[..., None].to(torch.float32) * inv         # (..., S, hd/2)
+    cos = torch.cos(ang)[..., None, :]                         # (..., S, 1, hd/2)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ------------------------------------------------------------------ MLP ----
+
+def mlp_init(gen, d_model: int, d_ff: int, dtype, gated: bool = True,
+             device=None) -> dict:
+    p = {"w_up": dense_init(gen, d_model, d_ff, dtype, device=device),
+         "w_down": dense_init(gen, d_ff, d_model, dtype, device=device)}
+    if gated:
+        p["w_gate"] = dense_init(gen, d_model, d_ff, dtype, device=device)
+    return p
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as XLA computes it: x * 1 / (1 + exp(-x)), each step
+    rounded to x's dtype (in bf16, ``F.silu``'s single rounding differs from
+    the reference in about a third of the values)."""
+    return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    # jax.nn.gelu defaults to the tanh approximation
+    return F.gelu(x, approximate="tanh")
+
+
+def mlp_apply(params, x: torch.Tensor, act: str = "silu",
+              gated: bool = True) -> torch.Tensor:
+    up = x @ params["w_up"]
+    if gated:
+        gate = x @ params["w_gate"]
+        h = (_silu(gate) if act == "silu" else _gelu(gate)) * up
+    else:
+        h = _gelu(up) if act == "gelu" else _silu(up)
+    return h @ params["w_down"]
+
+
+def unembed(embed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Tied unembedding -> f32 logits (f32 by f32)."""
+    return x.float() @ embed.float().T

@@ -387,3 +387,62 @@ def test_tiled_sort_emulation_at_the_kernel_tile(n):
     for kind, keys in _key_cases(n, 7 * n).items():
         assert torch.equal(_emulate_rank(keys, t),
                            pk.topk_rank_plain(keys)), kind
+
+
+# ------------------------------------------- vocabulary-wide embedding rows
+# The LM scaffold's embeddings are rows as wide as a vocabulary (the mean of
+# the logits over positions): internlm2 92544, qwen2.5 152064, command-r
+# 256000, gemma3 262144. Their rounds: find_medoid at 20 pulls per arm
+# (examples/embedding_medoid_torch.py) and the k-medoids BUILD's 16, at the
+# n of the example (512) and of chip_smoke.py's phase 8 (2048).
+VOCAB_WIDTHS = (92544, 152064, 256000, 262144)
+EMBED_SHAPES = sorted({s for n in (512, 2048) for b in (20, 16)
+                       for s in _rounds(n, b)})
+
+
+@pytest.mark.parametrize("d", VOCAB_WIDTHS)
+def test_vocab_width_rounds_fit_the_launch_limits(d):
+    """Each round at d = V takes dot_centrality's path within the launch
+    limits; a stream round keeps its short rows in d slabs of the block's
+    112 KB and so the C x R running sums (a few dozen slabs, never a single
+    one at these widths), and C * d stays an int64 index."""
+    kinds = set()
+    for c, r in EMBED_SHAPES:
+        plan = pk.centrality_plan(c, r, d, SMS, crossover=pk.DOT_CENTRALITY_S)
+        _check_limits(c, r, d, plan)
+        assert plan[0] == (pk.STREAM if min(c, r) <= pk.DOT_CENTRALITY_S
+                           else pk.TILE)
+        if plan[0] == pk.STREAM:
+            slab = pk._stream_slab(d, plan[2])
+            slabs = -(-d // slab)
+            assert slabs > 1 and slabs <= plan[2]
+            assert pk.centrality_scratch(c, r, d, plan)[0] == c * r
+            assert min(c, r) * slab * 4 <= STREAM_SMEM
+        kinds.add(plan[0])
+    assert kinds == {pk.STREAM, pk.TILE}
+
+
+def test_twenty_short_rows_of_internlm2_take_66_slabs():
+    """20 short rows at d = 92544: 11 lane passes of 128 columns fit the
+    112 KB (20 x 1408 x 4 = 110 KB), so 66 slabs, and a C x R scratch."""
+    plan = pk.centrality_plan(2048, 20, 92544, SMS,
+                              crossover=pk.DOT_CENTRALITY_S)
+    assert plan[0] == pk.STREAM and pk._stream_slab(92544, plan[2]) == 1408
+    assert -(-92544 // 1408) == 66
+    assert pk.centrality_scratch(2048, 20, 92544, plan) == (2048 * 20, 1)
+
+
+@pytest.mark.parametrize("d", VOCAB_WIDTHS)
+def test_vocab_width_pairwise_shapes_fit(d):
+    """dot_pairwise at k-medoids' shapes of n = 2048, k = 8 at d = V: the
+    BUILD / SWAP rounds, the (n, k) cache and the (1, n) rows."""
+    shapes = sorted(set(_rounds(2048, 16) + [(2048, 8), (1, 2048)]))
+    for c, r in shapes:
+        path, grid, splits = pk.pairwise_plan(c, r, d, SMS)
+        assert 1 <= grid <= MAX_GRID and splits >= 1
+        if path == pk.STREAM:
+            slab = pk._stream_slab(d, splits)
+            assert min(c, r) * min(slab, d) * 4 <= STREAM_SMEM
+            assert -(-d // slab) <= splits
+        else:
+            assert 1 <= splits <= MAX_CLUSTER

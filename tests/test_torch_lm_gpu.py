@@ -1,0 +1,88 @@
+"""The LM serving slice on a card: ``dot_centrality`` at the width of a
+vocabulary (the embedding rounds of ``examples/embedding_medoid_torch.py``)
+on both of its paths against the plain version, and the dense decoder on
+the card against the same weights on the CPU.
+
+Marked ``gpu``: the ``cuda`` fixture skips each test where no card exists
+(decided inside the fixture). On a card: ``PYTHONPATH=src python -m pytest
+-q --noconftest tests/test_torch_lm_gpu.py`` (no JAX needed).
+
+Tolerances: centrality sums rtol 1e-5 with a floor of 1e-5 of the largest
+value, plus for l2 the self-pair allowance 1e-3 x max row norm x R (as
+``chip_smoke.py``); two launches bit-equal. Model logits card vs CPU, fp32
+with TF32 off: rtol = atol = 1e-4.
+"""
+import pytest
+import torch
+
+from repro_torch.configs import get_smoke_config
+from repro_torch.kernels import ops
+from repro_torch.kernels import pairwise_distance as pk
+from repro_torch.models.model import build_model
+
+pytestmark = [pytest.mark.torch_port, pytest.mark.gpu]
+
+V = 92544           # internlm2-1.8b's vocabulary: its embedding width
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (torch.cuda.is_available() is false)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("metric", ("l2", "cosine"))
+@pytest.mark.parametrize("c, r", ((2048, 20), (20, 1024), (3, 2048),
+                                  (256, 64), (40, 40)))
+def test_dot_centrality_at_vocab_width(cuda, metric, c, r):
+    """Forced stream (crossover 32) and tile (0) paths and the wrapper's
+    plan, with and without a reference mask."""
+    assert not torch.backends.cuda.matmul.allow_tf32
+    g = torch.Generator(device=cuda).manual_seed(c * 7 + r)
+    x = torch.randn(c, V, device=cuda, generator=g) * 0.1
+    y = torch.randn(r, V, device=cuda, generator=g) * 0.1
+    w = (torch.rand(r, device=cuda, generator=g) > 0.3).float()
+    if metric == "cosine":
+        x, y, xn2, yn2 = ops._unit_rows(x), ops._unit_rows(y), None, None
+    else:
+        xn2, yn2 = ops._norms_sq(x), ops._norms_sq(y)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    for mask in (None, w):
+        want = pk.dot_centrality_plain(x, y, xn2, yn2, mask, metric=metric)
+        tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
+        if metric == "l2":
+            norm = max(float(x.norm(dim=1).max()), float(y.norm(dim=1).max()))
+            tol = tol + 1e-3 * norm * r
+        for forced in (32, 0):
+            plan = pk.centrality_plan(c, r, V, sms, crossover=forced)
+            got = pk.launch_dot_centrality(x, y, xn2, yn2, mask, plan, metric)
+            again = pk.launch_dot_centrality(x, y, xn2, yn2, mask, plan,
+                                             metric)
+            assert torch.equal(got, again), plan
+            assert bool(((got - want).abs() <= tol).all()), (
+                plan, float((got - want).abs().max()))
+        before = pk.LAUNCHES["dot_centrality"]
+        got = pk.dot_centrality(x, y, xn2, yn2, mask, metric=metric)
+        assert pk.LAUNCHES["dot_centrality"] == before + 1
+        assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.parametrize("arch", ("internlm2-1.8b", "gemma3-27b"))
+def test_dense_model_card_matches_cpu(cuda, arch):
+    """The smoke config in fp32, the same weights on the card and on the
+    CPU: prefill logits and cache, then three decode steps."""
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init(0, "cpu")
+    card = model.init(0, "cpu").to(cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20),
+                         generator=torch.Generator().manual_seed(1))
+    lc, cc = model.prefill(cpu, {"tokens": toks[:, :17]}, 24)
+    lg, cg = model.prefill(card, {"tokens": toks[:, :17].to(cuda)}, 24)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(cg["k"].cpu(), cc["k"], rtol=1e-4, atol=1e-4)
+    for pos in (17, 18, 19):
+        lc, cc = model.decode_step(cpu, toks[:, pos], cc, pos)
+        lg, cg = model.decode_step(card, toks[:, pos].to(cuda), cg, pos)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
