@@ -153,7 +153,28 @@ nonzero:
    ``MedoidServer``, both on ``pallas_fused`` with derived launch counts
    and the ``reference`` backend's answers; (e) the sidecar
    (``examples/serve_lm_torch.py``'s 8 cosine queries of (512, 64)) on
-   ``pallas_fused``, the ``reference`` backend's medoids.
+   ``pallas_fused``, the ``reference`` backend's medoids;
+9. the other LM families at full width (``phase9``; plain PyTorch, no
+   kernel launched over the phase), each config's ``Server`` in bf16 from
+   seed 0 on the card with P9_REQUESTS requests of P9_PROMPT tokens
+   (max_new P9_NEW, P9_SLOTS slots; the VLM on zeroed image embeddings,
+   whisper on zeroed frames, ``Server._extra``): ms a prefill and a decode
+   step, tokens/s, peak memory and one decode step profiled; (a)
+   granite-moe-3b-a800m, its served prefills' capacity drops, then decode
+   vs forward (rtol = atol = LM_LOGIT_TOL) on an fp32 copy whose capacity
+   factor is the expert count (nothing drops); (b) deepseek-v2-lite-16b,
+   the same on an fp32 copy cut to DEEPSEEK_FP32_LAYERS layers; (c) its
+   first P9_CARD_CPU_LAYERS layers in fp32 at the served capacity on the
+   card against the CPU (LM_CARD_CPU_TOL, logits and caches, a prefill and
+   LM_CARD_CPU_STEPS decode steps; greedy tokens equal wherever the
+   top-two gap exceeds twice the bound, the routed experts equal wherever
+   the K-th and (K+1)-th router probabilities differ by more than twice
+   the largest card-vs-CPU probability difference, and at least one of the
+   two compared); (d) llama-3.2-vision-11b, then its first group (4 self
+   layers and a cross layer) in fp32 with the cross gate at P9_GATE on
+   seeded image embeddings: decode vs forward and card vs CPU; (e)
+   whisper-small, then at full depth in fp32 on seeded frames: decode vs
+   forward and card vs CPU.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the rest
@@ -284,6 +305,15 @@ GEMMA_LAYERS, GEMMA_PROMPT = 7, 1536
 EMB_SEQS, EMB_LEN, EMB_BUDGET, EMB_K, EMB_QUERIES = 2048, 64, 20, 8, 6
 SIDECAR_B, SIDECAR_N, SIDECAR_BUDGET = 8, 512, 24
 
+# Phase 9, the other LM families at full width: the server's traffic (8a's
+# prompts, half its requests and new tokens), 9b's cut of deepseek's fp32
+# copy (its 27 layers in fp32 are 65 GB), 9c's card-vs-CPU depth and 9d's
+# cross gates (zero at init, where the cross attention adds nothing)
+P9_SLOTS, P9_MAX_LEN, P9_REQUESTS, P9_PROMPT, P9_NEW = 4, 256, 4, 64, 16
+DEEPSEEK_FP32_LAYERS = 4
+P9_CARD_CPU_LAYERS = 2
+P9_GATE = 0.5
+
 # Phase 5, the quantized path: name, dataset, n, d, metric, precision, base
 # backend; find_medoid at BUDGET_PER_ARM on phase 3's data.
 Q_CELLS = (
@@ -375,6 +405,58 @@ class Ledger:
         return json.dumps({"kernels": out})
 
 
+def profiled(call):
+    """One call under torch.profiler: (device activities, device busy
+    ms, top five device operations by device time), or None where the
+    profiler saw no device activity. Reads the profiler's raw events:
+    its own event tree (``events()``, ``key_averages()``) takes minutes
+    to build for the ~10^5 device activities of a k-medoids call."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            v = by_name.setdefault(_device_op(e.name()), [0, 0.0])
+            v[0] += 1
+            v[1] += (e.end_ns() - e.start_ns()) / 1e6
+    if not by_name:
+        return None
+    top = sorted(by_name.items(), key=lambda kv: kv[1][1],
+                 reverse=True)[:5]
+    return (sum(v[0] for v in by_name.values()),
+            sum(v[1] for v in by_name.values()),
+            [(k, c, ms) for k, (c, ms) in top])
+
+
+def busy_note(busy, steady_s):
+    if busy is None:
+        return ("device busy: not measured (the profiler saw no device "
+                "activity)")
+    top = ", ".join(f"{k} x{c} {ms:.2f} ms" for k, c, ms in busy[2])
+    return (f"profiled call: {busy[0]} device activities, busy "
+            f"{busy[1]:.2f} ms = {busy[1] / (steady_s * 1e3):.1%} of the "
+            f"unprofiled repeat; top device ops: {top}")
+
+
+def lm_close(what, got, want, tol):
+    """|got - want| <= tol + tol |want| everywhere (numpy's allclose
+    rule, rtol = atol = tol); returns the largest |got - want|."""
+    import torch
+
+    got, want = got.float(), want.float().to(got.device)
+    err = (got - want).abs()
+    _require(bool(torch.isfinite(got).all()), f"{what}: non-finite")
+    _require(bool((err <= tol + tol * want.abs()).all()),
+             f"{what}: max err {float(err.max())} beyond rtol = atol = "
+             f"{tol}")
+    return float(err.max())
+
+
 def executed_rounds(n: int, budget: int) -> list:
     """The rounds one run_halving executes for (n, budget)."""
     from repro_torch.engine.schedule import round_schedule, stop_round
@@ -452,6 +534,345 @@ def kmedoids_plan(n: int, k: int, metric: str, backend: str, buckets,
         plan += halving_plan(executed_rounds(n, KM_SWAP * n), pair,
                              topk) + row
     return plan
+
+
+def phase9(dev) -> None:
+    """Phase 9: the MoE, MLA, VLM and enc-dec serving paths at full width
+    (the module docstring's item 9). Its models launch no kernel of the
+    port: the launch counts stay empty over the phase."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import pairwise_distance as pk
+    from repro_torch.launch.serve import Request, Server, prompts
+    from repro_torch.models import encdec as ED
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import build_model, weights_init
+
+    t9 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    pk.reset_launches()
+
+    def forward(params, cfg, batch):
+        """The teacher-forced f32 logits (B, S, V)."""
+        if cfg.family == "audio":
+            enc = ED.encode(params, cfg, batch["frames"])
+            return ED.decode_train(params, cfg, batch["tokens"], enc)[0]
+        return T.transformer_forward(params, cfg, batch["tokens"],
+                                     image_embed=batch.get("image_embed"))[0]
+
+    def stub(cfg, b):
+        """Seeded normal image embeddings or frames in the model dtype."""
+        dt = L.model_dtype(cfg)
+        n = {"vlm": cfg.num_image_tokens, "audio": cfg.num_audio_frames}
+        if cfg.family not in n:
+            return {}
+        name = "image_embed" if cfg.family == "vlm" else "frames"
+        return {name: torch.randn(b, n[cfg.family], cfg.d_model, device=dev,
+                                  generator=gen).to(dt)}
+
+    def fp32_cut(params, cfg32):
+        """``params`` in fp32 as ``cfg32``'s weights: its first layers (or
+        groups) only, where ``cfg32`` is cut in depth."""
+        model = weights_init(cfg32, None, "meta")
+        src = params.state_dict()
+        model.load_state_dict({k: src[k].float()
+                               for k in model.state_dict()}, assign=True)
+        return model
+
+    def lossless(cfg):
+        """tests/test_decode_consistency.py's MoE capacity: nothing drops."""
+        if cfg.moe is None:
+            return cfg
+        return cfg.scaled(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
+
+    def decode_vs_forward(cfg, params, what, b=2):
+        """Prefill on P9_PROMPT tokens and one decode step against the
+        teacher-forced logits at positions S - 1 and S, within
+        LM_LOGIT_TOL, on seeded tokens and stub inputs."""
+        m = build_model(cfg)
+        toks = torch.randint(0, cfg.vocab_size, (b, P9_PROMPT + 1),
+                             device=dev, generator=gen)
+        batch = {"tokens": toks, **stub(cfg, b)}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = forward(params, cfg, batch)
+        lp, cache = m.prefill(params, dict(batch, tokens=toks[:, :P9_PROMPT]),
+                              P9_PROMPT + 4)
+        ld, _ = m.decode_step(params, toks[:, P9_PROMPT], cache, P9_PROMPT,
+                              batch=batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        e1 = lm_close(f"{what} prefill", lp, full[:, P9_PROMPT - 1],
+                      LM_LOGIT_TOL)
+        e2 = lm_close(f"{what} decode", ld, full[:, P9_PROMPT], LM_LOGIT_TOL)
+        print(f"{what}: decode vs forward (S = {P9_PROMPT}, B = {b}): "
+              f"prefill max err {e1:.3g}, decode max err {e2:.3g} (rtol = "
+              f"atol = {LM_LOGIT_TOL}), {secs:.2f} s", flush=True)
+
+    def card_vs_cpu(cfg, card, what):
+        """The same fp32 weights on the card and the CPU: prefill and
+        LM_CARD_CPU_STEPS greedy decode steps within LM_CARD_CPU_TOL
+        (logits and caches); greedy tokens equal wherever the CPU's top-two
+        gap exceeds twice it, the routed experts equal wherever the K-th
+        and (K+1)-th router probabilities differ by more than twice the
+        observed card-vs-CPU difference of the probabilities."""
+        cpu = weights_init(cfg, None, "meta")
+        cpu.load_state_dict({k: v.cpu() for k, v in
+                             card.state_dict().items()}, assign=True)
+        m = build_model(cfg)
+        bg = {"tokens": prompts(1, P9_PROMPT, cfg.vocab_size, dev,
+                                seed=9)[0][None], **stub(cfg, 1)}
+        bc = {k: v.cpu() for k, v in bg.items()}
+        n_slots = P9_PROMPT + LM_CARD_CPU_STEPS + 1
+        t0 = time.perf_counter()
+        with MOE.record_routing() as rg:
+            lg, cg = m.prefill(card, bg, n_slots)
+        with MOE.record_routing() as rc:
+            lc, cc = m.prefill(cpu, bc, n_slots)
+        errs = [lm_close(f"{what} prefill card vs cpu", lg, lc,
+                         LM_CARD_CPU_TOL)]
+        tokens = 0
+        for step in range(LM_CARD_CPU_STEPS):
+            tok = torch.argmax(lg, -1)
+            top2 = torch.topk(lc, 2).values[0]
+            if float(top2[0] - top2[1]) > 2 * LM_CARD_CPU_TOL * (
+                    1 + float(top2[0].abs())):
+                tokens += 1
+                _require(int(torch.argmax(lc, -1)[0]) == int(tok[0]),
+                         f"{what} step {step}: greedy token differs")
+            pos = P9_PROMPT + step
+            with MOE.record_routing() as more:
+                lg, cg = m.decode_step(card, tok, cg, pos, batch=bg)
+            rg += more
+            with MOE.record_routing() as more:
+                lc, cc = m.decode_step(cpu, tok.cpu(), cc, pos, batch=bc)
+            rc += more
+            errs.append(lm_close(f"{what} decode {step} card vs cpu", lg, lc,
+                                 LM_CARD_CPU_TOL))
+        cache_err = max(lm_close(f"{what} cache {k} card vs cpu", cg[k],
+                                 cc[k], LM_CARD_CPU_TOL) for k in cc)
+        decisions = clear = 0
+        prob_err = 0.0
+        if cfg.moe is not None:
+            _require(len(rg) == len(rc) == cfg.num_layers * (
+                1 + LM_CARD_CPU_STEPS), f"{what}: {len(rg)} routing records")
+            K = cfg.moe.top_k
+            prob_err = max(float((a["probs"] - b["probs"].cpu()).abs().max())
+                           for a, b in zip(rc, rg))
+            for a, b in zip(rc, rg):
+                top = torch.sort(a["probs"], dim=-1, descending=True).values
+                ok = (top[..., K - 1] - top[..., K]) > 2 * prob_err
+                decisions += a["idx"].shape[0] * a["idx"].shape[1]
+                clear += int(ok.sum())
+                _require(torch.equal(a["idx"][ok], b["idx"].cpu()[ok]),
+                         f"{what}: a routed expert differs where the K-th "
+                         f"and (K+1)-th probabilities are > 2 x {prob_err:.3g}"
+                         f" apart")
+        _require(tokens + clear >= 1,
+                 f"{what}: no greedy token and no routing decision compared")
+        route = (f"; routed experts equal at the {clear} of {decisions} "
+                 f"token decisions whose K-th / (K+1)-th gap exceeds 2 x "
+                 f"{prob_err:.3g} (the largest card-vs-CPU probability "
+                 f"difference)" if cfg.moe is not None else "")
+        print(f"{what} card vs cpu, {cfg.num_layers} layers at full width in "
+              f"fp32 (TF32 off), prefill of {P9_PROMPT} tokens and "
+              f"{LM_CARD_CPU_STEPS} decode steps: logits max err "
+              f"{', '.join(f'{e:.3g}' for e in errs)}, caches {cache_err:.3g}"
+              f" (rtol = atol = {LM_CARD_CPU_TOL}); greedy tokens equal at "
+              f"the {tokens} of {LM_CARD_CPU_STEPS} steps whose top-two gap "
+              f"exceeds twice it{route}; {time.perf_counter() - t0:.2f} s",
+              flush=True)
+
+    def serve(arch, what):
+        """``Server`` on the full config in bf16 (weights from seed 0 on
+        the card): P9_REQUESTS requests of the CLI's prompts through
+        P9_SLOTS slots, then one decode step timed and profiled, and for a
+        MoE config the served prefills' capacity drops. Returns the
+        server."""
+        cfg = get_config(arch)
+        V = cfg.vocab_size
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        srv = Server(arch, smoke=False, batch_slots=P9_SLOTS,
+                     max_len=P9_MAX_LEN, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        params = srv.params
+        nparams = sum(p.numel() for p in params.parameters())
+        wbytes = sum(p.numel() * p.element_size()
+                     for p in params.parameters())
+        calls = {"prefill": [0, 0.0], "decode_step": [0, 0.0]}
+
+        def clocked(name, fn):
+            def call(*a, **kw):
+                t = time.perf_counter()
+                logits, cache = fn(*a, **kw)
+                torch.cuda.synchronize()
+                calls[name][0] += 1
+                calls[name][1] += time.perf_counter() - t
+                _require(bool(torch.isfinite(logits).all()),
+                         f"{what} {name}: non-finite logits")
+                return logits, cache
+            return call
+
+        m = srv.model
+        srv.model = dataclasses.replace(
+            m, prefill=clocked("prefill", m.prefill),
+            decode_step=clocked("decode_step", m.decode_step))
+        srv.run([Request(rid=-1, prompt=p, max_new=3)      # warm-up
+                 for p in prompts(1, P9_PROMPT, V, dev, seed=8)])
+        for v in calls.values():
+            v[:] = [0, 0.0]
+        reqs = [Request(rid=i, prompt=p, max_new=P9_NEW)
+                for i, p in enumerate(prompts(P9_REQUESTS, P9_PROMPT, V,
+                                              dev))]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = srv.run(reqs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        want_steps = -(-P9_REQUESTS // P9_SLOTS) * (P9_NEW - 1)
+        _require(stats["decode_steps"] == want_steps
+                 and stats["tokens"] == P9_REQUESTS * P9_NEW
+                 and calls["prefill"][0] == P9_REQUESTS
+                 and calls["decode_step"][0] == P9_REQUESTS * (P9_NEW - 1)
+                 and all(r.done and len(r.out) == P9_NEW for r in reqs),
+                 f"{what} server: {stats}, calls {calls}")
+        _require(all(0 <= t < V for r in reqs for t in r.out),
+                 f"{what}: a token outside the vocabulary")
+        peak = torch.cuda.max_memory_allocated(dev)
+        pre_ms = calls["prefill"][1] / calls["prefill"][0] * 1e3
+        step_ms = calls["decode_step"][1] / calls["decode_step"][0] * 1e3
+        shape = (f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+                 f"{cfg.num_heads}/{cfg.num_kv_heads} heads, vocab {V}")
+        if cfg.moe is not None:
+            shape += (f", {cfg.moe.num_experts} experts top-"
+                      f"{cfg.moe.top_k}, d_expert {cfg.moe.d_expert}, "
+                      f"{cfg.moe.num_shared} shared")
+        if cfg.mla is not None:
+            shape += (f", MLA r {cfg.mla.kv_lora_rank} / rope "
+                      f"{cfg.mla.rope_head_dim}")
+        if cfg.cross_attn_every:
+            shape += (f", a cross layer every {cfg.cross_attn_every}, "
+                      f"{cfg.num_image_tokens} image tokens")
+        if cfg.family == "audio":
+            shape += (f", {cfg.encoder_layers} encoder layers, "
+                      f"{cfg.num_audio_frames} frames")
+        print(f"{what} server {arch} full config ({shape}) bf16, "
+              f"{nparams / 1e9:.2f} B params, {wbytes / 1e9:.3f} GB of "
+              f"weights built in {init_s:.2f} s; {P9_REQUESTS} requests of "
+              f"{P9_PROMPT} tokens, max_new {P9_NEW}, {P9_SLOTS} slots, "
+              f"max_len {P9_MAX_LEN}: {stats['decode_steps']} decode steps, "
+              f"{stats['tokens']} tokens, wall {wall:.3f} s, "
+              f"{pre_ms:.2f} ms a prefill, {step_ms:.2f} ms a decode step "
+              f"(one slot at batch 1), "
+              f"{stats['tokens'] / wall:.1f} tokens/s, max_memory_allocated "
+              f"{peak / 2 ** 30:.2f} GiB; request 0 generated "
+              f"{reqs[0].out[:8]}...", flush=True)
+
+        # one decode step (slot 0's prompt, position P9_PROMPT) timed, then
+        # under the profiler
+        extra = srv._extra(1)
+        lp, pcache = m.prefill(params, {"tokens": reqs[0].prompt[None],
+                                        **extra}, P9_MAX_LEN)
+        tok = torch.argmax(lp, -1)
+
+        def one_step():
+            return m.decode_step(params, tok, pcache, P9_PROMPT, batch=extra)
+
+        one_step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_step()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        print(f"{what} one decode step {step_s * 1e3:.2f} ms; "
+              f"{busy_note(profiled(one_step), step_s)}", flush=True)
+        del lp, pcache
+
+        if cfg.moe is not None:
+            with MOE.record_routing() as tape:
+                for r in reqs:
+                    m.prefill(params, {"tokens": r.prompt[None]}, P9_MAX_LEN)
+            dropped = sum(int((~rec["kept"]).sum()) for rec in tape)
+            choices = sum(rec["kept"].numel() for rec in tape)
+            hit = sum(int((~rec["kept"]).any(-1).sum()) for rec in tape)
+            rows = sum(rec["kept"].shape[0] * rec["kept"].shape[1]
+                       for rec in tape)
+            print(f"{what} capacity drops of the served prefills (capacity "
+                  f"factor {cfg.moe.capacity_factor}, one group of "
+                  f"{P9_PROMPT} tokens, {len(tape)} layer-groups): "
+                  f"{dropped} of {choices} (token, expert) choices dropped "
+                  f"({dropped / choices:.2%}); {hit} of {rows} token-layers "
+                  f"lost at least one of their {cfg.moe.top_k} experts",
+                  flush=True)
+        return srv
+
+    # 9a: granite-moe, the decode-vs-forward check on a lossless fp32 copy
+    srv = serve("granite-moe-3b-a800m", "phase9a")
+    cfg32 = lossless(srv.cfg.scaled(dtype="float32"))
+    p32 = fp32_cut(srv.params, cfg32)
+    del srv
+    torch.cuda.empty_cache()
+    decode_vs_forward(cfg32, p32, f"phase9a fp32 copy, full depth, capacity "
+                      f"factor {cfg32.moe.capacity_factor:g}")
+    del p32
+    torch.cuda.empty_cache()
+
+    # 9b: deepseek-v2-lite (MLA + MoE), fp32 copy cut in depth; 9c: two
+    # full-width layers at the served capacity, card vs CPU
+    srv = serve("deepseek-v2-lite-16b", "phase9b")
+    cfg32 = lossless(srv.cfg.scaled(dtype="float32",
+                                    num_layers=DEEPSEEK_FP32_LAYERS))
+    p32 = fp32_cut(srv.params, cfg32)
+    cfg2 = srv.cfg.scaled(dtype="float32", num_layers=P9_CARD_CPU_LAYERS)
+    card2 = fp32_cut(srv.params, cfg2)
+    del srv
+    torch.cuda.empty_cache()
+    decode_vs_forward(cfg32, p32, f"phase9b fp32 copy cut to "
+                      f"{DEEPSEEK_FP32_LAYERS} layers, capacity factor "
+                      f"{cfg32.moe.capacity_factor:g}")
+    del p32
+    torch.cuda.empty_cache()
+    card_vs_cpu(cfg2, card2, "phase9c deepseek-v2-lite-16b")
+    del card2
+    torch.cuda.empty_cache()
+
+    # 9d: llama-3.2-vision served on zeroed images; one full-width group in
+    # fp32 with its cross gate at P9_GATE on seeded image embeddings
+    srv = serve("llama-3.2-vision-11b", "phase9d")
+    cfg1 = srv.cfg.scaled(dtype="float32", num_layers=srv.cfg.cross_attn_every)
+    g1 = fp32_cut(srv.params, cfg1)
+    del srv
+    torch.cuda.empty_cache()
+    for p in g1.groups.cross:
+        p.gate.fill_(P9_GATE)
+    decode_vs_forward(cfg1, g1, f"phase9d one group fp32, gate {P9_GATE}")
+    card_vs_cpu(cfg1, g1, f"phase9d llama-3.2-vision-11b one group, gate "
+                f"{P9_GATE},")
+    del g1
+    torch.cuda.empty_cache()
+
+    # 9e: whisper served on zeroed frames; full depth in fp32 on seeded
+    # frames
+    srv = serve("whisper-small", "phase9e")
+    cfg32 = srv.cfg.scaled(dtype="float32")
+    w32 = fp32_cut(srv.params, cfg32)
+    del srv
+    torch.cuda.empty_cache()
+    decode_vs_forward(cfg32, w32, "phase9e fp32 copy, full depth")
+    card_vs_cpu(cfg32, w32, "phase9e whisper-small")
+    del w32
+    torch.cuda.empty_cache()
+
+    _require(dict(pk.LAUNCHES) == {}, f"phase9: kernel launches "
+                                      f"{dict(pk.LAUNCHES)} on the LM path")
+    print(f"phase9: {time.perf_counter() - t9:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -1064,41 +1485,6 @@ def main() -> int:
         gives them."""
         return Counter((kern, pk.pairwise_plan(c, r, d, sms)[0])
                        for kern, c, r, _ in plan if kern in PAIRWISE)
-
-    def profiled(call):
-        """One call under torch.profiler: (device activities, device busy
-        ms, top five device operations by device time), or None where the
-        profiler saw no device activity. Reads the profiler's raw events:
-        its own event tree (``events()``, ``key_averages()``) takes minutes
-        to build for the ~10^5 device activities of a k-medoids call."""
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            call()
-            torch.cuda.synchronize()
-        by_name = {}
-        for e in prof.profiler.kineto_results.events():
-            if e.device_type() == torch.autograd.DeviceType.CUDA:
-                v = by_name.setdefault(_device_op(e.name()), [0, 0.0])
-                v[0] += 1
-                v[1] += (e.end_ns() - e.start_ns()) / 1e6
-        if not by_name:
-            return None
-        top = sorted(by_name.items(), key=lambda kv: kv[1][1],
-                     reverse=True)[:5]
-        return (sum(v[0] for v in by_name.values()),
-                sum(v[1] for v in by_name.values()),
-                [(k, c, ms) for k, (c, ms) in top])
-
-    def busy_note(busy, steady_s):
-        if busy is None:
-            return ("device busy: not measured (the profiler saw no device "
-                    "activity)")
-        top = ", ".join(f"{k} x{c} {ms:.2f} ms" for k, c, ms in busy[2])
-        return (f"profiled call: {busy[0]} device activities, busy "
-                f"{busy[1]:.2f} ms = {busy[1] / (steady_s * 1e3):.1%} of the "
-                f"unprofiled repeat; top device ops: {top}")
 
     def _breakdown(x, key, n, metric, backend, precision="fp32"):
         """Where a steady call's time goes: (host ms of the random draws
@@ -2373,17 +2759,6 @@ def main() -> int:
 
     t8 = time.perf_counter()
 
-    def lm_close(what, got, want, tol):
-        """|got - want| <= tol + tol |want| everywhere (numpy's allclose
-        rule, rtol = atol = tol); returns the largest |got - want|."""
-        got, want = got.float(), want.float().to(got.device)
-        err = (got - want).abs()
-        _require(bool(torch.isfinite(got).all()), f"{what}: non-finite")
-        _require(bool((err <= tol + tol * want.abs()).all()),
-                 f"{what}: max err {float(err.max())} beyond rtol = atol = "
-                 f"{tol}")
-        return float(err.max())
-
     def decode_vs_forward(cfg, params, s, batch, what):
         """tests/test_decode_consistency.py's invariant: the teacher-forced
         logits at positions S - 1 and S against prefill on S tokens and one
@@ -2706,6 +3081,9 @@ def main() -> int:
           f"backend's), wall {wall:.3f} s, launches {counts}, {mem}; "
           f"{fmt_tot(tot)}", flush=True)
     print(f"phase8: {time.perf_counter() - t8:.1f} s", flush=True)
+
+    # ------------- phase 9: the other LM families at full width
+    phase9(dev)
 
     for kern, row in led.rows.items():
         _require(row["launches"] > 0 or kern in UNCALLED,

@@ -1,8 +1,10 @@
 """The paper's technique wired into the LM stack: representative-example
 selection over a transformer's outputs via Correlated Sequential Halving.
 The PyTorch port of ``examples/embedding_medoid.py``, on an NVIDIA card
-(``--cpu`` runs on the CPU instead); the dense decoders only
-(internlm2-1.8b, qwen2.5-14b, command-r-35b, gemma3-27b).
+(``--cpu`` runs on the CPU instead); every family the port runs: the dense
+decoders, the MoE / MLA decoders (granite-moe-3b-a800m,
+deepseek-v2-lite-16b), the VLM (llama-3.2-vision-11b, on seeded image
+embeddings) and the enc-dec (whisper-small, on seeded frames).
 
 Use case (data pruning / coreset selection): embed a pile of sequences with a
 model, then pick the most-representative sequence = the medoid of the
@@ -31,31 +33,58 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.core.exact import exact_medoid
 from repro_torch.engine import rng
 from repro_torch.launch.serve_medoid import MedoidServer
+from repro_torch.models import encdec as ED
+from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.model import build_model, check_ported
 
 
 @torch.no_grad()
-def embed_sequences(cfg, params, tokens: torch.Tensor) -> torch.Tensor:
+def embed_sequences(cfg, params, tokens: torch.Tensor, frames=None,
+                    image_embed=None) -> torch.Tensor:
     """(B, S) tokens -> (B, V) f32: the mean over positions of the f32
-    logits (a model-agnostic embedding proxy). The dense family only; the
-    others raise ``NotImplementedError`` naming their ROADMAP item."""
+    logits (a model-agnostic embedding proxy); the audio family encodes
+    ``frames`` first, the VLM reads ``image_embed``. The recurrent families
+    raise ``NotImplementedError`` naming their ROADMAP item."""
     check_ported(cfg)
-    logits, _, _ = T.transformer_forward(params, cfg, tokens)
+    if cfg.family == "audio":
+        enc = ED.encode(params, cfg, frames)
+        logits, _ = ED.decode_train(params, cfg, tokens, enc)
+    else:
+        logits, _, _ = T.transformer_forward(params, cfg, tokens,
+                                             image_embed=image_embed)
     return torch.mean(logits.float(), dim=1)
+
+
+def stub_inputs(cfg, i: int, bs: int, device) -> dict:
+    """Batch ``i``'s frames (audio) or image embeddings (VLM): normal draws
+    under ``fold_in(key(1), 1000 + i)`` as the reference's, in f32 then
+    cast to the model dtype (the reference draws a bf16 config's in bf16,
+    so there they are other values)."""
+    key = rng.fold_in(rng.key(1, device), 1000 + i)
+    dt = L.model_dtype(cfg)
+    if cfg.family == "audio":
+        return {"frames": rng.normal(
+            key, (bs, cfg.num_audio_frames, cfg.d_model)).to(dt)}
+    if cfg.family == "vlm":
+        return {"image_embed": rng.normal(
+            key, (bs, cfg.num_image_tokens, cfg.d_model)).to(dt)}
+    return {}
 
 
 def embed_corpus(cfg, params, num_seqs: int, seq_len: int, device,
                  bs: int = 32) -> torch.Tensor:
     """Synthesize ``num_seqs`` sequences in batches of ``bs`` (the
     reference's draws: ``randint(fold_in(key(1), i), (bs, seq_len), 0,
-    V)``) and embed them: (num_seqs // bs * bs, V) f32."""
+    V)``, with :func:`stub_inputs`) and embed them: (num_seqs // bs * bs,
+    V) f32."""
     key = rng.key(1, device)
     embs = []
     for i in range(num_seqs // bs):
         toks = rng.randint(rng.fold_in(key, i), (bs, seq_len), 0,
                            cfg.vocab_size)
-        embs.append(embed_sequences(cfg, params, toks))
+        embs.append(embed_sequences(cfg, params, toks,
+                                    **stub_inputs(cfg, i, bs, device)))
         del toks
     return torch.cat(embs)
 

@@ -5,6 +5,7 @@ from repro_torch.cluster.kmedoids import (
     KMedoidsResult,
     Refiner,
     assign_to_medoids,
+    bandit_kmedoids,
     make_direct_refiner,
 )
 from repro_torch.cluster.metrics import adjusted_rand_index, clustering_cost
@@ -23,7 +24,7 @@ from repro_torch.cluster.service import (ClusterService, ClusterStream,
 __all__ = [
     "ClusterService", "ClusterStream", "KMedoidsResult", "PAMResult",
     "Refiner", "ServiceRefiner", "adjusted_rand_index",
-    "assign_to_medoids", "clustering_cost", "distance_matrix",
-    "kmedoids_via_service", "make_direct_refiner", "pam_build", "pam_exact",
-    "pam_pulls", "pam_swap",
+    "assign_to_medoids", "bandit_kmedoids", "clustering_cost",
+    "distance_matrix", "kmedoids_via_service", "make_direct_refiner",
+    "pam_build", "pam_exact", "pam_pulls", "pam_swap",
 ]

@@ -20,7 +20,8 @@ JAX runs BUILD steps 1..k-1 and the SWAP sweep as two ``lax.scan``
 programs; here each is a Python loop with the same key derivation. JAX's
 SWAP rounds after the latch are masked no-ops, so this loop stops there and
 reports the same ``executed`` count. Pull counters are scheduled counts,
-equal to the JAX package's.
+equal to the JAX package's. ``bandit_kmedoids`` is the deprecated
+pre-facade entry point (it warns once per process).
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ from repro_torch.core.backend import get_backend
 from repro_torch.core.bucketing import (DEFAULT_MIN_BUCKET, bucket_n,
                                         next_pow2, pack_queries, plan_buckets)
 from repro_torch.core.corr_sh import _medoid_impl, ragged_medoids
+from repro_torch.deprecation import warn_once
 from repro_torch.engine import rng
 from repro_torch.engine.estimators import build_delta, swap_delta
 from repro_torch.engine.halving import (HalvingProblem, resolve_order_fn,
@@ -299,3 +301,14 @@ def _kmedoids_impl(data: torch.Tensor, k: int, key: rng.Key, *,
         pulls=pulls, build_pulls=build_pulls, assign_pulls=assign_pulls,
         refine_pulls=refine_pulls, swap_pulls=swap_pulls, swaps=swaps,
         refine_updates=refine_updates, k=k, metric=metric, backend=backend)
+
+
+def bandit_kmedoids(data: torch.Tensor, k: int, key: rng.Key,
+                    **kwargs) -> KMedoidsResult:
+    """Deprecated: use :func:`repro_torch.api.kmedoids` (the same pipeline,
+    config-driven). Signature-compatible with the pre-facade entry point:
+    ``data`` a float32 tensor on its device, the keywords of
+    ``_kmedoids_impl``."""
+    warn_once("repro_torch.cluster.kmedoids.bandit_kmedoids",
+              "repro_torch.api.kmedoids")
+    return _kmedoids_impl(data, k, key, **kwargs)

@@ -49,37 +49,53 @@ def _numpy_to_torch(a: np.ndarray) -> torch.Tensor:
     ``torch.from_numpy`` refuses) through their int16 bit patterns."""
     if a.dtype.name == "bfloat16":
         bits = np.ascontiguousarray(a).view(np.int16)
-        return torch.from_numpy(bits.copy()).view(torch.bfloat16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16) \
+            .reshape(a.shape)
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def _stacked_axes(cfg) -> dict:
+    """The subtrees of the JAX params whose leaves carry stacked layer
+    axes (``jax.vmap`` over split keys), by dotted path: their sizes."""
+    if cfg.family == "audio":
+        return {"enc": (cfg.encoder_layers or cfg.num_layers,),
+                "dec": (cfg.num_layers,)}
+    if cfg.cross_attn_every:
+        groups = cfg.num_layers // cfg.cross_attn_every
+        return {"groups.self": (groups, cfg.cross_attn_every - 1),
+                "groups.cross": (groups,)}
+    return {"layers": (cfg.num_layers,)}
 
 
 def _lm_state_dict(cfg, tree) -> dict:
     """The port's ``state_dict`` for the JAX params pytree ``tree`` (nested
     dicts of numpy arrays); see :func:`lm_params_from_jax`."""
-    from repro_torch.models.transformer import transformer_init
+    from repro_torch.models.model import weights_init
 
-    want = transformer_init(None, cfg, "meta").state_dict()
+    want = weights_init(cfg, None, "meta").state_dict()
+    stacks = _stacked_axes(cfg)
     got = {}
 
-    def walk(node, prefix, layer_axis):
+    def walk(node, path, stack):
         if isinstance(node, dict):
             for k, v in node.items():
-                walk(v, f"{prefix}{k}.", layer_axis or prefix + k == "layers")
+                p = f"{path}.{k}" if path else k
+                walk(v, p, (p, stacks[p]) if p in stacks else stack)
             return
         a = np.asarray(node)
-        name = prefix[:-1]
-        if not layer_axis:
-            got[name] = a
+        if stack is None:
+            got[path] = a
             return
-        rest = name[len("layers."):]
-        if a.ndim == 0 or a.shape[0] != cfg.num_layers:
-            raise ValueError(f"lm_params_from_jax: {name} has shape "
-                             f"{a.shape}, no leading axis of "
-                             f"{cfg.num_layers} layers")
-        for i in range(cfg.num_layers):
-            got[f"layers.{i}.{rest}"] = a[i]
+        spath, sizes = stack
+        if a.shape[:len(sizes)] != sizes:
+            raise ValueError(f"lm_params_from_jax: {path} has shape "
+                             f"{a.shape}, no leading axes of {sizes} "
+                             f"stacked layers")
+        rest = path[len(spath) + 1:]
+        for idx in np.ndindex(*sizes):
+            got[".".join([spath, *map(str, idx), rest])] = a[idx]
 
-    walk(tree, "", False)
+    walk(tree, "", None)
     missing, extra = sorted(set(want) - set(got)), sorted(set(got) - set(want))
     if missing or extra:
         raise ValueError(f"lm_params_from_jax: {cfg.name}: missing keys "
@@ -96,16 +112,19 @@ def _lm_state_dict(cfg, tree) -> dict:
 
 
 def lm_params_from_jax(cfg, tree, device=None):
-    """The port's model (a ``repro_torch.models.transformer.Transformer``)
-    holding the JAX package's dense-decoder ``params`` pytree ``tree``, bit
-    for bit, on ``device`` (CUDA unless asked otherwise). The leading
-    layer axis of ``tree["layers"]`` (stacked by ``jax.vmap`` over split
-    keys) is unstacked into ``layers.{i}.*``; every array keeps its dtype
-    and bits. Raises ``ValueError`` for a missing or extra key, a wrong
-    shape or a dtype other than the config's."""
-    from repro_torch.models.transformer import transformer_init
+    """The port's weights module (``repro_torch.models.transformer.
+    Transformer``, or ``models.encdec.EncDec`` for the audio family)
+    holding the JAX package's ``params`` pytree ``tree``, bit for bit, on
+    ``device`` (CUDA unless asked otherwise). The stacked layer axes
+    (``layers``; a VLM's ``groups.self`` (groups, per - 1) and
+    ``groups.cross``; enc-dec's ``enc`` and ``dec``) are unstacked into
+    ``layers.{i}.*``, ``groups.self.{g}.{j}.*`` and so on; every array
+    keeps its dtype and bits (the MoE router and the norms in f32). Raises
+    ``ValueError`` for a missing or extra key, a wrong shape or a dtype
+    other than the config's."""
+    from repro_torch.models.model import weights_init
 
     sd = _lm_state_dict(cfg, tree)
-    model = transformer_init(None, cfg, "meta")
+    model = weights_init(cfg, None, "meta")
     model.load_state_dict(sd, assign=True)
     return model.to(resolve_device(device))

@@ -1,12 +1,16 @@
 """Paper core of the port: correlated sequential halving and the paper's
 baselines.
 
-The baselines are exported as in ``repro.core``, resolved at first use:
-``core.meddit`` imports the engine, which imports this package's backend
-registry, so importing it here would close a cycle.
+The baselines and the deprecated pre-facade entry points
+(``corr_sh_medoid*``) are exported as in ``repro.core``, resolved at first
+use: ``core.meddit`` and ``core.corr_sh`` import the engine, which imports
+this package's backend registry, so importing them here would close a
+cycle.
 """
 _EXPORTS = {"MedditResult": "meddit", "meddit_medoid": "meddit",
-            "rand_medoid": "rand"}
+            "rand_medoid": "rand", "corr_sh_medoid": "corr_sh",
+            "corr_sh_medoid_batch": "corr_sh",
+            "corr_sh_medoid_ragged": "corr_sh"}
 
 __all__ = sorted(_EXPORTS)
 

@@ -7,7 +7,9 @@ the counterpart of ``repro/core/corr_sh.py``.
 * ``_medoid_impl`` / ``_batch_impl`` / :func:`ragged_medoids` — what the
   facade dispatches: the memoized programs of
   :mod:`repro_torch.engine.programs` for this (bucket, budget, metric,
-  backend).
+  backend);
+* ``corr_sh_medoid`` / ``corr_sh_medoid_batch`` / ``corr_sh_medoid_ragged``
+  — the deprecated pre-facade entry points, each warning once per process.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core.bucketing import DEFAULT_MIN_BUCKET, bucket_n
+from repro_torch.deprecation import warn_once
 from repro_torch.engine import instrument, programs, rng
 from repro_torch.engine.estimators import medoid_centrality
 from repro_torch.engine.halving import HalvingProblem, run_halving
@@ -136,3 +139,39 @@ def ragged_medoids(data: torch.Tensor, lengths, key: rng.Key, *,
                                  telemetry=telemetry, precision=precision,
                                  error_model=error_model)
     return fn(data, lengths.to(data.device), key, live)
+
+
+# ---------------------------------------------------------------------------
+# deprecated pre-facade entry points (use repro_torch.api)
+# ---------------------------------------------------------------------------
+
+def corr_sh_medoid(data: torch.Tensor, key: rng.Key, *, budget: int,
+                   metric: str = "l2",
+                   backend: str = "reference") -> torch.Tensor:
+    """Deprecated: use :func:`repro_torch.api.find_medoid`."""
+    warn_once("repro_torch.core.corr_sh.corr_sh_medoid",
+              "repro_torch.api.find_medoid")
+    return _medoid_impl(data, key, budget=budget, metric=metric,
+                        backend=backend)
+
+
+def corr_sh_medoid_batch(data: torch.Tensor, key: rng.Key, *, budget: int,
+                         metric: str = "l2",
+                         backend: str = "reference") -> torch.Tensor:
+    """Deprecated: use :func:`repro_torch.api.find_medoids_batch`."""
+    warn_once("repro_torch.core.corr_sh.corr_sh_medoid_batch",
+              "repro_torch.api.find_medoids_batch")
+    return _batch_impl(data, key, budget=budget, metric=metric,
+                       backend=backend)
+
+
+def corr_sh_medoid_ragged(data: torch.Tensor, lengths, key: rng.Key, *,
+                          budget: int, metric: str = "l2",
+                          backend: str = "reference",
+                          min_bucket: int = DEFAULT_MIN_BUCKET
+                          ) -> torch.Tensor:
+    """Deprecated: use :func:`repro_torch.api.find_medoids_ragged`."""
+    warn_once("repro_torch.core.corr_sh.corr_sh_medoid_ragged",
+              "repro_torch.api.find_medoids_ragged")
+    return ragged_medoids(data, lengths, key, budget=budget, metric=metric,
+                          backend=backend, min_bucket=min_bucket)

@@ -7,8 +7,10 @@ token per step for every live sequence and retires finished ones
 decoded one after another at batch 1, each with its own cache, and sampling
 is greedy.
 
-Runs on CUDA unless ``--device cpu``; the dense decoders only (see
-``repro_torch.models.model``). Example:
+Runs on CUDA unless ``--device cpu``; every family the port runs (see
+``repro_torch.models.model``): the VLM and audio configs are fed zeroed
+image embeddings or frames (``Server._extra``), as in the reference.
+Example:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch internlm2-1.8b --smoke --requests 6 --max-new 16
@@ -28,6 +30,7 @@ from repro_torch.configs.registry import ARCH_NAMES
 from repro_torch.convert import resolve_device
 from repro_torch.engine import rng
 from repro_torch.models.model import build_model
+from repro_torch.models.layers import model_dtype
 
 
 @dataclasses.dataclass
@@ -56,13 +59,29 @@ class Server:
         self.positions = [0] * batch_slots
         self.live: list[Optional[Request]] = [None] * batch_slots
 
+    def _extra(self, batch_size: int) -> dict:
+        """The stub inputs of the VLM and audio families: zeroed image
+        embeddings or frames in the model dtype on the server's device."""
+        extra = {}
+        dt = model_dtype(self.cfg)
+        if self.cfg.family == "audio":
+            extra["frames"] = torch.zeros(
+                (batch_size, self.cfg.num_audio_frames, self.cfg.d_model),
+                dtype=dt, device=self.device)
+        if self.cfg.family == "vlm":
+            extra["image_embed"] = torch.zeros(
+                (batch_size, self.cfg.num_image_tokens, self.cfg.d_model),
+                dtype=dt, device=self.device)
+        return extra
+
     @torch.no_grad()
     def admit(self, req: Request) -> bool:
         for i in range(self.slots):
             if self.live[i] is None:
                 prompt = req.prompt.to(self.device)
                 logits, cache = self.model.prefill(
-                    self.params, {"tokens": prompt[None, :]}, self.max_len)
+                    self.params, {"tokens": prompt[None, :], **self._extra(1)},
+                    self.max_len)
                 req.out.append(int(torch.argmax(logits, -1)[0]))
                 self.caches[i] = cache
                 self.positions[i] = prompt.shape[0]

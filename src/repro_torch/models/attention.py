@@ -1,7 +1,8 @@
 """GQA attention: blockwise (flash-style) prefill path + decode path.
 
-The port of ``repro.models.attention`` (self attention; ``cross_attn_apply``
-and ``cross_kv`` come with the VLM / enc-dec slice, ROADMAP item 14c). Plain
+The port of ``repro.models.attention``: self attention, and the
+cross attention of the VLM groups and the enc-dec decoder
+(``cross_attn_apply`` against K/V projected once by ``cross_kv``). Plain
 PyTorch, as the reference is plain ``jnp``: an outer loop over query blocks
 and an inner loop over KV blocks whose bounds come from causality and the
 sliding window, so local-attention layers (gemma3) and causal masking skip
@@ -222,3 +223,30 @@ def self_attn_decode(params, x, cache_k, cache_v, pos: int, *, num_heads,
     out = decode_attention(q[:, 0], cache_k, cache_v, pos, window=window)
     out = out.reshape(B, 1, num_heads * head_dim)
     return out @ params["wo"], cache_k, cache_v
+
+
+def cross_attn_apply(params, x, kv_k, kv_v, *, num_heads, num_kv_heads,
+                     head_dim) -> torch.Tensor:
+    """Non-causal cross attention against precomputed K/V (B, S_kv, KV,
+    Dh); ``bq`` is added where the params have it."""
+    B, S, _ = x.shape
+    q = x @ params["wq"]
+    if "bq" in params:
+        q = q + params["bq"]
+    q = q.reshape(B, S, num_heads, head_dim)
+    out = flash_attention(q, kv_k, kv_v, causal=False, window=0)
+    out = out.reshape(B, S, num_heads * head_dim)
+    return out @ params["wo"]
+
+
+def cross_kv(params, src, *, num_kv_heads, head_dim):
+    """Project encoder or image features (B, S, d) to the cross attention's
+    K/V once: two (B, S, KV, Dh) tensors."""
+    B, S, _ = src.shape
+    k = src @ params["wk"]
+    v = src @ params["wv"]
+    if "bk" in params:
+        k = k + params["bk"]
+        v = v + params["bv"]
+    return (k.reshape(B, S, num_kv_heads, head_dim),
+            v.reshape(B, S, num_kv_heads, head_dim))

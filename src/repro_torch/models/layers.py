@@ -1,10 +1,10 @@
 """Shared building blocks: norms, RoPE, MLPs, initializers.
 
 The port of ``repro.models.layers``. A node of parameters is anything read
-as ``p["name"]``: a plain dict of tensors or the ``nn.ParameterDict`` a
-model holds them in. Weights keep the JAX layout ``(d_in, d_out)`` and every product is
-``x @ w``, so the arithmetic is the reference's. Compute dtype is bf16 by
-default with f32 norms and f32 logits.
+as ``p["name"]``: a plain dict of tensors or the :class:`ParamTree` a
+model holds them in. Weights keep the JAX layout ``(d_in, d_out)`` and
+every product is ``x @ w``, so the arithmetic is the reference's. Compute
+dtype is bf16 by default with f32 norms and f32 logits.
 
 Initializers draw from a ``torch.Generator`` the caller passes with the
 reference's distributions: normal * 1/sqrt(d_in) for a dense weight,
@@ -23,8 +23,44 @@ import math
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.convert import resolve_device
+
+
+class ParamTree(nn.Module):
+    """The reference's params tree as a module: a dict node's tensors are
+    frozen parameters, its dicts child nodes, its lists ``ModuleList``s of
+    nodes (the port's unstacked layer axes). Read as the reference reads
+    its dict, ``node["name"]`` and ``"name" in node``; the state_dict names
+    are the dotted paths (``layers.3.ffn.shared.w_up``)."""
+
+    def __init__(self, tree: dict):
+        super().__init__()
+        for name, v in tree.items():
+            if isinstance(v, (dict, list)):
+                self.add_module(name, _node(v))
+            else:
+                self.register_parameter(
+                    name, nn.Parameter(v, requires_grad=False))
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+    def __contains__(self, name: str) -> bool:
+        return name in self._parameters or name in self._modules
+
+
+def _node(v):
+    """A dict as a :class:`ParamTree`, a list as a ``ModuleList``."""
+    if isinstance(v, dict):
+        return ParamTree(v)
+    return nn.ModuleList(_node(x) for x in v)
+
+
+def model_dtype(cfg) -> torch.dtype:
+    """The torch dtype of a config's ``dtype`` name (bf16, else f32)."""
+    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
 
 
 def init_device(gen, device=None) -> torch.device:

@@ -1,7 +1,7 @@
 """The LM serving slice on a card: ``dot_centrality`` at the width of a
 vocabulary (the embedding rounds of ``examples/embedding_medoid_torch.py``)
-on both of its paths against the plain version, and the dense decoder on
-the card against the same weights on the CPU.
+on both of its paths against the plain version, and the dense, MoE, MLA,
+VLM and enc-dec models on the card against the same weights on the CPU.
 
 Marked ``gpu``: the ``cuda`` fixture skips each test where no card exists
 (decided inside the fixture). On a card: ``PYTHONPATH=src python -m pytest
@@ -10,7 +10,9 @@ Marked ``gpu``: the ``cuda`` fixture skips each test where no card exists
 Tolerances: centrality sums rtol 1e-5 with a floor of 1e-5 of the largest
 value, plus for l2 the self-pair allowance 1e-3 x max row norm x R (as
 ``chip_smoke.py``); two launches bit-equal. Model logits card vs CPU, fp32
-with TF32 off: rtol = atol = 1e-4.
+with TF32 off: rtol = atol = 1e-4; a MoE layer's routed experts equal
+wherever the K-th and (K+1)-th router probabilities are more than 1e-4
+apart.
 """
 import pytest
 import torch
@@ -18,6 +20,7 @@ import torch
 from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_distance as pk
+from repro_torch.models import moe as MOE
 from repro_torch.models.model import build_model
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.gpu]
@@ -85,4 +88,52 @@ def test_dense_model_card_matches_cpu(cuda, arch):
     for pos in (17, 18, 19):
         lc, cc = model.decode_step(cpu, toks[:, pos], cc, pos)
         lg, cg = model.decode_step(card, toks[:, pos].to(cuda), cg, pos)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ("granite-moe-3b-a800m",
+                                  "deepseek-v2-lite-16b",
+                                  "llama-3.2-vision-11b", "whisper-small"))
+def test_other_families_card_match_cpu(cuda, arch):
+    """The smoke config in fp32 (a VLM's cross gates at 0.5, seeded image
+    embeddings or frames): prefill logits and every cache, then three
+    decode steps; the routed experts of every MoE group."""
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init(0, "cpu")
+    if cfg.cross_attn_every:
+        for p in cpu.groups.cross:
+            p.gate.fill_(0.5)
+    card = model.init(0, "cpu")
+    card.load_state_dict(cpu.state_dict())
+    card = card.to(cuda)
+    g = torch.Generator().manual_seed(1)
+    toks = torch.randint(0, cfg.vocab_size, (2, 20), generator=g)
+    batch = {"tokens": toks[:, :17]}
+    if cfg.family == "vlm":
+        batch["image_embed"] = torch.randn(2, cfg.num_image_tokens,
+                                           cfg.d_model, generator=g)
+    if cfg.family == "audio":
+        batch["frames"] = torch.randn(2, cfg.num_audio_frames, cfg.d_model,
+                                      generator=g)
+    on_card = {k: v.to(cuda) for k, v in batch.items()}
+    with MOE.record_routing() as rc:
+        lc, cc = model.prefill(cpu, batch, 24)
+    with MOE.record_routing() as rg:
+        lg, cg = model.prefill(card, on_card, 24)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    for name in cc:
+        torch.testing.assert_close(cg[name].cpu(), cc[name], rtol=1e-4,
+                                   atol=1e-4)
+    assert len(rc) == len(rg) == (cfg.num_layers if cfg.moe else 0)
+    K = cfg.moe.top_k if cfg.moe else 0
+    for a, b in zip(rc, rg):
+        top = torch.sort(a["probs"], dim=-1, descending=True).values
+        clear = (top[..., K - 1] - top[..., K]) > 1e-4
+        assert bool(clear.any())
+        assert torch.equal(a["idx"][clear], b["idx"].cpu()[clear])
+    for pos in (17, 18, 19):
+        lc, cc = model.decode_step(cpu, toks[:, pos], cc, pos, batch=batch)
+        lg, cg = model.decode_step(card, toks[:, pos].to(cuda), cg, pos,
+                                   batch=on_card)
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)

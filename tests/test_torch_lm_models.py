@@ -3,7 +3,9 @@ the configs and registry, the converter of the JAX params pytree, and the
 whole model (``transformer_forward``, ``prefill`` with its cache,
 ``decode_step`` with its cache) for each of the four dense smoke configs
 (internlm2-1.8b, qwen2.5-14b, command-r-35b, gemma3-27b) in fp32 and bf16,
-on JAX's weights converted bit for bit.
+on JAX's weights converted bit for bit. The other families' parity is in
+``tests/test_torch_lm_{moe,mla,vlm,encdec}.py``; here they build and run,
+and the recurrent families (ROADMAP item 14d) raise.
 
 Tolerances (stated per dtype; JAX's forward runs its training attention,
 ``repro.models.flash``, the same blockwise softmax):
@@ -37,15 +39,14 @@ from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.model import build_model
 
+from _torch_lm import OF_MAX, TOL
+
 pytestmark = pytest.mark.torch_port
 
 DENSE = ("internlm2-1.8b", "qwen2.5-14b", "command-r-35b", "gemma3-27b")
-UNPORTED = {"llama-3.2-vision-11b": "14c", "granite-moe-3b-a800m": "14b",
-            "deepseek-v2-lite-16b": "14b", "xlstm-1.3b": "14d",
-            "whisper-small": "14c", "zamba2-2.7b": "14d"}
-TOL = {"float32": dict(logits=(2e-3, 2e-3), cache=(1e-4, 1e-4)),
-       "bfloat16": dict(logits=(3e-2, 3e-2), cache=(3e-2, 0.1))}
-OF_MAX = {"float32": False, "bfloat16": True}     # logits' atol
+UNPORTED = {"xlstm-1.3b": "14d", "zamba2-2.7b": "14d"}
+FAMILIES = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b",
+            "llama-3.2-vision-11b", "whisper-small")
 B, S = 2, 24
 
 
@@ -231,16 +232,30 @@ def test_unported_families_raise(arch):
         build_model(cfg)
 
 
-@pytest.mark.parametrize("field, item", (("moe", "14b"), ("mla", "14b"),
-                                         ("cross_attn_every", "14c")))
-def test_dense_configs_with_unported_layers_raise(field, item):
-    src = {"moe": "granite-moe-3b-a800m", "mla": "deepseek-v2-lite-16b",
-           "cross_attn_every": "llama-3.2-vision-11b"}[field]
-    cfg = tconfigs.get_smoke_config("internlm2-1.8b").scaled(
-        **{field: getattr(tconfigs.get_smoke_config(src), field)})
-    for fn in (lambda: build_model(cfg),
-               lambda: T.transformer_init(None, cfg, "meta"),
-               lambda: T.init_kv_cache(cfg, 1, 4),
-               lambda: T.transformer_forward(None, cfg, torch.zeros(1, 1))):
-        with pytest.raises(NotImplementedError, match=item):
-            fn()
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_other_families_build_and_run_on_cpu(arch):
+    """MoE, MLA, VLM and enc-dec: ``build_model`` builds them, and on the
+    CPU when asked they prefill and decode (weights from seed 0; the family's
+    stub input zeroed, as the server feeds it)."""
+    cfg = tconfigs.get_smoke_config(arch)
+    m = build_model(cfg)
+    params = m.init(0, "cpu")
+    assert {p.device.type for p in params.parameters()} == {"cpu"}
+    assert not any(p.requires_grad for p in params.parameters())
+    batch = {"tokens": torch.arange(6)[None] % cfg.vocab_size}
+    if cfg.family == "vlm":
+        batch["image_embed"] = torch.zeros(
+            1, cfg.num_image_tokens, cfg.d_model, dtype=torch.bfloat16)
+    if cfg.family == "audio":
+        batch["frames"] = torch.zeros(1, cfg.num_audio_frames, cfg.d_model,
+                                      dtype=torch.bfloat16)
+    logits, cache = m.prefill(params, batch, 10)
+    empty = m.init_cache(1, 10, device="cpu")
+    assert set(cache) == set(empty)
+    assert all(cache[k].shape == empty[k].shape
+               and cache[k].dtype == empty[k].dtype for k in cache)
+    for pos in (6, 7):
+        logits, cache = m.decode_step(params, torch.argmax(logits, -1),
+                                      cache, pos, batch=batch)
+        assert logits.shape == (1, cfg.vocab_size)
+        assert bool(torch.isfinite(logits).all())

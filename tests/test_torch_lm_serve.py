@@ -1,7 +1,8 @@
 """The LM serving path of the port against the live JAX package on the CPU:
 ``launch/serve.py`` (``Server.run`` and the CLI), ``examples/serve_lm_torch.py``
 (the medoid sidecar) and ``examples/embedding_medoid_torch.py``
-(``embed_sequences`` and the medoid of the embeddings).
+(``embed_sequences`` and the medoid of the embeddings; its MoE, VLM and
+audio branches on the same inputs as JAX's).
 
 ``Server.run`` runs the four dense smoke configs in fp32 on JAX's weights
 converted bit for bit, with the same prompts (the port's ``rng.randint`` is
@@ -107,8 +108,8 @@ def test_cli_without_a_device_needs_a_card(monkeypatch):
 
 
 def test_unported_arch_raises_in_the_server():
-    with pytest.raises(NotImplementedError, match="14b"):
-        tserve.Server("granite-moe-3b-a800m", device="cpu")
+    with pytest.raises(NotImplementedError, match="14d"):
+        tserve.Server("xlstm-1.3b", device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
@@ -140,10 +141,40 @@ def test_embed_sequences_matches_jax(dtype):
 
 def test_embed_sequences_refuses_unported_families():
     tex = _example("embedding_medoid_torch")
-    for arch, item in (("xlstm-1.3b", "14d"), ("whisper-small", "14c")):
-        with pytest.raises(NotImplementedError, match=item):
+    for arch in ("xlstm-1.3b", "zamba2-2.7b"):
+        with pytest.raises(NotImplementedError, match="14d"):
             tex.embed_sequences(tconfigs.get_smoke_config(arch), None,
                                 torch.zeros(1, 4, dtype=torch.int64))
+
+
+@pytest.mark.parametrize("arch", ("granite-moe-3b-a800m",
+                                  "llama-3.2-vision-11b", "whisper-small"))
+def test_embed_sequences_of_other_families_match_jax(arch):
+    """The MoE, VLM and audio branches, fp32, on the same tokens and stub
+    inputs (image embeddings, frames) within rtol = atol = 2e-3; the
+    example's stub draws are JAX's up to erfinv's last bits."""
+    jex, tex = _example("embedding_medoid"), _example("embedding_medoid_torch")
+    jcfg, cfg, params, model = _weights(arch, "float32")
+    toks = np.random.default_rng(6).integers(0, cfg.vocab_size, (3, 7),
+                                             dtype=np.int32)
+    jkw = {}
+    key = jax.random.fold_in(jax.random.key(1), 1000)
+    if cfg.family == "audio":
+        jkw["frames"] = jax.random.normal(
+            key, (3, cfg.num_audio_frames, cfg.d_model))
+    if cfg.family == "vlm":
+        jkw["image_embed"] = jax.random.normal(
+            key, (3, cfg.num_image_tokens, cfg.d_model))
+    tkw = tex.stub_inputs(cfg, 0, 3, "cpu")
+    assert set(tkw) == set(jkw)
+    for name in tkw:
+        np.testing.assert_allclose(tkw[name].numpy(), np.asarray(jkw[name]),
+                                   rtol=1e-5, atol=1e-6)
+    want = np.asarray(jex.embed_sequences(jcfg, params, jnp.asarray(toks),
+                                          **jkw))
+    got = tex.embed_sequences(cfg, model, torch.from_numpy(toks), **tkw)
+    assert got.shape == (3, cfg.vocab_size) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-3, atol=2e-3)
 
 
 def test_embedding_example_cluster_and_shards_on_cpu(capsys):
