@@ -174,7 +174,26 @@ nonzero:
    layers and a cross layer) in fp32 with the cross gate at P9_GATE on
    seeded image embeddings: decode vs forward and card vs CPU; (e)
    whisper-small, then at full depth in fp32 on seeded frames: decode vs
-   forward and card vs CPU.
+   forward and card vs CPU;
+10. the recurrent families at full width (``phase10``; plain PyTorch, no
+   kernel launched before 10e), phase 9's serving and checks: (a)
+   xlstm-1.3b and (b) zamba2-2.7b served in bf16 (ms a prefill and a decode
+   step, tokens/s, peak memory, a slot's recurrent state, one decode step
+   profiled); (c) decode vs forward (LM_LOGIT_TOL) at full depth, B =
+   P10_BATCH on a P10_PROMPT-token prompt (several of xLSTM's query and KV
+   blocks, zamba2's SSD chunks with a ragged last one): zamba2 on an fp32
+   copy; xLSTM on a float64 copy, then on an fp32 copy as a reading held
+   to no bound (its fp32 rounding, amplified over 48 layers, exceeds
+   LM_LOGIT_TOL), and on one fp32 group; (d) one group of each (8 xLSTM
+   layers; 6 Mamba2 blocks and the shared block) in fp32 on the card
+   against the CPU on the logits and on every state (C, n, m; c, n, h, m;
+   h, conv; k, v): zamba2 at LM_CARD_CPU_TOL, xLSTM at XLSTM_CARD_CPU_TOL;
+   (e)
+   ``examples/embedding_medoid_torch.py``'s embeddings of 2048 sequences
+   of 64 tokens on (b)'s weights, (2048, 32000) fp32: ``find_medoid`` on
+   ``reference`` and ``pallas_fused``, exact's medoid or within phase 3's
+   gap rule, every ``dot_centrality`` launch checked against its plain
+   version and timed (row 1h).
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the rest
@@ -314,6 +333,25 @@ DEEPSEEK_FP32_LAYERS = 4
 P9_CARD_CPU_LAYERS = 2
 P9_GATE = 0.5
 
+# Phase 10, the recurrent families at full width: phase 9's traffic, and
+# 10c's prompt, which crosses xLSTM's 256-row query and 512-row KV blocks
+# and zamba2's 256-step SSD chunks with a ragged last chunk
+P10_PROMPT, P10_BATCH = 600, 2
+# 10d's bounds for one xlstm-1.3b group on the card against the CPU (fp32,
+# TF32 off; rtol = atol, each quantity its own). Read on an H100, the same
+# to the last digit in two runs: logits 7.3e-4; mLSTM C 1.3e-4, n 4.3e-5,
+# m 1.4e-4; sLSTM c 1.6e-3, n 7.8e-3, h 1.4e-4, m 6.9e-4. Each bound is
+# about 4x its reading. They exceed LM_CARD_CPU_TOL because xLSTM on random
+# weights amplifies last bits (exponential gates, sLSTM's recurrence,
+# mLSTM's normaliser): moving a seeded half of the weights by one ulp
+# (2^-24 relative) moves the card's own results by half to nearly all of
+# these readings. TF32 rounds each product's inputs to 2^-11, 8192 ulps,
+# and a wrong gate layout or state update moves them by O(1): both far past
+# the bounds
+XLSTM_CARD_CPU_TOL = {
+    "logits": 3e-3, "mlstm.C": 5e-4, "mlstm.n": 2e-4, "mlstm.m": 6e-4,
+    "slstm.c": 6e-3, "slstm.n": 3e-2, "slstm.h": 6e-4, "slstm.m": 3e-3}
+
 # Phase 5, the quantized path: name, dataset, n, d, metric, precision, base
 # backend; find_medoid at BUDGET_PER_ARM on phase 3's data.
 Q_CELLS = (
@@ -445,13 +483,14 @@ def busy_note(busy, steady_s):
 
 def lm_close(what, got, want, tol):
     """|got - want| <= tol + tol |want| everywhere (numpy's allclose
-    rule, rtol = atol = tol); returns the largest |got - want|."""
+    rule, rtol = atol = tol; ``tol`` None: only finite); returns the
+    largest |got - want|."""
     import torch
 
-    got, want = got.float(), want.float().to(got.device)
+    got, want = got.double(), want.double().to(got.device)
     err = (got - want).abs()
     _require(bool(torch.isfinite(got).all()), f"{what}: non-finite")
-    _require(bool((err <= tol + tol * want.abs()).all()),
+    _require(tol is None or bool((err <= tol + tol * want.abs()).all()),
              f"{what}: max err {float(err.max())} beyond rtol = atol = "
              f"{tol}")
     return float(err.max())
@@ -536,52 +575,62 @@ def kmedoids_plan(n: int, k: int, metric: str, backend: str, buckets,
     return plan
 
 
-def phase9(dev) -> None:
-    """Phase 9: the MoE, MLA, VLM and enc-dec serving paths at full width
-    (the module docstring's item 9). Its models launch no kernel of the
-    port: the launch counts stay empty over the phase."""
-    import torch
+class LMCheck:
+    """The LM family phases' (9, 10) checks on one card, their inputs drawn
+    from a generator seeded with SEED: the served config's timing, fp32
+    copies, decode vs forward and card vs CPU."""
 
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import pairwise_distance as pk
-    from repro_torch.launch.serve import Request, Server, prompts
-    from repro_torch.models import encdec as ED
-    from repro_torch.models import layers as L
-    from repro_torch.models import moe as MOE
-    from repro_torch.models import transformer as T
-    from repro_torch.models.model import build_model, weights_init
+    def __init__(self, dev):
+        import torch
 
-    t9 = time.perf_counter()
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    pk.reset_launches()
+        self.dev = dev
+        self.gen = torch.Generator(device=dev).manual_seed(SEED)
 
+    @staticmethod
     def forward(params, cfg, batch):
         """The teacher-forced f32 logits (B, S, V)."""
+        from repro_torch.models import encdec as ED
+        from repro_torch.models import recurrent as R
+        from repro_torch.models import transformer as T
+
         if cfg.family == "audio":
             enc = ED.encode(params, cfg, batch["frames"])
             return ED.decode_train(params, cfg, batch["tokens"], enc)[0]
+        if cfg.family == "ssm":
+            return R.xlstm_forward(params, cfg, batch["tokens"])[0]
+        if cfg.family == "hybrid":
+            return R.hybrid_forward(params, cfg, batch["tokens"])[0]
         return T.transformer_forward(params, cfg, batch["tokens"],
                                      image_embed=batch.get("image_embed"))[0]
 
-    def stub(cfg, b):
+    def stub(self, cfg, b):
         """Seeded normal image embeddings or frames in the model dtype."""
+        import torch
+        from repro_torch.models import layers as L
+
         dt = L.model_dtype(cfg)
         n = {"vlm": cfg.num_image_tokens, "audio": cfg.num_audio_frames}
         if cfg.family not in n:
             return {}
         name = "image_embed" if cfg.family == "vlm" else "frames"
-        return {name: torch.randn(b, n[cfg.family], cfg.d_model, device=dev,
-                                  generator=gen).to(dt)}
+        return {name: torch.randn(b, n[cfg.family], cfg.d_model,
+                                  device=self.dev, generator=self.gen).to(dt)}
 
-    def fp32_cut(params, cfg32):
-        """``params`` in fp32 as ``cfg32``'s weights: its first layers (or
-        groups) only, where ``cfg32`` is cut in depth."""
-        model = weights_init(cfg32, None, "meta")
-        src = params.state_dict()
-        model.load_state_dict({k: src[k].float()
+    @staticmethod
+    def copy_as(params, cfg):
+        """``params`` as ``cfg``'s weights, every leaf in its dtype (fp32
+        or float64): its first layers (or groups) only, where ``cfg`` is
+        cut in depth."""
+        from repro_torch.models import layers as L
+        from repro_torch.models.model import weights_init
+
+        model = weights_init(cfg, None, "meta")
+        src, dt = params.state_dict(), L.model_dtype(cfg)
+        model.load_state_dict({k: src[k].to(dt)
                                for k in model.state_dict()}, assign=True)
         return model
 
+    @staticmethod
     def lossless(cfg):
         """tests/test_decode_consistency.py's MoE capacity: nothing drops."""
         if cfg.moe is None:
@@ -589,72 +638,105 @@ def phase9(dev) -> None:
         return cfg.scaled(moe=dataclasses.replace(
             cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
 
-    def decode_vs_forward(cfg, params, what, b=2):
-        """Prefill on P9_PROMPT tokens and one decode step against the
-        teacher-forced logits at positions S - 1 and S, within
-        LM_LOGIT_TOL, on seeded tokens and stub inputs."""
+    def decode_vs_forward(self, cfg, params, what, b=2, s=P9_PROMPT,
+                          tol=LM_LOGIT_TOL):
+        """Prefill on s tokens and one decode step against the
+        teacher-forced logits at positions s - 1 and s, within rtol = atol
+        = ``tol`` (None: a reading held to no bound), on seeded tokens and
+        stub inputs."""
+        import torch
+        from repro_torch.models.model import build_model
+
         m = build_model(cfg)
-        toks = torch.randint(0, cfg.vocab_size, (b, P9_PROMPT + 1),
-                             device=dev, generator=gen)
-        batch = {"tokens": toks, **stub(cfg, b)}
+        toks = torch.randint(0, cfg.vocab_size, (b, s + 1), device=self.dev,
+                             generator=self.gen)
+        batch = {"tokens": toks, **self.stub(cfg, b)}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        full = forward(params, cfg, batch)
-        lp, cache = m.prefill(params, dict(batch, tokens=toks[:, :P9_PROMPT]),
-                              P9_PROMPT + 4)
-        ld, _ = m.decode_step(params, toks[:, P9_PROMPT], cache, P9_PROMPT,
-                              batch=batch)
+        full = self.forward(params, cfg, batch)
+        lp, cache = m.prefill(params, dict(batch, tokens=toks[:, :s]), s + 4)
+        ld, _ = m.decode_step(params, toks[:, s], cache, s, batch=batch)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
-        e1 = lm_close(f"{what} prefill", lp, full[:, P9_PROMPT - 1],
-                      LM_LOGIT_TOL)
-        e2 = lm_close(f"{what} decode", ld, full[:, P9_PROMPT], LM_LOGIT_TOL)
-        print(f"{what}: decode vs forward (S = {P9_PROMPT}, B = {b}): "
-              f"prefill max err {e1:.3g}, decode max err {e2:.3g} (rtol = "
-              f"atol = {LM_LOGIT_TOL}), {secs:.2f} s", flush=True)
+        del cache
+        e1 = lm_close(f"{what} prefill", lp, full[:, s - 1], tol)
+        e2 = lm_close(f"{what} decode", ld, full[:, s], tol)
+        bound = "no bound" if tol is None else f"rtol = atol = {tol:.3g}"
+        print(f"{what}: decode vs forward (S = {s}, B = {b}): prefill max "
+              f"err {e1:.3g}, decode max err {e2:.3g} ({bound}; logits up to "
+              f"{float(full[:, s - 1:].abs().max()):.3g}), {secs:.2f} s",
+              flush=True)
 
-    def card_vs_cpu(cfg, card, what):
+    def card_vs_cpu(self, cfg, card, what, tols=None):
         """The same fp32 weights on the card and the CPU: prefill and
-        LM_CARD_CPU_STEPS greedy decode steps within LM_CARD_CPU_TOL
-        (logits and caches); greedy tokens equal wherever the CPU's top-two
-        gap exceeds twice it, the routed experts equal wherever the K-th
-        and (K+1)-th router probabilities differ by more than twice the
+        LM_CARD_CPU_STEPS greedy decode steps within LM_CARD_CPU_TOL, or
+        ``tols``' bound for each quantity (logits, and each cache or
+        recurrent state after the prefill and after the last step); greedy
+        tokens equal wherever the CPU's top-two gap exceeds twice the
+        logits' bound, the routed experts equal wherever the K-th and
+        (K+1)-th router probabilities differ by more than twice the
         observed card-vs-CPU difference of the probabilities."""
+        import torch
+        from repro_torch.launch.serve import prompts
+        from repro_torch.models import moe as MOE
+        from repro_torch.models.model import (build_model, cache_leaves,
+                                              weights_init)
+
+        dev = self.dev
         cpu = weights_init(cfg, None, "meta")
         cpu.load_state_dict({k: v.cpu() for k, v in
                              card.state_dict().items()}, assign=True)
         m = build_model(cfg)
         bg = {"tokens": prompts(1, P9_PROMPT, cfg.vocab_size, dev,
-                                seed=9)[0][None], **stub(cfg, 1)}
+                                seed=9)[0][None], **self.stub(cfg, 1)}
         bc = {k: v.cpu() for k, v in bg.items()}
         n_slots = P9_PROMPT + LM_CARD_CPU_STEPS + 1
+
+        def run(params, batch, feed=None):
+            """(logits of the prefill and each step, {when: cache leaves},
+            tokens fed, routing records): the greedy tokens of this run,
+            or ``feed``'s."""
+            dv = batch["tokens"].device
+            logits, states, fed = [], {}, []
+            with MOE.record_routing() as tape:
+                lg, cache = m.prefill(params, batch, n_slots)
+                logits.append(lg)
+                states["prefill"] = {k: t.clone() for k, t in
+                                     cache_leaves(cache)}
+                for step in range(LM_CARD_CPU_STEPS):
+                    tok = torch.argmax(lg, -1) if feed is None \
+                        else feed[step].to(dv)
+                    fed.append(tok)
+                    lg, cache = m.decode_step(params, tok, cache,
+                                              P9_PROMPT + step, batch=batch)
+                    logits.append(lg)
+            states[f"step {LM_CARD_CPU_STEPS}"] = dict(cache_leaves(cache))
+            return logits, states, fed, tape
+
         t0 = time.perf_counter()
-        with MOE.record_routing() as rg:
-            lg, cg = m.prefill(card, bg, n_slots)
-        with MOE.record_routing() as rc:
-            lc, cc = m.prefill(cpu, bc, n_slots)
-        errs = [lm_close(f"{what} prefill card vs cpu", lg, lc,
-                         LM_CARD_CPU_TOL)]
+        lgs, sg, fed, rg = run(card, bg)
+        lcs, sc, _, rc = run(cpu, bc, fed)
+        tol = tols or {k: LM_CARD_CPU_TOL for k in ("logits", *sc["prefill"])}
+        _require(set(tol) == {"logits", *sc["prefill"]},
+                 f"{what}: bounds for {sorted(tol)}")
+        errs = [lm_close(f"{what} {i and f'decode {i - 1}' or 'prefill'} "
+                         f"card vs cpu", a, b, tol["logits"])
+                for i, (a, b) in enumerate(zip(lgs, lcs))]
+        cache_err = {}
+        for when, leaves in sc.items():
+            for name, t in leaves.items():
+                e = lm_close(f"{what} {when} cache {name} card vs cpu",
+                             sg[when][name], t, tol[name])
+                cache_err[name] = max(cache_err.get(name, 0.0), e)
         tokens = 0
         for step in range(LM_CARD_CPU_STEPS):
-            tok = torch.argmax(lg, -1)
-            top2 = torch.topk(lc, 2).values[0]
-            if float(top2[0] - top2[1]) > 2 * LM_CARD_CPU_TOL * (
+            top2 = torch.topk(lcs[step], 2).values[0]
+            if float(top2[0] - top2[1]) > 2 * tol["logits"] * (
                     1 + float(top2[0].abs())):
                 tokens += 1
-                _require(int(torch.argmax(lc, -1)[0]) == int(tok[0]),
+                _require(int(torch.argmax(lcs[step], -1)[0]) ==
+                         int(fed[step][0]),
                          f"{what} step {step}: greedy token differs")
-            pos = P9_PROMPT + step
-            with MOE.record_routing() as more:
-                lg, cg = m.decode_step(card, tok, cg, pos, batch=bg)
-            rg += more
-            with MOE.record_routing() as more:
-                lc, cc = m.decode_step(cpu, tok.cpu(), cc, pos, batch=bc)
-            rc += more
-            errs.append(lm_close(f"{what} decode {step} card vs cpu", lg, lc,
-                                 LM_CARD_CPU_TOL))
-        cache_err = max(lm_close(f"{what} cache {k} card vs cpu", cg[k],
-                                 cc[k], LM_CARD_CPU_TOL) for k in cc)
         decisions = clear = 0
         prob_err = 0.0
         if cfg.moe is not None:
@@ -678,21 +760,34 @@ def phase9(dev) -> None:
                  f"token decisions whose K-th / (K+1)-th gap exceeds 2 x "
                  f"{prob_err:.3g} (the largest card-vs-CPU probability "
                  f"difference)" if cfg.moe is not None else "")
+        states = ", ".join(f"{k} {v:.3g}" for k, v in cache_err.items())
+        bound = f"rtol = atol = {LM_CARD_CPU_TOL}" if tols is None else (
+            "rtol = atol = " + ", ".join(f"{k} {v:g}" for k, v in
+                                         tols.items()))
         print(f"{what} card vs cpu, {cfg.num_layers} layers at full width in "
               f"fp32 (TF32 off), prefill of {P9_PROMPT} tokens and "
               f"{LM_CARD_CPU_STEPS} decode steps: logits max err "
-              f"{', '.join(f'{e:.3g}' for e in errs)}, caches {cache_err:.3g}"
-              f" (rtol = atol = {LM_CARD_CPU_TOL}); greedy tokens equal at "
-              f"the {tokens} of {LM_CARD_CPU_STEPS} steps whose top-two gap "
-              f"exceeds twice it{route}; {time.perf_counter() - t0:.2f} s",
-              flush=True)
+              f"{', '.join(f'{e:.3g}' for e in errs)}, caches "
+              f"{max(cache_err.values()):.3g} ({states}) ({bound}); greedy "
+              f"tokens equal at the {tokens} of {LM_CARD_CPU_STEPS} steps "
+              f"whose top-two gap exceeds twice the logits' bound{route}; "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
 
-    def serve(arch, what):
+    def serve(self, arch, what):
         """``Server`` on the full config in bf16 (weights from seed 0 on
         the card): P9_REQUESTS requests of the CLI's prompts through
         P9_SLOTS slots, then one decode step timed and profiled, and for a
         MoE config the served prefills' capacity drops. Returns the
         server."""
+        import torch
+        from repro_torch.configs import get_config
+        from repro_torch.launch.serve import Request, Server, prompts
+        from repro_torch.models import moe as MOE
+        from repro_torch.models import recurrent as R
+        from repro_torch.models import xlstm as XL
+        from repro_torch.models.model import cache_leaves
+
+        dev = self.dev
         cfg = get_config(arch)
         V = cfg.vocab_size
         torch.cuda.synchronize()
@@ -763,6 +858,17 @@ def phase9(dev) -> None:
         if cfg.family == "audio":
             shape += (f", {cfg.encoder_layers} encoder layers, "
                       f"{cfg.num_audio_frames} frames")
+        if cfg.family == "ssm":
+            G, Rm = R._xlstm_layout(cfg)
+            shape += (f", {G} groups of {Rm} mLSTM + 1 sLSTM (sLSTM "
+                      f"d_inner {XL.slstm_dims(cfg.d_model, cfg.num_heads)[0]}"
+                      f")")
+        if cfg.family == "hybrid":
+            G, E = R._hybrid_layout(cfg)
+            shape += (f", {G} groups of {E} Mamba2 blocks (SSD state "
+                      f"{cfg.ssm.d_state}, head_dim {cfg.ssm.head_dim}, chunk "
+                      f"{cfg.ssm.chunk}) + one shared attention block (head "
+                      f"dim {cfg.resolved_head_dim}, d_ff {cfg.d_ff})")
         print(f"{what} server {arch} full config ({shape}) bf16, "
               f"{nparams / 1e9:.2f} B params, {wbytes / 1e9:.3f} GB of "
               f"weights built in {init_s:.2f} s; {P9_REQUESTS} requests of "
@@ -781,6 +887,18 @@ def phase9(dev) -> None:
         lp, pcache = m.prefill(params, {"tokens": reqs[0].prompt[None],
                                         **extra}, P9_MAX_LEN)
         tok = torch.argmax(lp, -1)
+        if cfg.family in ("ssm", "hybrid"):
+            parts = {}
+            for name, t in cache_leaves(pcache):
+                key = name.split(".")[0]
+                parts[key] = parts.get(key, 0) + t.numel() * t.element_size()
+            print(f"{what} a slot's cache at batch 1: "
+                  f"{sum(parts.values()) / 1e6:.1f} MB ("
+                  + ", ".join(f"{k} {v / 1e6:.1f} MB" for k, v in
+                              parts.items())
+                  + (f"; mLSTM C {tuple(pcache['mlstm'].C.shape[2:])} f32 a "
+                     f"layer" if cfg.family == "ssm" else "") + ")",
+                  flush=True)
 
         def one_step():
             return m.decode_step(params, tok, pcache, P9_PROMPT, batch=extra)
@@ -813,66 +931,143 @@ def phase9(dev) -> None:
                   flush=True)
         return srv
 
+
+def phase9(dev) -> None:
+    """Phase 9: the MoE, MLA, VLM and enc-dec serving paths at full width
+    (the module docstring's item 9). Its models launch no kernel of the
+    port: the launch counts stay empty over the phase."""
+    import torch
+
+    from repro_torch.kernels import pairwise_distance as pk
+
+    t9 = time.perf_counter()
+    lm = LMCheck(dev)
+    pk.reset_launches()
+
     # 9a: granite-moe, the decode-vs-forward check on a lossless fp32 copy
-    srv = serve("granite-moe-3b-a800m", "phase9a")
-    cfg32 = lossless(srv.cfg.scaled(dtype="float32"))
-    p32 = fp32_cut(srv.params, cfg32)
+    srv = lm.serve("granite-moe-3b-a800m", "phase9a")
+    cfg32 = lm.lossless(srv.cfg.scaled(dtype="float32"))
+    p32 = lm.copy_as(srv.params, cfg32)
     del srv
     torch.cuda.empty_cache()
-    decode_vs_forward(cfg32, p32, f"phase9a fp32 copy, full depth, capacity "
-                      f"factor {cfg32.moe.capacity_factor:g}")
+    lm.decode_vs_forward(cfg32, p32, f"phase9a fp32 copy, full depth, "
+                         f"capacity factor {cfg32.moe.capacity_factor:g}")
     del p32
     torch.cuda.empty_cache()
 
     # 9b: deepseek-v2-lite (MLA + MoE), fp32 copy cut in depth; 9c: two
     # full-width layers at the served capacity, card vs CPU
-    srv = serve("deepseek-v2-lite-16b", "phase9b")
-    cfg32 = lossless(srv.cfg.scaled(dtype="float32",
-                                    num_layers=DEEPSEEK_FP32_LAYERS))
-    p32 = fp32_cut(srv.params, cfg32)
+    srv = lm.serve("deepseek-v2-lite-16b", "phase9b")
+    cfg32 = lm.lossless(srv.cfg.scaled(dtype="float32",
+                                       num_layers=DEEPSEEK_FP32_LAYERS))
+    p32 = lm.copy_as(srv.params, cfg32)
     cfg2 = srv.cfg.scaled(dtype="float32", num_layers=P9_CARD_CPU_LAYERS)
-    card2 = fp32_cut(srv.params, cfg2)
+    card2 = lm.copy_as(srv.params, cfg2)
     del srv
     torch.cuda.empty_cache()
-    decode_vs_forward(cfg32, p32, f"phase9b fp32 copy cut to "
-                      f"{DEEPSEEK_FP32_LAYERS} layers, capacity factor "
-                      f"{cfg32.moe.capacity_factor:g}")
+    lm.decode_vs_forward(cfg32, p32, f"phase9b fp32 copy cut to "
+                         f"{DEEPSEEK_FP32_LAYERS} layers, capacity factor "
+                         f"{cfg32.moe.capacity_factor:g}")
     del p32
     torch.cuda.empty_cache()
-    card_vs_cpu(cfg2, card2, "phase9c deepseek-v2-lite-16b")
+    lm.card_vs_cpu(cfg2, card2, "phase9c deepseek-v2-lite-16b")
     del card2
     torch.cuda.empty_cache()
 
     # 9d: llama-3.2-vision served on zeroed images; one full-width group in
     # fp32 with its cross gate at P9_GATE on seeded image embeddings
-    srv = serve("llama-3.2-vision-11b", "phase9d")
+    srv = lm.serve("llama-3.2-vision-11b", "phase9d")
     cfg1 = srv.cfg.scaled(dtype="float32", num_layers=srv.cfg.cross_attn_every)
-    g1 = fp32_cut(srv.params, cfg1)
+    g1 = lm.copy_as(srv.params, cfg1)
     del srv
     torch.cuda.empty_cache()
     for p in g1.groups.cross:
         p.gate.fill_(P9_GATE)
-    decode_vs_forward(cfg1, g1, f"phase9d one group fp32, gate {P9_GATE}")
-    card_vs_cpu(cfg1, g1, f"phase9d llama-3.2-vision-11b one group, gate "
-                f"{P9_GATE},")
+    lm.decode_vs_forward(cfg1, g1, f"phase9d one group fp32, gate {P9_GATE}")
+    lm.card_vs_cpu(cfg1, g1, f"phase9d llama-3.2-vision-11b one group, gate "
+                   f"{P9_GATE},")
     del g1
     torch.cuda.empty_cache()
 
     # 9e: whisper served on zeroed frames; full depth in fp32 on seeded
     # frames
-    srv = serve("whisper-small", "phase9e")
+    srv = lm.serve("whisper-small", "phase9e")
     cfg32 = srv.cfg.scaled(dtype="float32")
-    w32 = fp32_cut(srv.params, cfg32)
+    w32 = lm.copy_as(srv.params, cfg32)
     del srv
     torch.cuda.empty_cache()
-    decode_vs_forward(cfg32, w32, "phase9e fp32 copy, full depth")
-    card_vs_cpu(cfg32, w32, "phase9e whisper-small")
+    lm.decode_vs_forward(cfg32, w32, "phase9e fp32 copy, full depth")
+    lm.card_vs_cpu(cfg32, w32, "phase9e whisper-small")
     del w32
     torch.cuda.empty_cache()
 
     _require(dict(pk.LAUNCHES) == {}, f"phase9: kernel launches "
                                       f"{dict(pk.LAUNCHES)} on the LM path")
     print(f"phase9: {time.perf_counter() - t9:.1f} s", flush=True)
+
+
+def phase10(dev):
+    """Phase 10 up to 10e: the recurrent families at full width (the module
+    docstring's item 10). Its models launch no kernel of the port: the
+    launch counts stay empty. Returns zamba2-2.7b's served config and bf16
+    weights, for 10e's embedding medoid."""
+    import torch
+
+    from repro_torch.kernels import pairwise_distance as pk
+
+    lm = LMCheck(dev)
+    pk.reset_launches()
+
+    # 10a: xlstm-1.3b served in bf16, then 10c, decode vs forward at full
+    # depth on a P10_PROMPT-token prompt: held to LM_LOGIT_TOL on a float64
+    # copy, where rounding cannot hide a fault, and read on an fp32 copy,
+    # whose rounding the 48 layers amplify past it; then one group in fp32:
+    # decode vs forward (10c) and card vs CPU (10d)
+    srv = lm.serve("xlstm-1.3b", "phase10a")
+    xcfg, xparams = srv.cfg, srv.params
+    del srv
+    torch.cuda.empty_cache()
+    for dt, tol in (("float64", LM_LOGIT_TOL), ("float32", None)):
+        cfgw = xcfg.scaled(dtype=dt)
+        xw = lm.copy_as(xparams, cfgw)
+        lm.decode_vs_forward(cfgw, xw, f"phase10c xlstm-1.3b {dt} copy, full "
+                             f"depth", b=P10_BATCH, s=P10_PROMPT, tol=tol)
+        del xw
+        torch.cuda.empty_cache()
+    per = len(xcfg.block_pattern)
+    cfg1 = xcfg.scaled(dtype="float32", num_layers=per)
+    g1 = lm.copy_as(xparams, cfg1)
+    del xparams
+    torch.cuda.empty_cache()
+    lm.decode_vs_forward(cfg1, g1, f"phase10c xlstm-1.3b one group ({per} "
+                         f"layers)", b=P10_BATCH, s=P10_PROMPT)
+    lm.card_vs_cpu(cfg1, g1, f"phase10d xlstm-1.3b one group ({per} of "
+                   f"{xcfg.num_layers} layers)", tols=XLSTM_CARD_CPU_TOL)
+    del g1
+    torch.cuda.empty_cache()
+
+    # 10b: zamba2-2.7b served in bf16; its weights stay for 10e
+    srv = lm.serve("zamba2-2.7b", "phase10b")
+    zcfg, zparams = srv.cfg, srv.params
+    cfg32 = zcfg.scaled(dtype="float32")
+    z32 = lm.copy_as(zparams, cfg32)
+    del srv
+    torch.cuda.empty_cache()
+    lm.decode_vs_forward(cfg32, z32, "phase10c zamba2-2.7b fp32 copy, full "
+                         "depth", b=P10_BATCH, s=P10_PROMPT)
+    del z32
+    torch.cuda.empty_cache()
+    per = zcfg.shared_attn_every
+    cfg1 = cfg32.scaled(num_layers=per)
+    g1 = lm.copy_as(zparams, cfg1)
+    lm.card_vs_cpu(cfg1, g1, f"phase10d zamba2-2.7b one group ({per} of "
+                   f"{cfg32.num_layers} Mamba2 blocks and the shared block)")
+    del g1
+    torch.cuda.empty_cache()
+
+    _require(dict(pk.LAUNCHES) == {}, f"phase10: kernel launches "
+                                      f"{dict(pk.LAUNCHES)} on the LM path")
+    return zcfg, zparams
 
 
 def main() -> int:
@@ -3084,6 +3279,72 @@ def main() -> int:
 
     # ------------- phase 9: the other LM families at full width
     phase9(dev)
+
+    # ------------- phase 10: the recurrent families at full width
+    t10 = time.perf_counter()
+    zcfg, zparams = phase10(dev)
+
+    # 10e: the embedding medoid on zamba2-2.7b's bf16 weights of 10b
+    V = zcfg.vocab_size
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    embs = emb_ex.embed_corpus(zcfg, zparams, EMB_SEQS, EMB_LEN, dev)
+    torch.cuda.synchronize()
+    emb_s = time.perf_counter() - t0
+    _require(embs.shape == (EMB_SEQS, V) and embs.dtype == torch.float32
+             and bool(torch.isfinite(embs).all()),
+             f"phase10e embeddings {tuple(embs.shape)} {embs.dtype}")
+    _require(dict(pk.LAUNCHES) == {}, f"phase10e embedding pass: kernel "
+                                      f"launches {dict(pk.LAUNCHES)}")
+    toks = rng.randint(rng.fold_in(rng.key(1, dev), 0), (32, EMB_LEN), 0, V)
+    t0 = time.perf_counter()
+    emb_ex.embed_sequences(zcfg, zparams, toks)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    note = busy_note(profiled(
+        lambda: emb_ex.embed_sequences(zcfg, zparams, toks)), batch_s)
+    print(f"phase10e one batch of the embedding pass (32 x {EMB_LEN} tokens) "
+          f"{batch_s * 1e3:.2f} ms; {note}", flush=True)
+    del zparams
+    torch.cuda.empty_cache()
+    n = EMB_SEQS
+    data["lm_embed_zamba2"] = embs
+    t0 = time.perf_counter()
+    truth = int(exact_medoid(embs, "l2"))
+    torch.cuda.synchronize()
+    exact_s = time.perf_counter() - t0
+    ref = correlated_sequential_halving(embs, EMB_BUDGET * n,
+                                        rng.key(2, dev), metric="l2",
+                                        backend="reference")
+    theta = torch.sort(ref.theta_hat).values
+    gap = float(theta[1] - theta[0])
+    fm_plan = halving_plan(executed_rounds(n, EMB_BUDGET * n),
+                           "dot_centrality", False)
+    for backend in ("reference", "pallas_fused"):
+        res, wall, counts, mem = main_path(
+            lambda: emb_ex.representative(embs, backend))
+        plan = fm_plan if backend == "pallas_fused" else []
+        check_launches(f"phase10e find_medoid {backend}", counts, plan)
+        _require(res.medoid == truth or gap <= 2 * RTOL * float(
+            theta[0].abs()), f"phase10e {backend}: medoid {res.medoid}, "
+                             f"exact {truth}, output-round gap {gap}")
+        print(f"phase10e find_medoid {backend} on ({n}, {V}) zamba2-2.7b "
+              f"embeddings (key 2, {EMB_BUDGET} per arm, l2): medoid "
+              f"{res.medoid} (exact {truth}: "
+              f"{'equal' if res.medoid == truth else 'differs'}, "
+              f"output-round gap {gap:.6g}), pulls {res.pulls}, wall "
+              f"{wall:.3f} s, launches {counts}, {mem}", flush=True)
+    tot = ledger_add(fm_plan, "lm_embed_zamba2", "l2")
+    print(f"phase10e 1h ⊂ 1: embedding rounds (C, R, {V}): "
+          f"{fmt_shapes(fm_plan, 'lm_embed_zamba2', 'l2', ('dot_centrality',))}"
+          f"; in all {fmt_tot(tot)}", flush=True)
+    print(f"phase10e embedding pass: {EMB_SEQS} sequences of {EMB_LEN} "
+          f"tokens in batches of 32, {emb_s:.2f} s "
+          f"({EMB_SEQS * EMB_LEN / emb_s:.0f} tokens/s); exact medoid "
+          f"{truth} in {exact_s:.3f} s", flush=True)
+    del embs, data["lm_embed_zamba2"]
+    torch.cuda.empty_cache()
+    print(f"phase10: {time.perf_counter() - t10:.1f} s", flush=True)
 
     for kern, row in led.rows.items():
         _require(row["launches"] > 0 or kern in UNCALLED,

@@ -1,10 +1,11 @@
 """The paper's technique wired into the LM stack: representative-example
 selection over a transformer's outputs via Correlated Sequential Halving.
 The PyTorch port of ``examples/embedding_medoid.py``, on an NVIDIA card
-(``--cpu`` runs on the CPU instead); every family the port runs: the dense
-decoders, the MoE / MLA decoders (granite-moe-3b-a800m,
-deepseek-v2-lite-16b), the VLM (llama-3.2-vision-11b, on seeded image
-embeddings) and the enc-dec (whisper-small, on seeded frames).
+(``--cpu`` runs on the CPU instead); every family: the dense decoders, the
+MoE / MLA decoders (granite-moe-3b-a800m, deepseek-v2-lite-16b), the VLM
+(llama-3.2-vision-11b, on seeded image embeddings), the enc-dec
+(whisper-small, on seeded frames), xLSTM (xlstm-1.3b) and the Mamba2 hybrid
+(zamba2-2.7b).
 
 Use case (data pruning / coreset selection): embed a pile of sequences with a
 model, then pick the most-representative sequence = the medoid of the
@@ -35,8 +36,9 @@ from repro_torch.engine import rng
 from repro_torch.launch.serve_medoid import MedoidServer
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
+from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
-from repro_torch.models.model import build_model, check_ported
+from repro_torch.models.model import build_model
 
 
 @torch.no_grad()
@@ -44,15 +46,19 @@ def embed_sequences(cfg, params, tokens: torch.Tensor, frames=None,
                     image_embed=None) -> torch.Tensor:
     """(B, S) tokens -> (B, V) f32: the mean over positions of the f32
     logits (a model-agnostic embedding proxy); the audio family encodes
-    ``frames`` first, the VLM reads ``image_embed``. The recurrent families
-    raise ``NotImplementedError`` naming their ROADMAP item."""
-    check_ported(cfg)
-    if cfg.family == "audio":
+    ``frames`` first, the VLM reads ``image_embed``."""
+    if cfg.family in ("dense", "moe", "vlm"):
+        logits, _, _ = T.transformer_forward(params, cfg, tokens,
+                                             image_embed=image_embed)
+    elif cfg.family == "ssm":
+        logits, _ = R.xlstm_forward(params, cfg, tokens)
+    elif cfg.family == "hybrid":
+        logits, _ = R.hybrid_forward(params, cfg, tokens)
+    elif cfg.family == "audio":
         enc = ED.encode(params, cfg, frames)
         logits, _ = ED.decode_train(params, cfg, tokens, enc)
     else:
-        logits, _, _ = T.transformer_forward(params, cfg, tokens,
-                                             image_embed=image_embed)
+        raise ValueError(f"unknown family {cfg.family!r}")
     return torch.mean(logits.float(), dim=1)
 
 

@@ -60,6 +60,15 @@ def _stacked_axes(cfg) -> dict:
     if cfg.family == "audio":
         return {"enc": (cfg.encoder_layers or cfg.num_layers,),
                 "dec": (cfg.num_layers,)}
+    if cfg.family == "ssm":
+        from repro_torch.models.recurrent import _xlstm_layout
+        G, R = _xlstm_layout(cfg)
+        return {"groups.mlstm": (G, R), "groups.mln": (G, R),
+                "groups.slstm": (G,), "groups.sln": (G,)}
+    if cfg.family == "hybrid":
+        from repro_torch.models.recurrent import _hybrid_layout
+        G, E = _hybrid_layout(cfg)
+        return {"mamba": (G, E), "mln": (G, E)}
     if cfg.cross_attn_every:
         groups = cfg.num_layers // cfg.cross_attn_every
         return {"groups.self": (groups, cfg.cross_attn_every - 1),
@@ -113,13 +122,16 @@ def _lm_state_dict(cfg, tree) -> dict:
 
 def lm_params_from_jax(cfg, tree, device=None):
     """The port's weights module (``repro_torch.models.transformer.
-    Transformer``, or ``models.encdec.EncDec`` for the audio family)
-    holding the JAX package's ``params`` pytree ``tree``, bit for bit, on
-    ``device`` (CUDA unless asked otherwise). The stacked layer axes
-    (``layers``; a VLM's ``groups.self`` (groups, per - 1) and
-    ``groups.cross``; enc-dec's ``enc`` and ``dec``) are unstacked into
-    ``layers.{i}.*``, ``groups.self.{g}.{j}.*`` and so on; every array
-    keeps its dtype and bits (the MoE router and the norms in f32). Raises
+    Transformer``; ``models.encdec.EncDec`` for the audio family,
+    ``models.recurrent.XLSTM`` / ``Hybrid`` for ssm / hybrid) holding the
+    JAX package's ``params`` pytree ``tree``, bit for bit, on ``device``
+    (CUDA unless asked otherwise). The stacked layer axes (``layers``; a
+    VLM's ``groups.self`` (groups, per - 1) and ``groups.cross``; enc-dec's
+    ``enc`` and ``dec``; xLSTM's ``groups.{mlstm,mln}`` (G, R) and
+    ``groups.{slstm,sln}`` (G,); the hybrid's ``mamba`` and ``mln`` (G, E))
+    are unstacked into ``layers.{i}.*``, ``groups.self.{g}.{j}.*`` and so
+    on; every array keeps its dtype and bits (the MoE router, xLSTM's gates,
+    Mamba2's ``A_log`` / ``D`` / ``dt_bias`` and the norms in f32). Raises
     ``ValueError`` for a missing or extra key, a wrong shape or a dtype
     other than the config's."""
     from repro_torch.models.model import weights_init

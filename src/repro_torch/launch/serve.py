@@ -7,13 +7,16 @@ token per step for every live sequence and retires finished ones
 decoded one after another at batch 1, each with its own cache, and sampling
 is greedy.
 
-Runs on CUDA unless ``--device cpu``; every family the port runs (see
+Runs on CUDA unless ``--device cpu``; every family (see
 ``repro_torch.models.model``): the VLM and audio configs are fed zeroed
-image embeddings or frames (``Server._extra``), as in the reference.
-Example:
+image embeddings or frames (``Server._extra``), as in the reference; the
+recurrent ones (xLSTM, the Mamba2 hybrid) keep their states in each slot's
+cache. Examples:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
       --arch internlm2-1.8b --smoke --requests 6 --max-new 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \\
+      --arch zamba2-2.7b --smoke --requests 6 --max-new 16
 """
 from __future__ import annotations
 

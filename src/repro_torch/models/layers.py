@@ -59,8 +59,17 @@ def _node(v):
 
 
 def model_dtype(cfg) -> torch.dtype:
-    """The torch dtype of a config's ``dtype`` name (bf16, else f32)."""
-    return torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    """The torch dtype of a config's ``dtype`` name: bf16, float64 (a
+    checking copy, see :func:`wide`), else f32."""
+    return {"bfloat16": torch.bfloat16,
+            "float64": torch.float64}.get(cfg.dtype, torch.float32)
+
+
+def wide(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, where the reference computes in f32, or kept in
+    float64 when it is float64: a float64 copy of an xLSTM runs every step
+    in float64 (the layers below and ``xlstm.py`` widen through this)."""
+    return x if x.dtype == torch.float64 else x.float()
 
 
 def init_device(gen, device=None) -> torch.device:
@@ -96,8 +105,8 @@ def rmsnorm_init(d: int, device=None) -> dict:
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """f32 inside, cast back to x's dtype."""
-    xf = x.float()
+    """f32 inside (float64 for float64 x), cast back to x's dtype."""
+    xf = wide(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps) * params["scale"]
     return out.to(x.dtype)
@@ -182,6 +191,14 @@ def mlp_apply(params, x: torch.Tensor, act: str = "silu",
     return h @ params["w_down"]
 
 
+def pad_seq(t: torch.Tensor, axis: int, pad: int,
+            value: float = 0.0) -> torch.Tensor:
+    """Pad ``t``'s sequence axis ``axis`` at the end by ``pad`` entries of
+    ``value``."""
+    widths = [0, 0] * (t.ndim - 1 - axis) + [0, pad]
+    return F.pad(t, widths, value=value)
+
+
 def unembed(embed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Tied unembedding -> f32 logits (f32 by f32)."""
-    return x.float() @ embed.float().T
+    """Tied unembedding -> f32 logits (f32 by f32; float64 by float64)."""
+    return wide(x) @ wide(embed).T

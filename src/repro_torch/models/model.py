@@ -1,18 +1,17 @@
-"""Unified Model interface: init / prefill / decode for the transformer
-and enc-dec families.
+"""Unified Model interface: init / prefill / decode for every family.
 
 The port of ``repro.models.model``. ``build_model(cfg)`` returns a
 :class:`Model` whose members are plain functions over the weights module
 that ``init`` builds. Batches are dicts:
 
-  {"tokens": (B, S) ints}                               dense, moe
+  {"tokens": (B, S) ints}                               dense, moe, ssm, hybrid
   {"tokens", "image_embed": (B, N_img, d_model)}        vlm (patch stub)
   {"tokens", "frames": (B, S_enc, d_model)}             audio (conv stub)
 
-Ported: the dense, moe (MoE and MLA layers), vlm and audio families. The
-recurrent ssm / hybrid families raise ``NotImplementedError`` at
-``build_model``, naming ROADMAP item 14d. ``loss`` (with ``fused_xent``
-and ``_xent``) comes with training, item 14e.
+Every family runs: dense and moe (MoE and MLA layers) decoders, vlm,
+audio (enc-dec), ssm (xLSTM) and hybrid (Zamba2: Mamba2 blocks with a
+shared attention block). ``loss`` (with ``fused_xent`` and ``_xent``)
+comes with training, ROADMAP item 14e.
 """
 from __future__ import annotations
 
@@ -24,14 +23,10 @@ import torch
 from repro_torch.configs.base import ModelCfg
 from repro_torch.convert import resolve_device
 from repro_torch.models import encdec as ED
+from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
 
-_UNPORTED = {
-    "ssm": "the recurrent ssm family (models/xlstm.py, models/recurrent.py):"
-           " ROADMAP item 14d",
-    "hybrid": "the hybrid family (models/mamba2.py, models/recurrent.py): "
-              "ROADMAP item 14d",
-}
+FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,27 +44,35 @@ def _generator(seed: Union[int, torch.Generator], device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
-def check_ported(cfg: ModelCfg) -> None:
-    """Raise ``NotImplementedError`` for a family the port does not run
-    yet, naming its ROADMAP item; ``ValueError`` for an unknown family."""
-    fam = cfg.family
-    if fam in _UNPORTED:
-        raise NotImplementedError(f"{cfg.name}: {_UNPORTED[fam]}")
-    if fam not in ("dense", "moe", "vlm", "audio"):
-        raise ValueError(f"unknown family {fam!r}")
+def cache_leaves(cache: dict) -> list:
+    """[(name, tensor)] of a family's cache: its tensors by key, and each
+    field of its recurrent states (``mlstm.C``, ``slstm.m``, ``mamba.h``)."""
+    out = []
+    for k, v in cache.items():
+        if isinstance(v, tuple):
+            out += [(f"{k}.{f}", t) for f, t in zip(v._fields, v)]
+        else:
+            out.append((k, v))
+    return out
+
+
+def check_family(cfg: ModelCfg) -> None:
+    """Raise ``ValueError`` for a family the port does not know."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}")
 
 
 def weights_init(cfg: ModelCfg, gen, device=None):
     """The family's weights module from ``gen`` on ``device`` (the rule of
     ``transformer.transformer_init``; the meta device draws nothing)."""
-    check_ported(cfg)
-    if cfg.family == "audio":
-        return ED.encdec_init(gen, cfg, device)
-    return T.transformer_init(gen, cfg, device)
+    check_family(cfg)
+    init = {"audio": ED.encdec_init, "ssm": R.xlstm_init,
+            "hybrid": R.hybrid_init}.get(cfg.family, T.transformer_init)
+    return init(gen, cfg, device)
 
 
 def build_model(cfg: ModelCfg) -> Model:
-    check_ported(cfg)
+    check_family(cfg)
 
     def init(seed: Union[int, torch.Generator] = 0, device=None):
         """The weights on ``device`` from a seed or a ``torch.Generator``
@@ -80,7 +83,25 @@ def build_model(cfg: ModelCfg) -> Model:
         device = resolve_device(device)
         return weights_init(cfg, _generator(seed, device), device)
 
-    if cfg.family == "audio":
+    if cfg.family == "ssm":        # xLSTM
+        def prefill(params, batch, max_len):
+            return R.xlstm_prefill(params, cfg, batch["tokens"], max_len)
+
+        def decode_step(params, token, cache, pos, batch=None):
+            return R.xlstm_decode_step(params, cfg, token, cache, pos)
+
+        def init_cache(batch_size, max_len, device=None):
+            return R.xlstm_init_cache(cfg, batch_size, device)
+    elif cfg.family == "hybrid":   # zamba2
+        def prefill(params, batch, max_len):
+            return R.hybrid_prefill(params, cfg, batch["tokens"], max_len)
+
+        def decode_step(params, token, cache, pos, batch=None):
+            return R.hybrid_decode_step(params, cfg, token, cache, pos)
+
+        def init_cache(batch_size, max_len, device=None):
+            return R.hybrid_init_cache(cfg, batch_size, max_len, device)
+    elif cfg.family == "audio":
         def prefill(params, batch, max_len):
             return ED.encdec_prefill(params, cfg, batch["tokens"],
                                      batch["frames"], max_len)

@@ -38,7 +38,6 @@ from __future__ import annotations
 from typing import Any, Dict, Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.convert import resolve_device
@@ -285,12 +284,6 @@ def init_kv_cache(cfg: ModelCfg, batch: int, max_len: int,
             "v": zeros(cfg.num_layers, batch, max_len, kv, kd)}
 
 
-def _pad_seq(t: torch.Tensor, axis: int, pad: int) -> torch.Tensor:
-    """Zero-pad ``t``'s sequence axis ``axis`` by ``pad`` at the end."""
-    widths = [0, 0] * (t.ndim - 1 - axis) + [0, pad]
-    return F.pad(t, widths)
-
-
 def transformer_prefill(params, cfg: ModelCfg, tokens: torch.Tensor,
                         max_len: int,
                         image_embed: Optional[torch.Tensor] = None):
@@ -304,15 +297,15 @@ def transformer_prefill(params, cfg: ModelCfg, tokens: torch.Tensor,
     pad = max_len - S
     if cfg.cross_attn_every:
         (k, v), (xk, xv) = kvs
-        cache = {"k": _pad_seq(k, 3, pad), "v": _pad_seq(v, 3, pad),
+        cache = {"k": L.pad_seq(k, 3, pad), "v": L.pad_seq(v, 3, pad),
                  "xk": xk, "xv": xv}
     elif cfg.mla is not None:
         ckv, krope = kvs
-        cache = {"ckv": _pad_seq(ckv, 2, pad),
-                 "krope": _pad_seq(krope, 2, pad)}
+        cache = {"ckv": L.pad_seq(ckv, 2, pad),
+                 "krope": L.pad_seq(krope, 2, pad)}
     else:
         k, v = kvs
-        cache = {"k": _pad_seq(k, 2, pad), "v": _pad_seq(v, 2, pad)}
+        cache = {"k": L.pad_seq(k, 2, pad), "v": L.pad_seq(v, 2, pad)}
     return logits[:, 0], cache
 
 

@@ -1,13 +1,29 @@
 """Shared checks of the port's LM families against the live JAX package
-(``tests/test_torch_lm_{moe,mla,vlm,encdec}.py``): the whole model's
-forward, prefill and decode on JAX's weights converted bit for bit, the
-port's own decode against its forward, the converter's bits, and the serve
-CLI.
+(``tests/test_torch_lm_{moe,mla,vlm,encdec,xlstm,mamba2}.py``; the dense
+decoders in ``tests/test_torch_lm_models.py``): the whole model's forward,
+prefill and decode on JAX's weights converted bit for bit, the port's own
+decode against its forward, the converter's bits, and the serve CLI. The
+families: dense, moe (MoE and MLA), vlm, audio (enc-dec), ssm (xLSTM) and
+hybrid (Zamba2); ``check_recurrent_against_jax`` is the last two's.
 
 ``TOL`` and ``OF_MAX`` are the tolerances of every LM parity test, the
 dense ones of ``tests/test_torch_lm_models.py`` too (whose docstring says
 why): fp32 logits rtol = atol = 2e-3, caches 1e-4; bf16 logits rtol 3e-2
 and atol 3e-2 of the largest |logit|, caches rtol 3e-2 and atol 0.1.
+
+xLSTM's bounds (``recurrent_tol``) are wider than ``TOL``: its
+exponential gates, sLSTM's recurrence and mLSTM's normaliser amplify last
+bits. Readings on xlstm-1.3b's smoke config at batch 3 over the forward,
+the prefill and 11 decode steps, each as max |err| over the largest |value|
+of its quantity: in fp32 the port against compiled JAX 5.8e-5 on the
+logits and up to 1.2e-4 on the states (sLSTM h), and JAX against itself
+with a seeded half of its weights moved one ulp up to 1.0e-4 (sLSTM h), so
+``TOL``'s absolute 1e-4 cannot hold a state whose values exceed 1 (sLSTM n
+is at least 1): the states get rtol 1e-4 and atol 1e-4 of each state's
+largest |value|. In bf16 compiled JAX parts from op-by-op JAX by 27% on the
+logits and 10-26% on the states, and the port from op-by-op JAX by 3.9% on
+the logits and up to 6.4% on the states (6.7% at batch 1): rtol 3e-2 and
+atol 8e-2 of the largest |value|, logits and states alike.
 
 ``eager_jax``: JAX runs under ``jax.disable_jit()``, each op as its own
 computation (``lax.scan`` as a Python loop). The MoE family in bf16 needs
@@ -21,7 +37,9 @@ smoke config).
 """
 import contextlib
 import dataclasses
+import importlib.util
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -31,6 +49,7 @@ import torch
 import repro.configs as jconfigs
 import repro.launch.serve as jserve
 from repro.models import encdec as JED
+from repro.models import recurrent as JR
 from repro.models import transformer as JT
 from repro.models.model import build_model as jbuild
 import repro_torch.configs as tconfigs
@@ -38,15 +57,26 @@ import repro_torch.launch.serve as tserve
 from repro_torch.convert import lm_params_from_jax
 from repro_torch.models import encdec as ED
 from repro_torch.models import moe as MOE
+from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
-from repro_torch.models.model import build_model
+from repro_torch.models.model import build_model, cache_leaves
 
+ROOT = Path(__file__).resolve().parents[1]
 TOL = {"float32": dict(logits=(2e-3, 2e-3), cache=(1e-4, 1e-4)),
        "bfloat16": dict(logits=(3e-2, 3e-2), cache=(3e-2, 0.1))}
 OF_MAX = {"float32": False, "bfloat16": True}     # logits' atol
 DECODE_TOL = 2e-3       # tests/test_decode_consistency.py's bound
 B, S = 2, 13
 VLM_GATE = 0.5
+
+
+def example(name):
+    """``examples/<name>.py`` as a module."""
+    spec = importlib.util.spec_from_file_location(
+        f"_ex_{name}", ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def pair(arch, dtype, **kw):
@@ -113,6 +143,10 @@ def batches(cfg, toks, extra):
 
 
 def jax_forward(params, jcfg, batch):
+    if jcfg.family == "ssm":
+        return JR.xlstm_forward(params, jcfg, batch["tokens"])[0], 0.0
+    if jcfg.family == "hybrid":
+        return JR.hybrid_forward(params, jcfg, batch["tokens"])[0], 0.0
     if jcfg.family == "audio":
         enc = JED.encode(params, jcfg, batch["frames"])
         return JED.decode_train(params, jcfg, batch["tokens"], enc)[0], 0.0
@@ -122,6 +156,10 @@ def jax_forward(params, jcfg, batch):
 
 
 def port_forward(model, cfg, batch):
+    if cfg.family == "ssm":
+        return R.xlstm_forward(model, cfg, batch["tokens"])[0], 0.0
+    if cfg.family == "hybrid":
+        return R.hybrid_forward(model, cfg, batch["tokens"])[0], 0.0
     if cfg.family == "audio":
         enc = ED.encode(model, cfg, batch["frames"])
         return ED.decode_train(model, cfg, batch["tokens"], enc)[0], 0.0
@@ -185,6 +223,91 @@ def check_against_jax(arch, dtype, eager_jax=False, s=S):
     return sum(int((~rec["kept"]).sum()) for rec in tape)
 
 
+RECURRENT_STEPS = 11
+RECURRENT_BATCH = 3     # JAX's run; a smaller batch reads its first rows
+# each recurrent cache leaf's batch axis, after its stacked layer axes
+BATCH_AXIS = {"mlstm": 2, "slstm": 1, "mamba": 2, "k": 1, "v": 1}
+
+
+def recurrent_tol(cfg):
+    """((logits tol, of_max), (states tol, of_max)) of a recurrent family
+    in its dtype (the module docstring gives xLSTM's readings)."""
+    dt = cfg.dtype
+    if cfg.family == "ssm":
+        if dt == "float32":
+            return (TOL[dt]["logits"], False), ((1e-4, 1e-4), True)
+        return ((3e-2, 8e-2), True), ((3e-2, 8e-2), True)
+    return (TOL[dt]["logits"], OF_MAX[dt]), (TOL[dt]["cache"], False)
+
+
+def check_states(got, want, tol, of_max, what=""):
+    """Every leaf of the port's cache against JAX's ``want``, a list of
+    (name, array) as ``cache_leaves`` names them (a dict of arrays and
+    state tuples): names, shapes, dtypes and values (``of_max``: atol a
+    fraction of each leaf's largest |value|)."""
+    g = cache_leaves(got)
+    assert [n for n, _ in g] == [n for n, _ in want], what
+    for (name, a), (_, b) in zip(g, want):
+        assert tuple(a.shape) == b.shape, (what, name)
+        assert str(a.dtype).endswith(b.dtype.name), (what, name)
+        close(a, b, tol, of_max)
+
+
+def jax_recurrent_run(jcfg, params, eager_jax=False, s=S):
+    """JAX's side of :func:`check_recurrent_against_jax`, at
+    RECURRENT_BATCH rows of seeded tokens: (tokens, forward logits, [(what,
+    logits, state leaves)] of the prefill and each decode step). The
+    prefill runs on the forward's s + 1 tokens (one set of shapes for
+    op-by-op JAX); ``eager_jax``: op by op (``jax.disable_jit()``)."""
+    toks = np.random.default_rng(1).integers(
+        0, jcfg.vocab_size, (RECURRENT_BATCH, s + 1 + RECURRENT_STEPS),
+        dtype=np.int32)
+    jt, p = jnp.asarray(toks), s + 1
+    jm = jbuild(jcfg)
+    mode = jax.disable_jit() if eager_jax else contextlib.nullcontext()
+    with mode:
+        forward, _ = jax_forward(params, jcfg, {"tokens": jt[:, :p]})
+        jl, jc = jm.prefill(params, {"tokens": jt[:, :p]},
+                            p + RECURRENT_STEPS + 1)
+        stages = [("prefill", jl, cache_leaves(jc))]
+        for pos in range(p, p + RECURRENT_STEPS):
+            jl, jc = jm.decode_step(params, jt[:, pos], jc, pos)
+            stages.append((f"decode at {pos}", jl, cache_leaves(jc)))
+    return toks, forward, stages
+
+
+def rows(leaves, batch):
+    """State leaves cut to their first ``batch`` rows (``BATCH_AXIS``)."""
+    return [(name, a[(slice(None),) * BATCH_AXIS[name.split(".")[0]]
+                     + (slice(0, batch),)]) for name, a in leaves]
+
+
+def check_recurrent_against_jax(cfg, model, run, batch, s=S):
+    """A recurrent family on JAX's weights (``model``, converted from
+    JAX's params) against JAX's ``run`` (:func:`jax_recurrent_run`) on its
+    first ``batch`` rows: the teacher-forced logits on s + 1 tokens, the
+    prefill on the same s + 1 tokens with every state and its K/V zero
+    past the prompt, then RECURRENT_STEPS decode steps, each step's logits
+    and every state, at ``recurrent_tol``."""
+    (ltol, lmax), (stol, smax) = recurrent_tol(cfg)
+    toks, forward, stages = run
+    tt, p = torch.from_numpy(toks[:batch]), s + 1
+    tm = build_model(cfg)
+    got, _ = port_forward(model, cfg, {"tokens": tt[:, :p]})
+    assert got.dtype == torch.float32 and got.shape == (batch, p,
+                                                        cfg.vocab_size)
+    close(got, forward[:batch], ltol, lmax)
+    tl, tc = tm.prefill(model, {"tokens": tt[:, :p]}, p + RECURRENT_STEPS + 1)
+    if "k" in tc:
+        for name in ("k", "v"):
+            assert float(tc[name][:, :, p:].abs().max()) == 0.0, name
+    for i, (what, jl, jleaves) in enumerate(stages):
+        if i:
+            tl, tc = tm.decode_step(model, tt[:, p + i - 1], tc, p + i - 1)
+        close(tl, jl[:batch], ltol, lmax)
+        check_states(tc, rows(jleaves, batch), stol, smax, what)
+
+
 def lossless(cfg):
     """A MoE config whose capacity drops nothing (factor E >= E / K), as
     tests/test_decode_consistency.py takes it."""
@@ -194,22 +317,24 @@ def lossless(cfg):
         cfg.moe, capacity_factor=float(cfg.moe.num_experts)))
 
 
-def check_decode_matches_forward(arch):
+def check_decode_matches_forward(arch, s=S, steps=1):
     """The port alone, fp32, seeded weights (a VLM's gates at VLM_GATE):
-    prefill on S tokens and one decode step against the teacher-forced
-    logits at positions S - 1 and S, within DECODE_TOL."""
+    prefill on s tokens and ``steps`` decode steps against the
+    teacher-forced logits at positions s - 1, s, ..., within DECODE_TOL."""
     cfg = lossless(tconfigs.get_smoke_config(arch).scaled(dtype="float32"))
     m = build_model(cfg)
     model = m.init(0, "cpu")
     if cfg.cross_attn_every:
         for p in model.groups.cross:
             p.gate.fill_(VLM_GATE)
-    _, tb = batches(cfg, *inputs(cfg, S + 1, seed=2))
+    _, tb = batches(cfg, *inputs(cfg, s + steps, seed=2))
     full, _ = port_forward(model, cfg, tb)
-    lp, cache = m.prefill(model, prompt_of(tb, S), S + 4)
-    close(lp, full[:, S - 1], (DECODE_TOL, DECODE_TOL))
-    ld, _ = m.decode_step(model, tb["tokens"][:, S], cache, S, batch=tb)
-    close(ld, full[:, S], (DECODE_TOL, DECODE_TOL))
+    lp, cache = m.prefill(model, prompt_of(tb, s), s + steps + 3)
+    close(lp, full[:, s - 1], (DECODE_TOL, DECODE_TOL))
+    for pos in range(s, s + steps):
+        ld, cache = m.decode_step(model, tb["tokens"][:, pos], cache, pos,
+                                  batch=tb)
+        close(ld, full[:, pos], (DECODE_TOL, DECODE_TOL))
     return model
 
 

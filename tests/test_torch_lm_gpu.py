@@ -1,7 +1,8 @@
 """The LM serving slice on a card: ``dot_centrality`` at the width of a
 vocabulary (the embedding rounds of ``examples/embedding_medoid_torch.py``)
 on both of its paths against the plain version, and the dense, MoE, MLA,
-VLM and enc-dec models on the card against the same weights on the CPU.
+VLM, enc-dec, xLSTM and Mamba2-hybrid models on the card against the same
+weights on the CPU.
 
 Marked ``gpu``: the ``cuda`` fixture skips each test where no card exists
 (decided inside the fixture). On a card: ``PYTHONPATH=src python -m pytest
@@ -12,7 +13,13 @@ value, plus for l2 the self-pair allowance 1e-3 x max row norm x R (as
 ``chip_smoke.py``); two launches bit-equal. Model logits card vs CPU, fp32
 with TF32 off: rtol = atol = 1e-4; a MoE layer's routed experts equal
 wherever the K-th and (K+1)-th router probabilities are more than 1e-4
-apart.
+apart. The recurrent families' states: rtol 1e-4 and, for zamba2, atol
+1e-4; for xLSTM atol 1e-4 of the state's largest |value| (its exponential
+gates amplify a last-bit difference step by step: on the CPU, the JAX
+reference against itself with half its f32 weights moved by one ulp parts
+by up to 1.0e-4 of a state's largest |value|, and sLSTM's n is at least
+1; the readings are in ``tests/_torch_lm.py``'s docstring). The card's
+decode against its own forward within 2e-3.
 """
 import pytest
 import torch
@@ -21,7 +28,8 @@ from repro_torch.configs import get_smoke_config
 from repro_torch.kernels import ops
 from repro_torch.kernels import pairwise_distance as pk
 from repro_torch.models import moe as MOE
-from repro_torch.models.model import build_model
+from repro_torch.models import recurrent as R
+from repro_torch.models.model import build_model, cache_leaves
 
 pytestmark = [pytest.mark.torch_port, pytest.mark.gpu]
 
@@ -137,3 +145,39 @@ def test_other_families_card_match_cpu(cuda, arch):
         lg, cg = model.decode_step(card, toks[:, pos].to(cuda), cg, pos,
                                    batch=on_card)
         torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+def _states_close(got, want, family):
+    for (name, g), (_, w) in zip(cache_leaves(got), cache_leaves(want)):
+        atol = 1e-4 * (float(w.abs().max()) if family == "ssm" else 1.0)
+        torch.testing.assert_close(g.cpu(), w, rtol=1e-4, atol=atol,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.parametrize("arch", ("xlstm-1.3b", "zamba2-2.7b"))
+def test_recurrent_families_card_match_cpu(cuda, arch):
+    """The smoke config in fp32: prefill on 20 tokens (zamba2: a whole SSD
+    chunk of 16 and a ragged one) with every state, then three decode
+    steps; then the card's prefill and a decode step against its own
+    forward."""
+    cfg = get_smoke_config(arch).scaled(dtype="float32")
+    model = build_model(cfg)
+    cpu = model.init(0, "cpu")
+    card = model.init(0, "cpu").to(cuda)
+    toks = torch.randint(0, cfg.vocab_size, (2, 24),
+                         generator=torch.Generator().manual_seed(1))
+    lc, cc = model.prefill(cpu, {"tokens": toks[:, :20]}, 24)
+    lg, cg = model.prefill(card, {"tokens": toks[:, :20].to(cuda)}, 24)
+    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    _states_close(cg, cc, cfg.family)
+    for pos in (20, 21, 22):
+        lc, cc = model.decode_step(cpu, toks[:, pos], cc, pos)
+        lg, cg = model.decode_step(card, toks[:, pos].to(cuda), cg, pos)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+        _states_close(cg, cc, cfg.family)
+    fwd = R.xlstm_forward if cfg.family == "ssm" else R.hybrid_forward
+    full = fwd(card, cfg, toks.to(cuda))[0]
+    lp, cache = model.prefill(card, {"tokens": toks[:, :20].to(cuda)}, 24)
+    torch.testing.assert_close(lp, full[:, 19], rtol=2e-3, atol=2e-3)
+    ld, _ = model.decode_step(card, toks[:, 20].to(cuda), cache, 20)
+    torch.testing.assert_close(ld, full[:, 20], rtol=2e-3, atol=2e-3)

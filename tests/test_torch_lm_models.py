@@ -4,8 +4,8 @@ whole model (``transformer_forward``, ``prefill`` with its cache,
 ``decode_step`` with its cache) for each of the four dense smoke configs
 (internlm2-1.8b, qwen2.5-14b, command-r-35b, gemma3-27b) in fp32 and bf16,
 on JAX's weights converted bit for bit. The other families' parity is in
-``tests/test_torch_lm_{moe,mla,vlm,encdec}.py``; here they build and run,
-and the recurrent families (ROADMAP item 14d) raise.
+``tests/test_torch_lm_{moe,mla,vlm,encdec,xlstm,mamba2}.py``; here they
+build and run.
 
 Tolerances (stated per dtype; JAX's forward runs its training attention,
 ``repro.models.flash``, the same blockwise softmax):
@@ -44,9 +44,9 @@ from _torch_lm import OF_MAX, TOL
 pytestmark = pytest.mark.torch_port
 
 DENSE = ("internlm2-1.8b", "qwen2.5-14b", "command-r-35b", "gemma3-27b")
-UNPORTED = {"xlstm-1.3b": "14d", "zamba2-2.7b": "14d"}
 FAMILIES = ("granite-moe-3b-a800m", "deepseek-v2-lite-16b",
-            "llama-3.2-vision-11b", "whisper-small")
+            "llama-3.2-vision-11b", "whisper-small", "xlstm-1.3b",
+            "zamba2-2.7b")
 B, S = 2, 24
 
 
@@ -223,20 +223,20 @@ def test_init_needs_a_card_unless_asked(monkeypatch):
     assert not any(p.requires_grad for p in m.parameters())
 
 
-# ---------------------------------------------------------------- refusals
+# ------------------------------------------------------- other families
 
-@pytest.mark.parametrize("arch", sorted(UNPORTED))
-def test_unported_families_raise(arch):
-    cfg = tconfigs.get_smoke_config(arch)
-    with pytest.raises(NotImplementedError, match=UNPORTED[arch]):
+def test_unknown_family_raises():
+    cfg = tconfigs.get_smoke_config("internlm2-1.8b").scaled(family="rnn")
+    with pytest.raises(ValueError, match="unknown family"):
         build_model(cfg)
 
 
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_other_families_build_and_run_on_cpu(arch):
-    """MoE, MLA, VLM and enc-dec: ``build_model`` builds them, and on the
-    CPU when asked they prefill and decode (weights from seed 0; the family's
-    stub input zeroed, as the server feeds it)."""
+    """MoE, MLA, VLM, enc-dec, xLSTM and the hybrid: ``build_model``
+    builds them, and on the CPU when asked they prefill and decode (weights
+    from seed 0; the family's stub input zeroed, as the server feeds it),
+    the prefill's cache in ``init_cache``'s shapes and dtypes."""
     cfg = tconfigs.get_smoke_config(arch)
     m = build_model(cfg)
     params = m.init(0, "cpu")
@@ -251,9 +251,10 @@ def test_other_families_build_and_run_on_cpu(arch):
                                       dtype=torch.bfloat16)
     logits, cache = m.prefill(params, batch, 10)
     empty = m.init_cache(1, 10, device="cpu")
-    assert set(cache) == set(empty)
-    assert all(cache[k].shape == empty[k].shape
-               and cache[k].dtype == empty[k].dtype for k in cache)
+    got, want = jax.tree.leaves(cache), jax.tree.leaves(empty)
+    assert jax.tree.structure(cache) == jax.tree.structure(empty)
+    assert all(a.shape == b.shape and a.dtype == b.dtype
+               for a, b in zip(got, want))
     for pos in (6, 7):
         logits, cache = m.decode_step(params, torch.argmax(logits, -1),
                                       cache, pos, batch=batch)

@@ -13,9 +13,7 @@ model-logit bound of ``tests/test_torch_lm_models.py``), bf16 within rtol
 3e-2 and atol 3e-2 of the largest value; the medoid of the fp32 embeddings
 must be JAX's.
 """
-import importlib.util
 import json
-from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -35,19 +33,11 @@ from repro_torch.models.model import build_model
 from repro_torch.engine import rng
 
 from _torch_compare import torch_key
+from _torch_lm import example as _example
 
 pytestmark = pytest.mark.torch_port
 
-ROOT = Path(__file__).resolve().parents[1]
 DENSE = ("internlm2-1.8b", "qwen2.5-14b", "command-r-35b", "gemma3-27b")
-
-
-def _example(name):
-    spec = importlib.util.spec_from_file_location(
-        f"_ex_{name}", ROOT / "examples" / f"{name}.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
 
 
 def _weights(arch, dtype):
@@ -107,11 +97,6 @@ def test_cli_without_a_device_needs_a_card(monkeypatch):
         tserve.main(["--arch", "internlm2-1.8b", "--smoke"])
 
 
-def test_unported_arch_raises_in_the_server():
-    with pytest.raises(NotImplementedError, match="14d"):
-        tserve.Server("xlstm-1.3b", device="cpu")
-
-
 @pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
 def test_embed_sequences_matches_jax(dtype):
     """The mean of the f32 logits over positions, on 64 sequences of 12
@@ -137,14 +122,6 @@ def test_embed_sequences_matches_jax(dtype):
         assert (tres.medoid, tres.pulls) == (int(jres.medoid), jres.pulls)
         assert find_medoid(got, torch_key(jax.random.key(2)), metric="l2",
                            budget_per_arm=20).medoid == tres.medoid
-
-
-def test_embed_sequences_refuses_unported_families():
-    tex = _example("embedding_medoid_torch")
-    for arch in ("xlstm-1.3b", "zamba2-2.7b"):
-        with pytest.raises(NotImplementedError, match="14d"):
-            tex.embed_sequences(tconfigs.get_smoke_config(arch), None,
-                                torch.zeros(1, 4, dtype=torch.int64))
 
 
 @pytest.mark.parametrize("arch", ("granite-moe-3b-a800m",
