@@ -193,7 +193,32 @@ nonzero:
    of 64 tokens on (b)'s weights, (2048, 32000) fp32: ``find_medoid`` on
    ``reference`` and ``pallas_fused``, exact's medoid or within phase 3's
    gap rule, every ``dot_centrality`` launch checked against its plain
-   version and timed (row 1h).
+   version and timed (row 1h);
+11. training on the card (``phase11``; plain PyTorch, no kernel launched
+   over the phase): (a) ``repro_torch.launch.train.train`` on
+   internlm2-1.8b's full config (24 layers, d 2048, bf16 weights, f32 AdamW
+   moments) on the data pipeline at ``SHAPES["train_4k"]``'s length of
+   4096, the batch of 256 cut to TRAIN_BATCH sequences in TRAIN_MICRO
+   microbatches, remat, TRAIN_STEPS steps with a checkpoint every
+   TRAIN_CKPT_EVERY under ``build/chip_smoke/train/`` and step
+   TRAIN_PROFILED_STEP profiled; then the last checkpoint deleted and the
+   run resumed from the first: its losses bit-equal to the first run's
+   under ``torch.use_deterministic_algorithms``, and the last loss below
+   the first; printed: each step's loss and grad norm, ms a step (first and
+   steady), tokens/s, peak memory, the profiled step's busy share and top
+   device operations, and the step's bound (``train_step_ops``: the bf16
+   products at the tensor cores' rate, the f32 unembedding and attention
+   products at the fp32 rate); (b) P11B_LAYERS layers at full width in
+   fp32 on a P11B_SEQ-token sequence (several q and KV blocks), card vs
+   CPU: the loss, every gradient and the params after one AdamW step within
+   TRAIN_CARD_CPU_TOL; (c) ``FlashTrain`` at full-width heads (16/8 of 128)
+   against float64 autograd of softmax attention at S = P11C_SEQ (causal,
+   window P11C_WINDOW, and non-causal with padded queries and keys) within
+   FLASH_F64_TOL, then the peak memory of a forward and backward at S =
+   P11C_MEM_SEQ for ``FlashTrain`` (held to FLASH_MEM_Q q's and
+   FLASH_MEM_BLOCKS blocks, O(S Dh)) and for autograd through the blockwise
+   loop; (d) one train step of each registered smoke config in fp32, card
+   vs CPU within TRAIN_CARD_CPU_TOL.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the rest
@@ -204,6 +229,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import re
 import subprocess
 import sys
@@ -351,6 +377,41 @@ P10_PROMPT, P10_BATCH = 600, 2
 XLSTM_CARD_CPU_TOL = {
     "logits": 3e-3, "mlstm.C": 5e-4, "mlstm.n": 2e-4, "mlstm.m": 6e-4,
     "slstm.c": 6e-3, "slstm.n": 3e-2, "slstm.h": 6e-4, "slstm.m": 3e-3}
+
+# Phase 11, training on the card: 11a runs repro_torch.launch.train on
+# internlm2-1.8b at full width and depth on SHAPES["train_4k"]'s length,
+# its batch of 256 cut to TRAIN_BATCH sequences (TRAIN_MICRO microbatches;
+# with 4 sequences a step took 5.6 s and the script 1027 s on an H100 80GB
+# HBM3 machine with a slower host, so the batch was cut to 2), TRAIN_STEPS
+# steps with a checkpoint every TRAIN_CKPT_EVERY, then resumes; 11b's cut
+# and sequence (several q and KV blocks), 11c's flash shapes and 11d's
+# batch (seq_len, batch)
+TRAIN_BATCH = 2
+TRAIN_MICRO = 2
+TRAIN_STEPS = 6
+TRAIN_CKPT_EVERY = 3
+TRAIN_PROFILED_STEP = 4
+P11B_LAYERS = 2
+P11B_SEQ = 1536
+P11C_SEQ = 1536
+P11C_WINDOW = 1024
+P11C_MEM_SEQ = 8192
+P11D_SHAPE = (32, 2)
+# 11b and 11d, card vs CPU in fp32 with TF32 off: the loss within rtol
+# "loss", the grad norm and every gradient within rtol "grad" (gradients
+# with atol "grad" x the model's largest |gradient|), the params after the
+# AdamW step within 2 lr an element and "update" of the update's norm
+TRAIN_CARD_CPU_TOL = {"loss": 1e-5, "grad": 1e-4, "update": 1e-3}
+# xLSTM's "update" in 11d: its exponential gates amplify last bits (see
+# XLSTM_CARD_CPU_TOL); read on an H100: 2.69e-3
+TRAIN_UPDATE_TOL_XLSTM = 1e-2
+# 11c: f32 FlashTrain against float64 autograd, rtol and atol of the
+# largest |value| (tests/test_torch_train_flash.py's); its memory bound:
+# FLASH_MEM_Q x q's f32 bytes + FLASH_MEM_BLOCKS x one (H, 512, 1024) f32
+# block, O(S Dh)
+FLASH_F64_TOL = (1e-4, 2e-5)
+FLASH_MEM_Q = 32
+FLASH_MEM_BLOCKS = 16
 
 # Phase 5, the quantized path: name, dataset, n, d, metric, precision, base
 # backend; find_medoid at BUDGET_PER_ARM on phase 3's data.
@@ -1070,9 +1131,474 @@ def phase10(dev):
     return zcfg, zparams
 
 
+def train_step_ops(cfg, batch: int, seq: int) -> tuple[float, float]:
+    """(bf16 tensor-core operations, f32 operations) of one remat train
+    step of a dense decoder on batch x seq tokens, counted from the shapes
+    the step runs: the layers' products, 2 per weight and token, in two
+    forward passes (the first under the checkpoint, the second its
+    recomputation) and a backward of twice a forward's (8 P T); the f32
+    unembedding of ``fused_xent`` over its zero-padded chunks (the forward,
+    its recomputation, and the backward's two products: 4 x 2 T' d V);
+    and the f32 attention products over the (q, KV) block pairs the
+    causal loops visit, per head 4 bq bkv Dh in a forward (Q K^T, P V),
+    twice for the recomputed forward, and 10 bq bkv Dh in the backward
+    (S, dV, dP, dQ, dK)."""
+    from repro_torch.models.flash import _kv_range
+
+    d, H, KV = cfg.d_model, cfg.num_heads, cfg.num_kv_heads
+    Dh, F = cfg.resolved_head_dim, cfg.d_ff
+    P = 2 * d * H * Dh + 2 * d * KV * Dh + (3 if cfg.gated_mlp else 2) * d * F
+    T = batch * seq
+    bf16 = 8.0 * cfg.num_layers * P * T
+    n = seq - 1
+    c = min(256, n)
+    rows = batch * (-(-n // c)) * c
+    unembed = 4 * 2.0 * rows * d * cfg.vocab_size
+    bq, bkv = min(512, seq), min(1024, seq)
+    nq, nkv = -(-seq // bq), -(-seq // bkv)
+    pairs = sum(len(_kv_range(qi, nkv, True, 0, 0, bq, bkv))
+                for qi in range(nq))
+    attn = 18.0 * cfg.num_layers * batch * H * pairs * bq * bkv * Dh
+    return bf16, unembed + attn
+
+
+def _train_close(what, got: dict, want: dict, tol: float) -> float:
+    """Each tensor of ``got`` (on the card) within rtol ``tol`` and atol
+    ``tol`` x the largest |value| over all of ``want`` (a gradient that is
+    zero in exact arithmetic is rounding noise on both sides), compared in
+    float64 on the card; returns the largest |got - want| over that largest
+    |value|."""
+    import torch
+
+    top = max(float(w.abs().max()) for w in want.values())
+    worst = 0.0
+    for k, w in want.items():
+        g = got[k].detach().double()
+        w = w.detach().to(g.device).double()
+        err = (g - w).abs()
+        _require(bool(torch.isfinite(g).all()), f"{what} {k}: non-finite")
+        _require(bool((err <= tol * top + tol * w.abs()).all()),
+                 f"{what} {k}: max err {float(err.max())} beyond rtol {tol}"
+                 f" and atol {tol} x {top:.3g}")
+        worst = max(worst, float(err.max()) / top)
+    return worst
+
+
+def _update_diff(got: dict, want: dict, before: dict) -> tuple[float,
+                                                                 float]:
+    """Params after AdamW updates, card (``got``) against CPU: (the largest
+    element difference, the difference's norm over the norm of the CPU's
+    whole update), in float64 on the card."""
+    diff2 = upd2 = worst = 0.0
+    for k, g in got.items():
+        g = g.detach().double()
+        w = want[k].detach().to(g.device).double()
+        d = g - w
+        worst = max(worst, float(d.abs().max()))
+        diff2 += float((d * d).sum())
+        upd2 += float(((w - before[k].to(g.device).double()) ** 2).sum())
+    return worst, (diff2 / upd2) ** 0.5
+
+
+def _update_close(what, worst: float, ratio: float, lr_sum: float,
+                  tol: float) -> None:
+    """Every element within 2 ``lr_sum`` (AdamW's first steps move an
+    element by about lr in the sign of its gradient, and a gradient that is
+    rounding noise on both sides can take either sign) and the norm ratio
+    of :func:`_update_diff` within ``tol``."""
+    _require(worst <= 2 * lr_sum, f"{what}: a param moved {worst:.3g} off "
+                                  f"the CPU's, beyond 2 sum(lr) = "
+                                  f"{2 * lr_sum:.3g}")
+    _require(ratio <= tol, f"{what}: params' difference {ratio:.3g} of the "
+                           f"update's norm, beyond {tol}")
+
+
+def _cpu_copy(cfg, params):
+    """The weights module ``params`` on the CPU, trainable."""
+    from repro_torch.models.model import weights_init
+
+    cpu = weights_init(cfg, None, "meta")
+    cpu.load_state_dict({k: v.detach().to("cpu", copy=True) for k, v in
+                         params.state_dict().items()}, assign=True)
+    return cpu.requires_grad_(True)
+
+
+def phase11a(dev) -> None:
+    """11a: ``repro_torch.launch.train`` on internlm2-1.8b at full width
+    and depth, then the resume (the module docstring's item 11)."""
+    import math
+    import shutil
+
+    import torch
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.launch import train as tl
+    from repro_torch.models.model import weights_init
+    from repro_torch.train.train_step import TrainCfg
+
+    cfg = get_config(LM_ARCH)
+    S = SHAPES["train_4k"].seq_len
+    ckdir = ROOT / "build" / "chip_smoke" / "train"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    tcfg = TrainCfg(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS,
+                    num_microbatches=TRAIN_MICRO, remat=True)
+    kw = dict(smoke=False, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
+              seq_len=S, ckpt_dir=str(ckdir), ckpt_every=TRAIN_CKPT_EVERY,
+              tcfg=tcfg, log_every=TRAIN_STEPS, device=dev)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    batch_at(cfg, InputShape("t", S, TRAIN_BATCH, "train"), 0, device=dev)
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+
+    # the first run's step TRAIN_PROFILED_STEP runs under the profiler
+    make = tl.make_train_step
+    busy = []
+
+    def profiling(model, tcfg_):
+        step = make(model, tcfg_)
+
+        def run(state, batch):
+            if int(state.step) != TRAIN_PROFILED_STEP or busy:
+                return step(state, batch)
+            out = []
+            busy.append(profiled(lambda: out.append(step(state, batch))))
+            return out[0]
+        return run
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        tl.make_train_step = profiling
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        first = tl.train(LM_ARCH, **kw)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        tl.make_train_step = make
+        _require(ckpt.all_steps(str(ckdir)) == [TRAIN_CKPT_EVERY,
+                                                TRAIN_STEPS],
+                 f"phase11a checkpoints {ckpt.all_steps(str(ckdir))}")
+        shutil.rmtree(ckdir / f"step_{TRAIN_STEPS:08d}")
+        t0 = time.perf_counter()
+        second = tl.train(LM_ARCH, **kw)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
+    finally:
+        tl.make_train_step = make
+        torch.use_deterministic_algorithms(False)
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    losses = first["losses"]
+    _require(len(losses) == TRAIN_STEPS and all(
+        map(math.isfinite, losses + first["grad_norms"])),
+             f"phase11a losses {losses}")
+    _require(losses[-1] < losses[0],
+             f"phase11a: the loss did not fall: {losses}")
+    _require(second["start_step"] == TRAIN_CKPT_EVERY
+             and second["losses"] == losses[TRAIN_CKPT_EVERY:],
+             f"phase11a resume from step {second['start_step']}: losses "
+             f"{second['losses']} != the first run's "
+             f"{losses[TRAIN_CKPT_EVERY:]}")
+    secs = first["step_s"]
+    steady = sorted(s for i, s in enumerate(secs)
+                    if i not in (0, TRAIN_PROFILED_STEP))
+    steady_s = steady[len(steady) // 2]
+    tokens = TRAIN_BATCH * S
+    bf16, f32 = train_step_ops(cfg, TRAIN_BATCH, S)
+    nparams = sum(p.numel() for p in
+                  weights_init(cfg, None, "meta").parameters())
+    # the optimizer's least traffic: read the bf16 weights and the f32
+    # gradient, read and write the f32 moments, write the weights
+    nbytes = nparams * (2 + 4 + 16 + 2)
+    bytes_s, ops_s = _bound_s(nbytes, _ops_s(bf16, True) + _ops_s(f32))
+    bound_s = max(bytes_s, ops_s)
+    print(f"phase11a {LM_ARCH} training at full width ({cfg.num_layers} "
+          f"layers, d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"heads, d_ff {cfg.d_ff}, V {cfg.vocab_size}; {nparams / 1e9:.3f} "
+          f"B params in bf16, AdamW moments f32), batch {TRAIN_BATCH} x "
+          f"{S} tokens (train_4k's 256 cut to {TRAIN_BATCH}) in "
+          f"{TRAIN_MICRO} microbatches, remat, {TRAIN_STEPS} steps: losses "
+          f"{[round(x, 6) for x in losses]}, grad norms "
+          f"{[round(x, 4) for x in first['grad_norms']]}; ms a step: first "
+          f"{secs[0] * 1e3:.1f}, steady {steady_s * 1e3:.1f} (median of "
+          f"steps 1-{TRAIN_STEPS - 1} but {TRAIN_PROFILED_STEP}), "
+          f"{tokens / steady_s:.0f} tokens/s; max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB; run {first_s:.1f} s (steps "
+          f"{sum(secs):.1f} s, the rest data draws, init and 2 checkpoints "
+          f"of {nparams * 12 / 2 ** 30:.1f} GiB); one batch's draw "
+          f"{draw_s * 1e3:.0f} ms", flush=True)
+    print(f"phase11a resume: step {TRAIN_STEPS}'s checkpoint deleted, "
+          f"resumed from step {second['start_step']}: losses "
+          f"{[round(x, 6) for x in second['losses']]} bit-equal to the "
+          f"first run's (torch.use_deterministic_algorithms); run "
+          f"{second_s:.1f} s (restore, {len(second['losses'])} steps, a "
+          f"checkpoint)", flush=True)
+    print(f"phase11a bound of a step: {bf16:.4g} bf16 tensor-core ops at "
+          f"{BF16_TC_OPS_PER_S:.3g}/s + {f32:.4g} f32 ops (the unembedding "
+          f"and attention) at {FP32_OPS_PER_S:.3g}/s = {ops_s * 1e3:.1f} ms;"
+          f" the optimizer's {nbytes / 1e9:.1f} GB at {HBM_BYTES_PER_S:.3g} "
+          f"B/s = {bytes_s * 1e3:.1f} ms; bound {bound_s * 1e3:.1f} ms "
+          f"({bound_s / steady_s:.1%} of the steady step)", flush=True)
+    print(f"phase11a step {TRAIN_PROFILED_STEP}: "
+          f"{busy_note(busy[0], steady_s)}", flush=True)
+
+
+def phase11b(dev) -> None:
+    """11b: internlm2-1.8b at full width, P11B_LAYERS layers in fp32, one
+    train step's loss, gradients and AdamW update, card against CPU."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw, schedule
+    from repro_torch.train import train_step as TS
+
+    cfg = get_config(LM_ARCH).scaled(num_layers=P11B_LAYERS, dtype="float32")
+    model = build_model(cfg)
+    tcfg = TS.TrainCfg(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    card = model.init(SEED, device=dev).requires_grad_(True)
+    cpu = _cpu_copy(cfg, card)
+    bg = batch_at(cfg, InputShape("t", P11B_SEQ, 1, "train"), 0, device=dev)
+    lr = float(schedule.cosine_with_warmup(
+        1, peak_lr=tcfg.peak_lr, warmup_steps=tcfg.warmup_steps,
+        total_steps=tcfg.total_steps))
+    out = {}
+    for name, params, batch in (("card", card, bg),
+                                ("cpu", cpu, {k: v.cpu() for k, v in
+                                              bg.items()})):
+        t0 = time.perf_counter()
+        before = {k: p.detach().clone() for k, p in
+                  params.named_parameters()}
+        # the train step's two halves: the loss and its gradients, then
+        # AdamW at step 1's learning rate
+        loss, _, grads = TS._value_and_grad(model, tcfg, params, batch)
+        _, _, m = adamw.update(dict(grads), adamw.init(params), params,
+                               lr=torch.tensor(lr),
+                               weight_decay=tcfg.weight_decay,
+                               max_grad_norm=tcfg.max_grad_norm)
+        if name == "card":
+            torch.cuda.synchronize()
+        out[name] = (float(loss), grads, before, float(m["grad_norm"]),
+                     time.perf_counter() - t0)
+    (lg, gg, _, ng, sg), (lc, gc, bc, nc, sc) = out["card"], out["cpu"]
+    tol = TRAIN_CARD_CPU_TOL
+    _require(abs(lg - lc) <= tol["loss"] * abs(lc),
+             f"phase11b loss {lg!r} card, {lc!r} cpu")
+    _require(abs(ng - nc) <= tol["grad"] * abs(nc),
+             f"phase11b grad norm {ng!r} card, {nc!r} cpu")
+    gerr = _train_close("phase11b gradient", gg, gc, tol["grad"])
+    worst, ratio = _update_diff(dict(card.named_parameters()),
+                                dict(cpu.named_parameters()), bc)
+    _update_close("phase11b params", worst, ratio, lr, tol["update"])
+    print(f"phase11b {LM_ARCH} card vs cpu, {P11B_LAYERS} layers at full "
+          f"width in fp32 (TF32 off), B 1 x S {P11B_SEQ}: loss {lg:.9g} / "
+          f"{lc:.9g} (rtol {tol['loss']}), grad norm {ng:.7g} / {nc:.7g}, "
+          f"every gradient within {gerr:.3g} of the largest |gradient| "
+          f"(rtol = atol {tol['grad']}), params after one AdamW step (lr "
+          f"{lr:g}): largest difference {worst:.3g} (2 lr {2 * lr:g}), "
+          f"{ratio:.3g} of the update's norm (bound {tol['update']}); "
+          f"{sg:.2f} s card, {sc:.2f} s cpu", flush=True)
+
+
+def _plain64(q, k, v, causal, window, skv):
+    """Softmax attention in float64 on the unpadded keys, the reference's
+    masks; head h reads KV head h // rep."""
+    import torch
+
+    rep = q.shape[2] // k.shape[2]
+    k, v = k[:, :skv].repeat_interleave(rep, 2), \
+        v[:, :skv].repeat_interleave(rep, 2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / q.shape[-1] ** 0.5
+    qp = torch.arange(q.shape[1], device=q.device)[:, None]
+    kp = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones_like(qp >= kp)
+    if causal:
+        mask &= qp >= kp
+    if window > 0:
+        mask &= (qp - kp) < window
+    s = s.masked_fill(~mask, -torch.inf)
+    return torch.einsum("bhqk,bkhd->bqhd", torch.softmax(s, -1), v)
+
+
+def phase11c(dev) -> None:
+    """11c: FlashTrain at full-width heads against float64 autograd, then
+    the memory of its forward and backward against autograd through the
+    blockwise loop."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models.flash import flash_attention_trainable
+
+    cfg = get_config(LM_ARCH)
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    rtol, atol = FLASH_F64_TOL
+    for what, sq, skv, causal, window in (
+            ("causal", P11C_SEQ, P11C_SEQ, True, 0),
+            (f"causal, window {P11C_WINDOW}", P11C_SEQ, P11C_SEQ, True,
+             P11C_WINDOW),
+            ("non-causal, padded queries and keys", P11C_SEQ - 136,
+             P11C_SEQ, False, 0)):
+        q, k, v, cot = (torch.randn(1, s, h, Dh, device=dev, generator=g)
+                        for s, h in ((sq, H), (skv, KV), (skv, KV), (sq, H)))
+        ins = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = flash_attention_trainable(*ins, causal=causal, window=window)
+        (out * cot).sum().backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref = [t.double().requires_grad_(True) for t in (q, k, v)]
+        want = _plain64(*ref, causal, window, skv)
+        (want * cot.double()).sum().backward()
+        errs = []
+        for name, a, b in (("out", out, want), ("dq", ins[0].grad,
+                                                  ref[0].grad),
+                           ("dk", ins[1].grad, ref[1].grad),
+                           ("dv", ins[2].grad, ref[2].grad)):
+            a, b = a.detach().double(), b.detach()
+            top = float(b.abs().max())
+            err = (a - b).abs()
+            _require(bool((err <= atol * top + rtol * b.abs()).all()),
+                     f"phase11c {what} {name}: max err {float(err.max())} "
+                     f"beyond rtol {rtol}, atol {atol} x {top:.3g}")
+            errs.append(f"{name} {float(err.max()) / top:.3g}")
+        print(f"phase11c FlashTrain {what}, B 1, Sq {sq}, Skv {skv}, "
+              f"{H}/{KV} heads of {Dh}, blocks 512/1024, against float64 "
+              f"autograd of softmax attention: max err over the largest "
+              f"|value| {', '.join(errs)} (rtol {rtol}, atol {atol} of the "
+              f"largest); forward + backward {ms:.1f} ms (first call)",
+              flush=True)
+        del q, k, v, cot, ins, ref, out, want
+
+    S = P11C_MEM_SEQ
+    peaks = {}
+    for name, fn in (
+            ("FlashTrain", lambda q, k, v: flash_attention_trainable(q, k, v)),
+            ("autograd through the blockwise loop",
+             lambda q, k, v: A.flash_attention(q, k, v))):
+        q, k, v = (torch.randn(1, S, h, Dh, device=dev, generator=g)
+                   .requires_grad_(True) for h in (H, KV, KV))
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn(q, k, v).sum().backward()
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated(dev) - base
+        del q, k, v
+        torch.cuda.empty_cache()
+    q_bytes = S * H * Dh * 4
+    block_bytes = H * 512 * 1024 * 4
+    bound = FLASH_MEM_Q * q_bytes + FLASH_MEM_BLOCKS * block_bytes
+    _require(peaks["FlashTrain"] <= bound,
+             f"phase11c FlashTrain's peak {peaks['FlashTrain']} B beyond "
+             f"{bound} B")
+    print(f"phase11c memory of forward + backward, B 1, S {S}, "
+          f"{H}/{KV} heads of {Dh}, f32, causal: "
+          + ", ".join(f"{k} {v / 2 ** 20:.0f} MiB" for k, v in peaks.items())
+          + f" (FlashTrain's bound {FLASH_MEM_Q} x q's {q_bytes / 2 ** 20:.0f}"
+          f" MiB + {FLASH_MEM_BLOCKS} x a (H, 512, 1024) f32 block's "
+          f"{block_bytes / 2 ** 20:.0f} MiB = {bound / 2 ** 20:.0f} MiB: "
+          f"O(S Dh))", flush=True)
+
+
+def phase11d(dev) -> None:
+    """11d: one train step of every registered smoke config in fp32, card
+    against CPU."""
+    import torch
+    from repro_torch.configs import ARCH_NAMES, get_smoke_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.data.pipeline import batch_at
+    from repro_torch.models.model import build_model
+    from repro_torch.optim import adamw
+    from repro_torch.train import train_step as TS
+
+    seq, b = P11D_SHAPE
+    tcfg = TS.TrainCfg(peak_lr=1e-3, warmup_steps=1, total_steps=10)
+    tol = TRAIN_CARD_CPU_TOL
+    lines, read = [], []
+    for arch in ARCH_NAMES:
+        cfg = get_smoke_config(arch).scaled(dtype="float32")
+        model = build_model(cfg)
+        card = model.init(SEED, device=dev).requires_grad_(True)
+        if cfg.cross_attn_every:
+            with torch.no_grad():
+                for p in card.groups.cross:
+                    p.gate.fill_(P9_GATE)
+        cpu = _cpu_copy(cfg, card)
+        before = {k: p.detach().cpu().clone()
+                  for k, p in cpu.named_parameters()}
+        bg = batch_at(cfg, InputShape("t", seq, b, "train"), 0, device=dev)
+        step = TS.make_train_step(model, tcfg)
+        res = {}
+        for name, params, batch in (("card", card, bg),
+                                    ("cpu", cpu, {k: v.cpu() for k, v in
+                                                  bg.items()})):
+            state = TS.TrainState(params=params, opt=adamw.init(params),
+                                  ef=None, step=torch.zeros(
+                                      (), dtype=torch.int32,
+                                      device=batch["tokens"].device))
+            res[name] = step(state, batch)[1]
+        mg, mc = res["card"], res["cpu"]
+        worst, ratio = _update_diff(dict(card.named_parameters()),
+                                    dict(cpu.named_parameters()), before)
+        read.append((arch, float(mg["loss"]), float(mc["loss"]),
+                     float(mg["grad_norm"]), float(mc["grad_norm"]),
+                     float(mc["lr"]), worst, ratio))
+        lines.append(f"{arch} loss {float(mg['loss']):.7g} / "
+                     f"{float(mc['loss']):.7g}, grad norm "
+                     f"{float(mg['grad_norm']):.6g} / "
+                     f"{float(mc['grad_norm']):.6g}, params {worst:.3g} "
+                     f"({ratio:.3g} of the update)")
+    print(f"phase11d one train step of each smoke config in fp32 (B {b} x S "
+          f"{seq}), card vs cpu (loss rtol {tol['loss']}, grad norm rtol "
+          f"{tol['grad']}, params within 2 lr and {tol['update']} of the "
+          f"update's norm; xLSTM's {TRAIN_UPDATE_TOL_XLSTM}): "
+          + "; ".join(lines), flush=True)
+    for arch, lg, lc, ng, nc, lr, worst, ratio in read:
+        _require(abs(lg - lc) <= tol["loss"] * abs(lc),
+                 f"phase11d {arch} loss: {lg!r} card, {lc!r} cpu")
+        _require(abs(ng - nc) <= tol["grad"] * abs(nc),
+                 f"phase11d {arch} grad norm: {ng!r} card, {nc!r} cpu")
+        _update_close(f"phase11d {arch} params", worst, ratio, lr,
+                      TRAIN_UPDATE_TOL_XLSTM if arch.startswith("xlstm")
+                      else tol["update"])
+
+
+def phase11(dev) -> None:
+    """Phase 11: training on the card (the module docstring's item 11).
+    It launches no kernel of the port: the launch counts stay empty."""
+    import torch
+
+    from repro_torch.kernels import pairwise_distance as pk
+
+    t11 = time.perf_counter()
+    pk.reset_launches()
+    torch.cuda.empty_cache()
+    for part in (phase11a, phase11b, phase11c, phase11d):
+        t0 = time.perf_counter()
+        part(dev)
+        torch.cuda.empty_cache()
+        print(f"{part.__name__}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    _require(dict(pk.LAUNCHES) == {}, f"phase11: kernel launches "
+                                      f"{dict(pk.LAUNCHES)} on the training "
+                                      f"path")
+    print(f"phase11: {time.perf_counter() - t11:.1f} s", flush=True)
+
+
 def main() -> int:
     import torch
 
+    # cuBLAS's deterministic workspace (phase 11a's resume is held bit for
+    # bit under torch.use_deterministic_algorithms), before any CUDA call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false: this smoke "
               "run needs an NVIDIA card", file=sys.stderr)
@@ -3345,6 +3871,9 @@ def main() -> int:
     del embs, data["lm_embed_zamba2"]
     torch.cuda.empty_cache()
     print(f"phase10: {time.perf_counter() - t10:.1f} s", flush=True)
+
+    # ------------- phase 11: training on the card
+    phase11(dev)
 
     for kern, row in led.rows.items():
         _require(row["launches"] > 0 or kern in UNCALLED,

@@ -109,7 +109,17 @@ def fold_in(k: Key, data: int) -> Key:
 
 def bits(k: Key, n: int) -> torch.Tensor:
     """``jax.random.bits(key, (n,), uint32)`` as int64 values in [0, 2**32)."""
-    h0, h1 = _hash_counters(k, torch.arange(n, dtype=torch.int64,
+    return bits_range(k, 0, n)
+
+
+def bits_range(k: Key, start: int, stop: int) -> torch.Tensor:
+    """Elements ``start:stop`` of ``bits(k, n)`` for any n >= stop: element
+    i hashes counter i alone, so a draw made range by range is bit-equal to
+    the whole draw (counters below 2**32, whose high word is 0)."""
+    if not 0 <= start <= stop <= 2 ** 32:
+        raise ValueError(f"bits_range: counters {start}:{stop} outside "
+                         f"[0, 2**32]")
+    h0, h1 = _hash_counters(k, torch.arange(start, stop, dtype=torch.int64,
                                             device=k.device))
     return h0 ^ h1
 
@@ -122,10 +132,15 @@ def _bits_shaped(k: Key, shape) -> torch.Tensor:
 def uniform(k: Key, shape=(), minval: float = 0.0,
             maxval: float = 1.0) -> torch.Tensor:
     """``jax.random.uniform(key, shape, float32, minval, maxval)``."""
-    f = ((_bits_shaped(k, shape) >> 9) | 0x3F800000).to(torch.int32) \
-        .view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=k.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=k.device)
+    return uniform_from_bits(_bits_shaped(k, shape), minval, maxval)
+
+
+def uniform_from_bits(b: torch.Tensor, minval: float = 0.0,
+                      maxval: float = 1.0) -> torch.Tensor:
+    """``uniform``'s f32 values of the 32-bit draws ``b``."""
+    f = ((b >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=b.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=b.device)
     return torch.maximum(lo, f * (hi - lo) + lo)
 
 

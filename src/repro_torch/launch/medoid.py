@@ -15,6 +15,10 @@ answer came from the exact fp32 re-run). ``--compare`` adds the exact
 medoid and RAND's answer with ``min(n, 1000)`` references (key
 ``fold_in(key(seed), 2)``), as the JAX CLI does.
 
+``--ckpt-dir DIR`` saves the answer as the checkpoint of step 0 (``{"medoid":
+...}`` with ``n``, ``metric`` and ``budget`` in its META, as the JAX CLI
+writes it).
+
 ``--distributed`` runs the communication-optimal engine (v2) over every
 process of a ``torchrun`` job, rows sharded over a one-dimensional mesh of
 all of them (NCCL and one card a process, or gloo with ``--device cpu``);
@@ -29,11 +33,13 @@ import json
 import os
 import sys
 import time
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 from repro_torch.api import find_medoid
+from repro_torch.checkpoint import manager as ckpt
 from repro_torch.convert import data_from_numpy, resolve_device
 from repro_torch.core.backend import list_backends
 from repro_torch.core.exact import exact_medoid
@@ -70,7 +76,7 @@ def _init_distributed(device) -> tuple:
 def run(n: int, d: int, metric: str, budget_per_arm: int, dataset: str, *,
         seed: int = 0, compare: bool = False, backend: str = "reference",
         device=None, precision: str = "fp32",
-        distributed: bool = False) -> dict:
+        distributed: bool = False, ckpt_dir: Optional[str] = None) -> dict:
     mesh = None
     if distributed:
         if precision != "fp32":
@@ -110,6 +116,10 @@ def run(n: int, d: int, metric: str, budget_per_arm: int, dataset: str, *,
     out["medoid"] = res.medoid
     if precision != "fp32":
         out["verified"] = res.verified
+    if ckpt_dir and (mesh is None or dist.get_rank() == 0):
+        ckpt.save(ckpt_dir, 0, {"medoid": torch.tensor(res.medoid,
+                                                       dtype=torch.int32)},
+                  extra={"n": n, "metric": metric, "budget": budget})
     if compare:
         t0 = time.perf_counter()
         truth = int(exact_medoid(data, metric))
@@ -145,6 +155,8 @@ def main(argv=None):
     ap.add_argument("--distributed", action="store_true",
                     help="the v2 engine over every process of a torchrun "
                          "job (rank 0 prints)")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="save {'medoid'} as a step-0 checkpoint there")
     ap.add_argument("--device", default=None,
                     help="cuda (the default when present) or cpu")
     argv = sys.argv[1:] if argv is None else list(argv)
@@ -155,7 +167,7 @@ def main(argv=None):
     out = run(args.n, args.d, args.metric, args.budget_per_arm, args.dataset,
               seed=args.seed, compare=args.compare, backend=args.backend,
               device=args.device, precision=args.precision,
-              distributed=args.distributed)
+              distributed=args.distributed, ckpt_dir=args.ckpt_dir)
     if not args.distributed or dist.get_rank() == 0:
         print(json.dumps(out))
     if args.distributed:

@@ -1,0 +1,172 @@
+"""End-to-end training driver.
+
+The port of ``repro.launch.train`` on one device: it streams the
+deterministic data pipeline, takes train steps, checkpoints atomically in
+the reference's format (a checkpoint that ``repro.launch.train`` wrote
+resumes here, and the other way round), auto-resumes from the latest
+checkpoint, restarts through ``run_with_restarts`` and records straggler
+statistics. The reference builds a mesh from the live device count
+(``elastic_remesh``) and shards the state with the dry run's partition
+rules; those come with the meshes, ROADMAP item 14f, and under an
+initialised ``torch.distributed`` world of more than one rank this driver
+raises. Runs on CUDA unless ``device`` (``--device``) says otherwise.
+
+Example (CPU, reduced config):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch internlm2-1.8b \\
+      --smoke --device cpu --steps 50 --batch 8 --seq-len 128 \\
+      --ckpt-dir build/ckpt
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch.checkpoint import manager as ckpt
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import InputShape
+from repro_torch.configs.registry import ARCH_NAMES
+from repro_torch.convert import (load_train_state, resolve_device,
+                                 train_state_tree)
+from repro_torch.data.pipeline import DataCfg, batch_at
+from repro_torch.models.model import build_model
+from repro_torch.optim import adamw
+from repro_torch.optim.compress import EFState
+from repro_torch.runtime.fault_tolerance import StepWatchdog, run_with_restarts
+from repro_torch.train.train_step import (TrainCfg, TrainState,
+                                          init_train_state, make_train_step)
+
+
+def _one_device() -> None:
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() > 1:
+        raise RuntimeError(
+            f"repro_torch.launch.train runs on one device; a world of "
+            f"{dist.get_world_size()} ranks needs the meshes and the "
+            f"sharded train state, ROADMAP item 14f")
+
+
+def train(arch: str, *, smoke: bool = True, steps: int = 50,
+          batch_size: int = 8, seq_len: int = 128,
+          ckpt_dir: Optional[str] = None, ckpt_every: int = 20,
+          tcfg: Optional[TrainCfg] = None, grad_compression: bool = False,
+          log_every: int = 10, device=None) -> dict:
+    """Train ``arch`` (its smoke config with ``smoke``) to ``steps`` on
+    ``device`` (CUDA unless asked otherwise) and return the reference's
+    summary (``final_loss``, ``first_loss``, ``stragglers``, ``steps``)
+    plus this run's ``start_step`` and, a step each, ``losses``,
+    ``grad_norms`` and ``step_s`` (wall seconds to the loss on the
+    host)."""
+    _one_device()
+    cfg = get_smoke_config(arch) if smoke else get_config(arch)
+    dev = resolve_device(device)
+    shape = InputShape("custom", seq_len, batch_size, "train")
+    model = build_model(cfg)
+    tcfg = tcfg or TrainCfg(peak_lr=1e-3, warmup_steps=max(2, steps // 10),
+                            total_steps=steps, remat=True,
+                            grad_compression=grad_compression)
+    step_fn = make_train_step(model, tcfg)
+
+    # ---- init or resume ----------------------------------------------------
+    start_step = 0
+    state = init_train_state(model, 42, tcfg, device=dev)
+
+    def restore():
+        tree, meta = ckpt.restore(ckpt_dir, _restore_target(cfg, state))
+        load_train_state(cfg, state, tree)
+        return meta["step"]
+
+    if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+        start_step = restore()
+        print(f"# resumed from step {start_step}", file=sys.stderr)
+
+    watchdog = StepWatchdog()
+    losses, norms, secs = [], [], []
+    saved = [None]
+
+    def do_step(t: int) -> int:
+        nonlocal state
+        b = batch_at(cfg, shape, t, DataCfg(), dev)
+        t0 = time.time()
+        state, metrics = step_fn(state, b)
+        loss = float(metrics["loss"])
+        dt = time.time() - t0
+        straggler = watchdog.record(dt)
+        losses.append(loss)
+        norms.append(float(metrics["grad_norm"]))
+        secs.append(dt)
+        if t % log_every == 0:
+            print(json.dumps({"step": t, "loss": round(loss, 4),
+                              "sec": round(dt, 3),
+                              "straggler": straggler}), file=sys.stderr)
+        if ckpt_dir and (t + 1) % ckpt_every == 0:
+            ckpt.save(ckpt_dir, t + 1, train_state_tree(cfg, state, True))
+            saved[0] = t + 1
+        return t + 1
+
+    def on_restart(step_, exc):
+        print(f"# restart after {type(exc).__name__} at step {step_}",
+              file=sys.stderr)
+        if ckpt_dir and ckpt.latest_step(ckpt_dir) is not None:
+            return restore()
+        return step_
+
+    run_with_restarts(do_step, start_step=start_step, total_steps=steps,
+                      on_restart=on_restart)
+    # the final state, unless the last step's checkpoint holds it already
+    if ckpt_dir and saved[0] != steps:
+        ckpt.save(ckpt_dir, steps, train_state_tree(cfg, state, True))
+    return {"final_loss": losses[-1] if losses else None,
+            "first_loss": losses[0] if losses else None,
+            "stragglers": watchdog.stragglers, "steps": steps,
+            "start_step": start_step, "losses": losses,
+            "grad_norms": norms, "step_s": secs}
+
+
+def _restore_target(cfg, state) -> dict:
+    """:func:`train_state_tree` of ``state`` on the meta device: the
+    checkpoint's keys, shapes and dtypes, holding no memory."""
+    def m(t):
+        return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+    def ms(d):
+        return {k: m(v) for k, v in d.items()}
+
+    meta = TrainState(
+        params=ms(adamw.named(state.params)),
+        opt=adamw.AdamWState(step=m(state.opt.step), mu=ms(state.opt.mu),
+                             nu=ms(state.opt.nu)),
+        ef=None if state.ef is None else EFState(error=ms(state.ef.error)),
+        step=m(state.step))
+    return train_state_tree(cfg, meta)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True, choices=list(ARCH_NAMES))
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=50)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq-len", type=int, default=128)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=20)
+    ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: CUDA, which must exist)")
+    args = ap.parse_args(argv)
+    out = train(args.arch, smoke=args.smoke, steps=args.steps,
+                batch_size=args.batch, seq_len=args.seq_len,
+                ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
+                grad_compression=args.grad_compression, device=args.device)
+    print(json.dumps({k: out[k] for k in ("final_loss", "first_loss",
+                                          "stragglers", "steps")}))
+
+
+if __name__ == "__main__":
+    main()

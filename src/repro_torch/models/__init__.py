@@ -1,5 +1,5 @@
-"""The LM scaffold's models: the dense, MoE / MLA, VLM and enc-dec
-families (see ``models/model.py`` for the families still to come)."""
+"""The LM scaffold's models: the dense, MoE / MLA, VLM, enc-dec, xLSTM and
+Mamba2-hybrid families (``models/model.py``), served and trained."""
 from repro_torch.models.model import Model, build_model
 
 __all__ = ["Model", "build_model"]

@@ -30,6 +30,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models import flash
 from repro_torch.models import layers as L
 
 NEG_INF = -1e30
@@ -83,13 +84,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B, Sq, H, Dh); k, v: (B, Skv, KV, Dh) -> (B, Sq, H, Dh).
 
     ``window`` 0 = unbounded; > 0 = attend only to the last ``window`` keys
-    (inclusive of self). The inference branch of the reference: the
-    training branch (``differentiable=True``, ``repro.models.flash``) comes
-    with training, ROADMAP item 14e."""
+    (inclusive of self). ``differentiable``: the training path,
+    :func:`repro_torch.models.flash.flash_attention_trainable` (its
+    backward recomputes the blocks); otherwise the inference loop below."""
     if differentiable:
-        raise NotImplementedError(
-            "flash_attention(differentiable=True) is the training path "
-            "(repro.models.flash), ported with training: ROADMAP item 14e")
+        return flash.flash_attention_trainable(
+            q, k, v, causal=causal, window=window, q_offset=q_offset,
+            block_q=block_q, block_kv=block_kv, scale=scale)
     B, Sq, H, Dh = q.shape
     _, Skv, KV, _ = k.shape
     Dv = v.shape[-1]
@@ -226,7 +227,8 @@ def self_attn_decode(params, x, cache_k, cache_v, pos: int, *, num_heads,
 
 
 def cross_attn_apply(params, x, kv_k, kv_v, *, num_heads, num_kv_heads,
-                     head_dim) -> torch.Tensor:
+                     head_dim, differentiable: bool = False
+                     ) -> torch.Tensor:
     """Non-causal cross attention against precomputed K/V (B, S_kv, KV,
     Dh); ``bq`` is added where the params have it."""
     B, S, _ = x.shape
@@ -234,7 +236,8 @@ def cross_attn_apply(params, x, kv_k, kv_v, *, num_heads, num_kv_heads,
     if "bq" in params:
         q = q + params["bq"]
     q = q.reshape(B, S, num_heads, head_dim)
-    out = flash_attention(q, kv_k, kv_v, causal=False, window=0)
+    out = flash_attention(q, kv_k, kv_v, causal=False, window=0,
+                          differentiable=differentiable)
     out = out.reshape(B, S, num_heads * head_dim)
     return out @ params["wo"]
 

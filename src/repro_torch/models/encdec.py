@@ -95,50 +95,64 @@ def _gelu_mlp(pl, x):
                        gated=False)
 
 
-def encode(params, cfg: ModelCfg, frames: torch.Tensor) -> torch.Tensor:
+def encode(params, cfg: ModelCfg, frames: torch.Tensor,
+           differentiable: bool = False) -> torch.Tensor:
     """frames: (B, S_enc, d_model) precomputed embeddings (conv stub) ->
-    the encoder's output (B, S_enc, d_model)."""
+    the encoder's output (B, S_enc, d_model). ``differentiable``: the
+    training attention (``flash.flash_attention_trainable``)."""
     B, S, d = frames.shape
     x = frames + _sinusoid(S, d, frames.device).to(frames.dtype)[None]
     for pl in params["enc"]:
         h = L.layernorm(pl["ln1"], x)
         q, k, v = A._project_qkv(pl["attn"], h, cfg.num_heads,
                                  cfg.num_kv_heads, cfg.resolved_head_dim)
-        attn = A.flash_attention(q, k, v, causal=False, window=0)
+        attn = A.flash_attention(q, k, v, causal=False, window=0,
+                                 differentiable=differentiable)
         x = x + attn.reshape(B, S, -1) @ pl["attn"]["wo"]
         x = x + _gelu_mlp(pl, x)
     return L.layernorm(params["ln_enc"], x)
 
 
+def _dec_layer(pl, cfg: ModelCfg, x, enc_out, differentiable: bool):
+    """One decoder layer: (x, (k, v), (xk, xv))."""
+    B, S, _ = x.shape
+    h = L.layernorm(pl["ln1"], x)
+    q, k, v = A._project_qkv(pl["self"], h, cfg.num_heads,
+                             cfg.num_kv_heads, cfg.resolved_head_dim)
+    attn = A.flash_attention(q, k, v, causal=True, window=0,
+                             differentiable=differentiable)
+    x = x + attn.reshape(B, S, -1) @ pl["self"]["wo"]
+    h = L.layernorm(pl["ln_x"], x)
+    kk, vv = A.cross_kv(pl["cross"], enc_out,
+                        num_kv_heads=cfg.num_kv_heads,
+                        head_dim=cfg.resolved_head_dim)
+    x = x + A.cross_attn_apply(pl["cross"], h, kk, vv,
+                               num_heads=cfg.num_heads,
+                               num_kv_heads=cfg.num_kv_heads,
+                               head_dim=cfg.resolved_head_dim,
+                               differentiable=differentiable)
+    x = x + _gelu_mlp(pl, x)
+    return x, (k, v), (kk, vv)
+
+
 def decode_train(params, cfg: ModelCfg, tokens: torch.Tensor,
-                 enc_out: torch.Tensor, collect_cache: bool = False,
-                 return_hidden: bool = False):
+                 enc_out: torch.Tensor, remat: bool = False,
+                 collect_cache: bool = False, return_hidden: bool = False):
     """Teacher-forced decoder pass -> (logits (B, S, V) f32 or the final
     normed hidden states, caches | None); caches (collect_cache) are
-    ((k, v), (xk, xv)) stacked over the layers. The inference branch of
-    the reference's attention (its training branch comes with item 14e)."""
+    ((k, v), (xk, xv)) stacked over the layers. Without ``collect_cache``
+    the attention is the training path; ``remat`` recomputes each layer in
+    the backward pass (see ``transformer.transformer_forward``)."""
     B, S = tokens.shape
     x = params["embed"][tokens.long()] + \
         params["pos_dec"][torch.arange(S, device=tokens.device)][None]
     kvs, xkvs = [], []
     for pl in params["dec"]:
-        h = L.layernorm(pl["ln1"], x)
-        q, k, v = A._project_qkv(pl["self"], h, cfg.num_heads,
-                                 cfg.num_kv_heads, cfg.resolved_head_dim)
-        attn = A.flash_attention(q, k, v, causal=True, window=0)
-        x = x + attn.reshape(B, S, -1) @ pl["self"]["wo"]
-        h = L.layernorm(pl["ln_x"], x)
-        kk, vv = A.cross_kv(pl["cross"], enc_out,
-                            num_kv_heads=cfg.num_kv_heads,
-                            head_dim=cfg.resolved_head_dim)
-        x = x + A.cross_attn_apply(pl["cross"], h, kk, vv,
-                                   num_heads=cfg.num_heads,
-                                   num_kv_heads=cfg.num_kv_heads,
-                                   head_dim=cfg.resolved_head_dim)
-        x = x + _gelu_mlp(pl, x)
+        x, kv, xkv = L.remat_call(remat, _dec_layer, pl, cfg, x, enc_out,
+                                  not collect_cache)
         if collect_cache:
-            kvs.append((k, v))
-            xkvs.append((kk, vv))
+            kvs.append(kv)
+            xkvs.append(xkv)
     caches = None
     if collect_cache:
         caches = (tuple(torch.stack(t) for t in zip(*kvs)),

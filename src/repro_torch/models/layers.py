@@ -23,6 +23,7 @@ import math
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.convert import resolve_device
@@ -202,3 +203,14 @@ def pad_seq(t: torch.Tensor, axis: int, pad: int,
 def unembed(embed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Tied unembedding -> f32 logits (f32 by f32; float64 by float64)."""
     return wide(x) @ wide(embed).T
+
+
+def remat_call(remat: bool, fn, *args, **kwargs):
+    """``fn(*args, **kwargs)``; with ``remat`` its activations are
+    recomputed in the backward pass instead of kept
+    (``torch.utils.checkpoint`` without reentry, the counterpart of
+    ``jax.checkpoint``). The values are the same either way."""
+    if not remat:
+        return fn(*args, **kwargs)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             **kwargs)

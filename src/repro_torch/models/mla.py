@@ -59,7 +59,7 @@ def _latent(params, x):
 
 
 def mla_prefill(params, x, *, num_heads: int, cfg: MLACfg, theta: float,
-                q_offset: int = 0):
+                q_offset: int = 0, differentiable: bool = False):
     """Returns (out (B, S, d), (c_kv (B, S, r), k_rope (B, S, dr))): the
     compressed cache."""
     B, S, _ = x.shape
@@ -76,7 +76,8 @@ def mla_prefill(params, x, *, num_heads: int, cfg: MLACfg, theta: float,
     k = torch.cat([k_nope, k_rope.expand(B, S, num_heads, dr)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
     out = flash_attention(q, k, v, causal=True, q_offset=q_offset,
-                          scale=1.0 / math.sqrt(dn + dr))
+                          scale=1.0 / math.sqrt(dn + dr),
+                          differentiable=differentiable)
     out = out.reshape(B, S, num_heads * dv) @ params["wo"]
     return out, (c_kv, k_rope[:, :, 0, :])
 

@@ -10,8 +10,11 @@ that ``init`` builds. Batches are dicts:
 
 Every family runs: dense and moe (MoE and MLA layers) decoders, vlm,
 audio (enc-dec), ssm (xLSTM) and hybrid (Zamba2: Mamba2 blocks with a
-shared attention block). ``loss`` (with ``fused_xent`` and ``_xent``)
-comes with training, ROADMAP item 14e.
+shared attention block). Loss is next-token cross entropy (the decoder's
+tokens for enc-dec) through :func:`fused_xent`, plus 0.01 x the MoE
+load-balancing aux; ``loss`` reads the weights' gradients where they
+require them (the trainer turns that on; the constructors freeze them
+for serving).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 from repro_torch.configs.base import ModelCfg
 from repro_torch.convert import resolve_device
 from repro_torch.models import encdec as ED
+from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
 
@@ -33,6 +37,7 @@ FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 class Model:
     cfg: ModelCfg
     init: Callable[..., Any]            # (seed | generator, device=) -> weights
+    loss: Callable[..., Any]            # (params, batch, remat=) -> (loss, metrics)
     prefill: Callable[..., Any]         # (params, batch, max_len) -> (logits, cache)
     decode_step: Callable[..., Any]     # (params, token, cache, pos, batch=) -> (logits, cache)
     init_cache: Callable[..., Any]      # (batch_size, max_len, device=) -> cache
@@ -42,6 +47,53 @@ def _generator(seed: Union[int, torch.Generator], device) -> torch.Generator:
     if isinstance(seed, torch.Generator):
         return seed
     return torch.Generator(device=device).manual_seed(int(seed))
+
+
+def _xent(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Next-token CE on explicit logits (the small-vocab / test path)."""
+    lg = logits.float()[:, :-1]
+    targets = tokens[:, 1:].long()
+    tl = lg.gather(-1, targets[..., None])[..., 0]
+    return (torch.logsumexp(lg, dim=-1) - tl).mean()
+
+
+def _xent_chunk(xc, tc, vc, head):
+    """The masked CE sum of one (B, c) chunk; ``head`` (V, d) in f32."""
+    logits = xc.float() @ head.T                          # (B, c, V)
+    tl = logits.gather(-1, tc[..., None])[..., 0]
+    return ((torch.logsumexp(logits, dim=-1) - tl) * vc[None, :]).sum()
+
+
+def fused_xent(x: torch.Tensor, tokens: torch.Tensor, head: torch.Tensor,
+               chunk: int = 256) -> torch.Tensor:
+    """Fused unembed + next-token CE, chunked over the sequence.
+
+    ``x``: final hidden states (B, S, d); ``head``: (V, d) unembedding,
+    multiplied in f32. The logits exist only per (B, chunk, V) block,
+    recomputed in the backward pass (``torch.utils.checkpoint``), so the
+    full (B, S, V) f32 tensor never does. The sequence is zero-padded to
+    whole chunks and the padded tail masked; the sum is divided by
+    B (S - 1). The reference's branch for a mesh with no axis left for the
+    vocabulary (one full logits block) is the identity without logical
+    rules; it comes with the meshes, ROADMAP item 14f."""
+    B, S, d = x.shape
+    head = head.float()             # once, not per chunk
+    xs = x[:, :-1]
+    targets = tokens[:, 1:].long()
+    n = S - 1
+    c = min(chunk, n)
+    pad = (-n) % c
+    if pad:
+        xs = torch.nn.functional.pad(xs, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+    nc = (n + pad) // c
+    valid = (torch.arange(nc * c, device=x.device) < n).float()
+    acc = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(nc):
+        cols = slice(i * c, (i + 1) * c)
+        acc = acc + L.remat_call(True, _xent_chunk, xs[:, cols],
+                                 targets[:, cols], valid[cols], head)
+    return acc / (B * n)
 
 
 def cache_leaves(cache: dict) -> list:
@@ -84,6 +136,12 @@ def build_model(cfg: ModelCfg) -> Model:
         return weights_init(cfg, _generator(seed, device), device)
 
     if cfg.family == "ssm":        # xLSTM
+        def loss(params, batch, remat: bool = True):
+            x, _ = R.xlstm_forward(params, cfg, batch["tokens"], remat=remat,
+                                   return_hidden=True)
+            l = fused_xent(x, batch["tokens"], R.head_matrix(params, cfg))
+            return l, {"xent": l}
+
         def prefill(params, batch, max_len):
             return R.xlstm_prefill(params, cfg, batch["tokens"], max_len)
 
@@ -93,6 +151,12 @@ def build_model(cfg: ModelCfg) -> Model:
         def init_cache(batch_size, max_len, device=None):
             return R.xlstm_init_cache(cfg, batch_size, device)
     elif cfg.family == "hybrid":   # zamba2
+        def loss(params, batch, remat: bool = True):
+            x, _ = R.hybrid_forward(params, cfg, batch["tokens"], remat=remat,
+                                    return_hidden=True)
+            l = fused_xent(x, batch["tokens"], R.head_matrix(params, cfg))
+            return l, {"xent": l}
+
         def prefill(params, batch, max_len):
             return R.hybrid_prefill(params, cfg, batch["tokens"], max_len)
 
@@ -102,6 +166,14 @@ def build_model(cfg: ModelCfg) -> Model:
         def init_cache(batch_size, max_len, device=None):
             return R.hybrid_init_cache(cfg, batch_size, max_len, device)
     elif cfg.family == "audio":
+        def loss(params, batch, remat: bool = True):
+            enc_out = ED.encode(params, cfg, batch["frames"],
+                                differentiable=True)
+            x, _ = ED.decode_train(params, cfg, batch["tokens"], enc_out,
+                                   remat=remat, return_hidden=True)
+            l = fused_xent(x, batch["tokens"], params["embed"])
+            return l, {"xent": l}
+
         def prefill(params, batch, max_len):
             return ED.encdec_prefill(params, cfg, batch["tokens"],
                                      batch["frames"], max_len)
@@ -112,6 +184,17 @@ def build_model(cfg: ModelCfg) -> Model:
         def init_cache(batch_size, max_len, device=None):
             return ED.encdec_init_cache(cfg, batch_size, max_len, device)
     else:
+        def loss(params, batch, remat: bool = True):
+            x, aux, _ = T.transformer_forward(
+                params, cfg, batch["tokens"],
+                image_embed=batch.get("image_embed"), remat=remat,
+                return_hidden=True)
+            l = fused_xent(x, batch["tokens"], T.head_matrix(params, cfg))
+            aux = torch.as_tensor(aux, dtype=torch.float32, device=l.device)
+            # the reference reports the loss with the aux term as "xent"
+            l = l + 0.01 * aux
+            return l, {"xent": l, "moe_aux": aux}
+
         def prefill(params, batch, max_len):
             return T.transformer_prefill(params, cfg, batch["tokens"],
                                          max_len,
@@ -125,5 +208,5 @@ def build_model(cfg: ModelCfg) -> Model:
         def init_cache(batch_size, max_len, device=None):
             return T.init_kv_cache(cfg, batch_size, max_len, device)
 
-    return Model(cfg=cfg, init=init, prefill=prefill,
+    return Model(cfg=cfg, init=init, loss=loss, prefill=prefill,
                  decode_step=decode_step, init_cache=init_cache)

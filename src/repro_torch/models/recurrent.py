@@ -23,10 +23,12 @@ hybrid ``{"mamba": Mamba2State of (G, E, B, ...), "k", "v": (G, B,
 max_len, KV, Dh)}`` in the model dtype. A decode step writes every layer's
 new state (and the new token's k / v) into its slot of the cache in place
 and returns the cache. The hybrid's attention is the port's inference
-``flash_attention`` (the reference's forward runs its training attention,
-the same function). Without a mesh the reference's ``constrain`` calls
-are the identity, and ``remat`` is a training option, so both are left
-out (ROADMAP items 14f, 14e).
+``flash_attention``; the forward without ``collect_cache`` runs the
+training attention, as the reference does. ``remat`` recomputes each
+block, and each group around its blocks, in the backward pass (the
+reference's nested ``jax.checkpoint``). Without a mesh the reference's
+``constrain`` calls are the identity, so they are left out (ROADMAP item
+14f).
 """
 from __future__ import annotations
 
@@ -120,33 +122,45 @@ def xlstm_init(gen, cfg: ModelCfg, device=None) -> XLSTM:
     return XLSTM(cfg, params)
 
 
+def _mlstm_block(pl, ln, x, num_heads):
+    return x + XL.mlstm_apply(pl, L.rmsnorm(ln, x), num_heads)
+
+
+def _xlstm_group(x, pm, lns, ps, sln, num_heads, remat):
+    """One group's forward without states: R mLSTM blocks (each
+    recomputed in the backward with ``remat``), then the sLSTM block."""
+    for pl, ln in zip(pm, lns):
+        x = L.remat_call(remat, _mlstm_block, pl, ln, x, num_heads)
+    return x + XL.slstm_apply(ps, L.rmsnorm(sln, x), num_heads)
+
+
 def xlstm_forward(params, cfg: ModelCfg, tokens: torch.Tensor,
-                  collect_state: bool = False, return_hidden: bool = False):
+                  remat: bool = False, collect_state: bool = False,
+                  return_hidden: bool = False):
     """tokens: (B, S) -> (logits (B, S, V) f32, states | None).
     ``collect_state``: the final states, (MLSTMState of (G, R, B, ...),
     SLSTMState of (G, B, d_inner)). ``return_hidden``: the final normed
-    hidden states in place of the logits."""
+    hidden states in place of the logits. ``remat``: see the module
+    docstring (the groups only without ``collect_state``)."""
     x = params["embed"][tokens.long()]
     H = cfg.num_heads
     m_states, s_states = [], []
     groups = params["groups"]
     for pm, lns, ps, sln in zip(groups["mlstm"], groups["mln"],
                                 groups["slstm"], groups["sln"]):
+        if not collect_state:
+            x = L.remat_call(remat, _xlstm_group, x, pm, lns, ps, sln, H,
+                             remat)
+            continue
         gm = []
         for pl, ln in zip(pm, lns):
-            if collect_state:
-                out, st = XL.mlstm_apply(pl, L.rmsnorm(ln, x), H,
-                                         return_state=True)
-                gm.append(st)
-            else:
-                out = XL.mlstm_apply(pl, L.rmsnorm(ln, x), H)
+            out, st = XL.mlstm_apply(pl, L.rmsnorm(ln, x), H,
+                                     return_state=True)
+            gm.append(st)
             x = x + out
-        if collect_state:
-            out, st = _slstm_apply_with_state(ps, x, H, sln)
-            m_states.append(_stack_states(gm, XL.MLSTMState))
-            s_states.append(st)
-        else:
-            out = XL.slstm_apply(ps, L.rmsnorm(sln, x), H)
+        out, st = _slstm_apply_with_state(ps, x, H, sln)
+        m_states.append(_stack_states(gm, XL.MLSTMState))
+        s_states.append(st)
         x = x + out
     states = (_stack_states(m_states, XL.MLSTMState),
               _stack_states(s_states, XL.SLSTMState)) \
@@ -248,35 +262,55 @@ def hybrid_init(gen, cfg: ModelCfg, device=None) -> Hybrid:
     return Hybrid(cfg, params)
 
 
+def _mamba_block(pl, ln, x, ssm):
+    return x + M2.mamba2_apply(pl, L.rmsnorm(ln, x), ssm)
+
+
+def _shared_block(sh, cfg: ModelCfg, x, differentiable: bool):
+    """The shared attention + MLP block: (x, (k, v))."""
+    h = L.rmsnorm(sh["ln1"], x)
+    attn_out, kv = A.self_attn_apply(
+        sh["attn"], h, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
+        theta=cfg.rope_theta, window=0, differentiable=differentiable)
+    x = x + attn_out
+    return x + L.mlp_apply(sh["mlp"], L.rmsnorm(sh["ln2"], x)), kv
+
+
+def _hybrid_group(x, pm, lns, sh, cfg: ModelCfg, remat: bool):
+    """One group's forward without states: E Mamba2 blocks (each
+    recomputed in the backward with ``remat``), then the shared block on
+    the training attention."""
+    for pl, ln in zip(pm, lns):
+        x = L.remat_call(remat, _mamba_block, pl, ln, x, cfg.ssm)
+    return _shared_block(sh, cfg, x, True)[0]
+
+
 def hybrid_forward(params, cfg: ModelCfg, tokens: torch.Tensor,
-                   collect_cache: bool = False, return_hidden: bool = False):
+                   remat: bool = False, collect_cache: bool = False,
+                   return_hidden: bool = False):
     """tokens: (B, S) -> (logits (B, S, V) f32, aux | None).
     ``collect_cache``: aux is (Mamba2State of (G, E, B, ...), (k, v) of
-    (G, B, S, KV, Dh)); ``return_hidden`` as in :func:`xlstm_forward`."""
+    (G, B, S, KV, Dh)); ``return_hidden`` and ``remat`` as in
+    :func:`xlstm_forward`."""
     x = params["embed"][tokens.long()]
     sh = params["shared_attn"]
     m_states, ks, vs = [], [], []
     for pm, lns in zip(params["mamba"], params["mln"]):
+        if not collect_cache:
+            x = L.remat_call(remat, _hybrid_group, x, pm, lns, sh, cfg,
+                             remat)
+            continue
         gm = []
         for pl, ln in zip(pm, lns):
-            if collect_cache:
-                out, st = M2.mamba2_apply(pl, L.rmsnorm(ln, x), cfg.ssm,
-                                          return_state=True)
-                gm.append(st)
-            else:
-                out = M2.mamba2_apply(pl, L.rmsnorm(ln, x), cfg.ssm)
+            out, st = M2.mamba2_apply(pl, L.rmsnorm(ln, x), cfg.ssm,
+                                      return_state=True)
+            gm.append(st)
             x = x + out
-        h = L.rmsnorm(sh["ln1"], x)
-        attn_out, (k, v) = A.self_attn_apply(
-            sh["attn"], h, num_heads=cfg.num_heads,
-            num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-            theta=cfg.rope_theta, window=0)
-        x = x + attn_out
-        x = x + L.mlp_apply(sh["mlp"], L.rmsnorm(sh["ln2"], x))
-        if collect_cache:
-            m_states.append(_stack_states(gm, M2.Mamba2State))
-            ks.append(k)
-            vs.append(v)
+        x, (k, v) = _shared_block(sh, cfg, x, False)
+        m_states.append(_stack_states(gm, M2.Mamba2State))
+        ks.append(k)
+        vs.append(v)
         del k, v
     aux = (_stack_states(m_states, M2.Mamba2State),
            (torch.stack(ks), torch.stack(vs))) if collect_cache else None

@@ -146,31 +146,35 @@ def _ffn_apply(p_ffn, cfg: ModelCfg, h):
 
 
 def _self_layer(p, cfg: ModelCfg, x, window: int, theta: float,
-                q_offset: int = 0):
+                q_offset: int = 0, differentiable: bool = False):
     """Returns (x_out, aux, kv): kv is the prefill cache contribution,
     (k, v) or, with MLA, (c_kv, k_rope)."""
     h = L.rmsnorm(p["ln1"], x)
     if cfg.mla is not None:
         attn_out, kv = MLA.mla_prefill(p["attn"], h, num_heads=cfg.num_heads,
                                        cfg=cfg.mla, theta=theta,
-                                       q_offset=q_offset)
+                                       q_offset=q_offset,
+                                       differentiable=differentiable)
     else:
         attn_out, kv = A.self_attn_apply(
             p["attn"], h, num_heads=cfg.num_heads,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
-            theta=theta, window=window, q_offset=q_offset)
+            theta=theta, window=window, q_offset=q_offset,
+            differentiable=differentiable)
     x = x + attn_out
     h = L.rmsnorm(p["ln2"], x)
     ffn_out, aux = _ffn_apply(p["ffn"], cfg, h)
     return x + ffn_out, aux, kv
 
 
-def _cross_layer(p, cfg: ModelCfg, x, kv_k, kv_v):
+def _cross_layer(p, cfg: ModelCfg, x, kv_k, kv_v,
+                 differentiable: bool = False):
     h = L.rmsnorm(p["ln1"], x)
     attn_out = A.cross_attn_apply(p["attn"], h, kv_k, kv_v,
                                   num_heads=cfg.num_heads,
                                   num_kv_heads=cfg.num_kv_heads,
-                                  head_dim=cfg.resolved_head_dim)
+                                  head_dim=cfg.resolved_head_dim,
+                                  differentiable=differentiable)
     x = x + torch.tanh(p["gate"]).to(attn_out.dtype) * attn_out
     h = L.rmsnorm(p["ln2"], x)
     ffn_out, _ = _ffn_apply(p["ffn"], cfg, h)
@@ -199,6 +203,7 @@ def _image(image_embed):
 
 def transformer_forward(params, cfg: ModelCfg, tokens: torch.Tensor,
                         image_embed: Optional[torch.Tensor] = None,
+                        remat: bool = False,
                         collect_cache: bool = False,
                         return_hidden: bool = False):
     """tokens: (B, S) -> (logits (B, S, V) f32, aux, cache | None).
@@ -208,35 +213,49 @@ def transformer_forward(params, cfg: ModelCfg, tokens: torch.Tensor,
     ``cache`` (collect_cache) is the stacked prefill contributions: (k, v)
     of (num_layers, B, S, KV, Dh), with MLA (c_kv, k_rope); for a VLM
     ((k, v) of (groups, per - 1, B, S, KV, Dh), (xk, xv) of (groups, B,
-    num_image_tokens, KV, Dh))."""
+    num_image_tokens, KV, Dh)). Without ``collect_cache`` the attention
+    is the training path (``differentiable``), as in the reference.
+    ``remat``: each layer (and a VLM's each group around its layers) is
+    recomputed in the backward pass, ``jax.checkpoint``'s nesting; it
+    changes memory, never values."""
     x = params["embed"][tokens.long()]
+    diff = not collect_cache   # the training path is differentiable
     aux = 0.0
     kvs = []
     if cfg.cross_attn_every:
         img = _image(image_embed) @ params["img_proj"]
-        xkvs = []
-        for p_self, p_cross in zip(params["groups"]["self"],
-                                   params["groups"]["cross"]):
-            gkv = []
+
+        def group(x, p_self, p_cross):
+            gkv, gaux = [], 0.0
             for pl in p_self:
-                x, a, kv = _self_layer(pl, cfg, x, 0, cfg.rope_theta)
-                aux = aux + a
+                x, a, kv = L.remat_call(remat, _self_layer, pl, cfg, x, 0,
+                                        cfg.rope_theta, differentiable=diff)
+                gaux = gaux + a
                 if collect_cache:
                     gkv.append(kv)
             kk, vv = A.cross_kv(p_cross["attn"], img,
                                 num_kv_heads=cfg.num_kv_heads,
                                 head_dim=cfg.resolved_head_dim)
-            x = _cross_layer(p_cross, cfg, x, kk, vv)
+            x = _cross_layer(p_cross, cfg, x, kk, vv, differentiable=diff)
+            return x, gaux, gkv, (kk, vv)
+
+        xkvs = []
+        for p_self, p_cross in zip(params["groups"]["self"],
+                                   params["groups"]["cross"]):
+            x, a, gkv, xkv = L.remat_call(remat, group, x, p_self, p_cross)
+            aux = aux + a
             if collect_cache:
                 kvs.append(_stack_pairs(gkv))
-                xkvs.append((kk, vv))
+                xkvs.append(xkv)
         cache = (_stack_pairs(kvs), _stack_pairs(xkvs)) \
             if collect_cache else None
     else:
         windows = cfg.layer_windows()
         thetas = cfg.layer_thetas()
         for i, layer in enumerate(params["layers"]):
-            x, a, kv = _self_layer(layer, cfg, x, windows[i], thetas[i])
+            x, a, kv = L.remat_call(remat, _self_layer, layer, cfg, x,
+                                    windows[i], thetas[i],
+                                    differentiable=diff)
             aux = aux + a
             if collect_cache:
                 kvs.append(kv)

@@ -41,6 +41,11 @@ def test_the_scan_covers_the_port():
     assert "chip_smoke.py" in names
     assert "examples/serve_lm_torch.py" in names
     assert "src/repro_torch/models/transformer.py" in names
+    assert {"src/repro_torch/models/flash.py",
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/train/train_step.py",
+            "src/repro_torch/checkpoint/manager.py",
+            "examples/train_lm_torch.py"} <= names
     assert len(names) > 50
 
 
