@@ -199,12 +199,12 @@ nonzero:
    internlm2-1.8b's full config (24 layers, d 2048, bf16 weights, f32 AdamW
    moments) on the data pipeline at ``SHAPES["train_4k"]``'s length of
    4096, the batch of 256 cut to TRAIN_BATCH sequences in TRAIN_MICRO
-   microbatches, remat, TRAIN_STEPS steps with a checkpoint every
-   TRAIN_CKPT_EVERY under ``build/chip_smoke/train/`` and step
-   TRAIN_PROFILED_STEP profiled; then the last checkpoint deleted and the
-   run resumed from the first: its losses bit-equal to the first run's
-   under ``torch.use_deterministic_algorithms``, and the last loss below
-   the first; printed: each step's loss and grad norm, ms a step (first and
+   microbatches, remat, TRAIN_STEPS steps with step TRAIN_PROFILED_STEP
+   profiled; then the same run to TRAIN_CKPT_EVERY steps with a checkpoint
+   under ``build/chip_smoke/train/`` and resumed from it to TRAIN_STEPS
+   (a second checkpoint): its losses bit-equal to the first run's under
+   ``torch.use_deterministic_algorithms``, and the last loss below the
+   first; printed: each step's loss and grad norm, ms a step (first and
    steady), tokens/s, peak memory, the profiled step's busy share and top
    device operations, and the step's bound (``train_step_ops``: the bf16
    products at the tensor cores' rate, the f32 unembedding and attention
@@ -219,6 +219,21 @@ nonzero:
    FLASH_MEM_BLOCKS blocks, O(S Dh)) and for autograd through the blockwise
    loop; (d) one train step of each registered smoke config in fp32, card
    vs CPU within TRAIN_CARD_CPU_TOL.
+12. the sharded trainer and the dry run (``phase12``; plain PyTorch over
+   DTensor, no kernel launched over the phase): (a)
+   ``repro_torch.launch.train.train`` under a world of one NCCL rank (a
+   file store), so on ``elastic_remesh``'s (1, 1) ("data", "model") mesh
+   with the state as DTensors of the partition specs, on internlm2-1.8b at
+   full width cut to P12_LAYERS layers, P12_BATCH x P12_SEQ tokens,
+   P12_STEPS steps, against the same call with no process group (one
+   device): each step's loss within P12_LOSS_RTOL; then the sharded run to
+   a checkpoint at P12_CKPT_EVERY under ``build/chip_smoke/train12/`` and
+   resumed from it to P12_STEPS: its losses bit-equal to the uninterrupted
+   sharded run's; ms a step sharded and unsharded (DTensor's host
+   overhead) and peak memory printed; (b) ``python -m repro_torch.launch.dryrun`` in a subprocess a
+   cell, started before phase 11 and run beside it on the host's CPU (a
+   fake-backend world of 256 ranks, the step under ``FakeTensorMode``):
+   P12B_CELLS on the (16, 16) mesh, each row printed.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the rest
@@ -383,7 +398,8 @@ XLSTM_CARD_CPU_TOL = {
 # its batch of 256 cut to TRAIN_BATCH sequences (TRAIN_MICRO microbatches;
 # with 4 sequences a step took 5.6 s and the script 1027 s on an H100 80GB
 # HBM3 machine with a slower host, so the batch was cut to 2), TRAIN_STEPS
-# steps with a checkpoint every TRAIN_CKPT_EVERY, then resumes; 11b's cut
+# steps, then again with a checkpoint at TRAIN_CKPT_EVERY and resumed
+# there (two checkpoints, one fewer than a run that writes both); 11b's cut
 # and sequence (several q and KV blocks), 11c's flash shapes and 11d's
 # batch (seq_len, batch)
 TRAIN_BATCH = 2
@@ -412,6 +428,20 @@ TRAIN_UPDATE_TOL_XLSTM = 1e-2
 FLASH_F64_TOL = (1e-4, 2e-5)
 FLASH_MEM_Q = 32
 FLASH_MEM_BLOCKS = 16
+
+# Phase 12, the sharded trainer and the dry run: 12a's cut of
+# internlm2-1.8b (full width, P12_LAYERS of its 24 layers), batch, steps and
+# checkpoints, and its bound against the unsharded run; 12b's dry-run cells
+# (pure FSDP with the batch over all 256 ranks, so fused_xent's
+# full-logits branch; the sequence-sharded decode cache) and the time
+# limit of each subprocess
+P12_LAYERS = 4
+P12_BATCH, P12_SEQ = 2, 2048
+P12_STEPS, P12_CKPT_EVERY = 4, 2
+P12_LOSS_RTOL = 1e-6
+P12B_CELLS = (("internlm2-1.8b", "train_4k"), ("internlm2-1.8b",
+                                              "decode_32k"))
+P12B_TIMEOUT_S = 300
 
 # Phase 5, the quantized path: name, dataset, n, d, metric, precision, base
 # backend; find_medoid at BUDGET_PER_ARM on phase 3's data.
@@ -1244,9 +1274,9 @@ def phase11a(dev) -> None:
     shutil.rmtree(ckdir, ignore_errors=True)
     tcfg = TrainCfg(peak_lr=3e-4, warmup_steps=2, total_steps=TRAIN_STEPS,
                     num_microbatches=TRAIN_MICRO, remat=True)
-    kw = dict(smoke=False, steps=TRAIN_STEPS, batch_size=TRAIN_BATCH,
-              seq_len=S, ckpt_dir=str(ckdir), ckpt_every=TRAIN_CKPT_EVERY,
-              tcfg=tcfg, log_every=TRAIN_STEPS, device=dev)
+    kw = dict(smoke=False, batch_size=TRAIN_BATCH, seq_len=S, tcfg=tcfg,
+              log_every=TRAIN_STEPS, device=dev)
+    ck = dict(ckpt_dir=str(ckdir), ckpt_every=TRAIN_CKPT_EVERY)
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1275,19 +1305,22 @@ def phase11a(dev) -> None:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
-        first = tl.train(LM_ARCH, **kw)
+        first = tl.train(LM_ARCH, steps=TRAIN_STEPS, **kw)
         torch.cuda.synchronize()
         first_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev)
         tl.make_train_step = make
+        # two checkpoints: the step before the resume, and the resumed end
+        t0 = time.perf_counter()
+        head = tl.train(LM_ARCH, steps=TRAIN_CKPT_EVERY, **kw, **ck)
+        _require(ckpt.all_steps(str(ckdir)) == [TRAIN_CKPT_EVERY],
+                 f"phase11a checkpoints {ckpt.all_steps(str(ckdir))}")
+        second = tl.train(LM_ARCH, steps=TRAIN_STEPS, **kw, **ck)
+        torch.cuda.synchronize()
+        second_s = time.perf_counter() - t0
         _require(ckpt.all_steps(str(ckdir)) == [TRAIN_CKPT_EVERY,
                                                 TRAIN_STEPS],
                  f"phase11a checkpoints {ckpt.all_steps(str(ckdir))}")
-        shutil.rmtree(ckdir / f"step_{TRAIN_STEPS:08d}")
-        t0 = time.perf_counter()
-        second = tl.train(LM_ARCH, **kw)
-        torch.cuda.synchronize()
-        second_s = time.perf_counter() - t0
     finally:
         tl.make_train_step = make
         torch.use_deterministic_algorithms(False)
@@ -1299,11 +1332,12 @@ def phase11a(dev) -> None:
              f"phase11a losses {losses}")
     _require(losses[-1] < losses[0],
              f"phase11a: the loss did not fall: {losses}")
-    _require(second["start_step"] == TRAIN_CKPT_EVERY
+    _require(head["losses"] == losses[:TRAIN_CKPT_EVERY]
+             and second["start_step"] == TRAIN_CKPT_EVERY
              and second["losses"] == losses[TRAIN_CKPT_EVERY:],
              f"phase11a resume from step {second['start_step']}: losses "
-             f"{second['losses']} != the first run's "
-             f"{losses[TRAIN_CKPT_EVERY:]}")
+             f"{head['losses']} + {second['losses']} != the first run's "
+             f"{losses}")
     secs = first["step_s"]
     steady = sorted(s for i, s in enumerate(secs)
                     if i not in (0, TRAIN_PROFILED_STEP))
@@ -1329,15 +1363,15 @@ def phase11a(dev) -> None:
           f"steps 1-{TRAIN_STEPS - 1} but {TRAIN_PROFILED_STEP}), "
           f"{tokens / steady_s:.0f} tokens/s; max_memory_allocated "
           f"{peak / 2 ** 30:.2f} GiB; run {first_s:.1f} s (steps "
-          f"{sum(secs):.1f} s, the rest data draws, init and 2 checkpoints "
-          f"of {nparams * 12 / 2 ** 30:.1f} GiB); one batch's draw "
-          f"{draw_s * 1e3:.0f} ms", flush=True)
-    print(f"phase11a resume: step {TRAIN_STEPS}'s checkpoint deleted, "
-          f"resumed from step {second['start_step']}: losses "
-          f"{[round(x, 6) for x in second['losses']]} bit-equal to the "
-          f"first run's (torch.use_deterministic_algorithms); run "
-          f"{second_s:.1f} s (restore, {len(second['losses'])} steps, a "
-          f"checkpoint)", flush=True)
+          f"{sum(secs):.1f} s, the rest data draws and init); one batch's "
+          f"draw {draw_s * 1e3:.0f} ms", flush=True)
+    print(f"phase11a resume: {TRAIN_CKPT_EVERY} steps to a checkpoint of "
+          f"{nparams * 12 / 2 ** 30:.1f} GiB, then resumed from step "
+          f"{second['start_step']} to {TRAIN_STEPS} and a second checkpoint: "
+          f"losses {[round(x, 6) for x in head['losses'] + second['losses']]}"
+          f" bit-equal to the uninterrupted run's "
+          f"(torch.use_deterministic_algorithms); {second_s:.1f} s in all",
+          flush=True)
     print(f"phase11a bound of a step: {bf16:.4g} bf16 tensor-core ops at "
           f"{BF16_TC_OPS_PER_S:.3g}/s + {f32:.4g} f32 ops (the unembedding "
           f"and attention) at {FP32_OPS_PER_S:.3g}/s = {ops_s * 1e3:.1f} ms;"
@@ -1591,6 +1625,175 @@ def phase11(dev) -> None:
                                       f"{dict(pk.LAUNCHES)} on the training "
                                       f"path")
     print(f"phase11: {time.perf_counter() - t11:.1f} s", flush=True)
+
+
+def phase12_dryruns() -> list:
+    """12b: one ``python -m repro_torch.launch.dryrun`` a cell, started
+    now on the host's CPU; :func:`phase12b` collects them."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
+               OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
+    return [(cell, time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         cell[0], "--shape", cell[1]], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for cell in P12B_CELLS]
+
+
+def phase12a(dev) -> None:
+    """12a: the sharded trainer at world size 1 on NCCL against the
+    unsharded one, and its resume (the module docstring's item 12)."""
+    import math
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from repro_torch.checkpoint import manager as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as tl
+    from repro_torch.train.train_step import TrainCfg
+
+    cfg = get_config(LM_ARCH).scaled(num_layers=P12_LAYERS)
+    ckdir = ROOT / "build" / "chip_smoke" / "train12"
+    shutil.rmtree(ckdir, ignore_errors=True)
+    ckdir.parent.mkdir(parents=True, exist_ok=True)
+    tcfg = TrainCfg(peak_lr=3e-4, warmup_steps=2, total_steps=P12_STEPS,
+                    remat=True)
+    kw = dict(smoke=False, batch_size=P12_BATCH, seq_len=P12_SEQ, tcfg=tcfg,
+              log_every=P12_STEPS, device=dev)
+    ck = dict(ckpt_dir=str(ckdir), ckpt_every=P12_CKPT_EVERY)
+
+    def run(steps=P12_STEPS, **extra):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = tl.train(LM_ARCH, steps=steps, **kw, **extra)
+        torch.cuda.synchronize()
+        out["run_s"] = time.perf_counter() - t0
+        out["peak"] = torch.cuda.max_memory_allocated(dev)
+        torch.cuda.empty_cache()
+        return out
+
+    get_config_ = tl.get_config
+    torch.use_deterministic_algorithms(True)
+    try:
+        tl.get_config = lambda arch: cfg
+        plain = run()
+        store = Path(tempfile.mkdtemp(dir=ckdir.parent)) / "store"
+        dist.init_process_group("nccl", init_method=f"file://{store}",
+                                rank=0, world_size=1)
+        try:
+            sharded = run()
+            # the resume: a checkpoint at P12_CKPT_EVERY, then on to the end
+            head = run(P12_CKPT_EVERY, **ck)
+            resumed = run(**ck)
+            _require(ckpt.all_steps(str(ckdir)) == [P12_CKPT_EVERY,
+                                                    P12_STEPS],
+                     f"phase12a checkpoints {ckpt.all_steps(str(ckdir))}")
+        finally:
+            dist.destroy_process_group()
+    finally:
+        tl.get_config = get_config_
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(ckdir, ignore_errors=True)
+
+    _require(plain["mesh"] is None and sharded["mesh"] == (1, 1)
+             and resumed["mesh"] == (1, 1),
+             f"phase12a meshes {plain['mesh']}, {sharded['mesh']}, "
+             f"{resumed['mesh']}")
+    got, want = sharded["losses"], plain["losses"]
+    _require(len(got) == len(want) == P12_STEPS and all(
+        map(math.isfinite, got + sharded["grad_norms"])),
+             f"phase12a losses {got}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    _require(rel <= P12_LOSS_RTOL, f"phase12a sharded losses {got} vs "
+                                   f"unsharded {want}: rel {rel:.3g}")
+    _require(head["losses"] == got[:P12_CKPT_EVERY]
+             and resumed["start_step"] == P12_CKPT_EVERY
+             and resumed["losses"] == got[P12_CKPT_EVERY:],
+             f"phase12a resume from step {resumed['start_step']}: losses "
+             f"{head['losses']} + {resumed['losses']} != the sharded run's "
+             f"{got}")
+
+    def steady(out):
+        secs = sorted(out["step_s"][1:])
+        return secs[len(secs) // 2]
+
+    sh_s, pl_s = steady(sharded), steady(plain)
+    print(f"phase12a {LM_ARCH} at full width cut to {P12_LAYERS} layers "
+          f"(d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} heads, "
+          f"d_ff {cfg.d_ff}, V {cfg.vocab_size}), batch {P12_BATCH} x "
+          f"{P12_SEQ}, {P12_STEPS} steps: sharded on a (1, 1) mesh over "
+          f"one NCCL rank, losses {[round(x, 6) for x in got]}, unsharded "
+          f"{[round(x, 6) for x in want]}, largest rel difference "
+          f"{rel:.3g} (bound {P12_LOSS_RTOL:g}); ms a step (median of steps "
+          f"2-{P12_STEPS}): sharded {sh_s * 1e3:.1f}, unsharded "
+          f"{pl_s * 1e3:.1f} (DTensor's host overhead "
+          f"{(sh_s - pl_s) * 1e3:.1f} ms, x{sh_s / pl_s:.3f}); first step "
+          f"sharded {sharded['step_s'][0] * 1e3:.1f} ms, unsharded "
+          f"{plain['step_s'][0] * 1e3:.1f} ms; max_memory_allocated sharded "
+          f"{sharded['peak'] / 2 ** 30:.2f} GiB, unsharded "
+          f"{plain['peak'] / 2 ** 30:.2f} GiB; runs {plain['run_s']:.1f} s "
+          f"unsharded, {sharded['run_s']:.1f} s sharded", flush=True)
+    print(f"phase12a resume: {P12_CKPT_EVERY} sharded steps to a checkpoint "
+          f"({head['run_s']:.1f} s), resumed from step "
+          f"{resumed['start_step']} to {P12_STEPS} onto a new mesh and a "
+          f"second checkpoint ({resumed['run_s']:.1f} s): losses "
+          f"{[round(x, 6) for x in head['losses'] + resumed['losses']]} "
+          f"bit-equal to the uninterrupted sharded run's", flush=True)
+
+
+def phase12b(procs) -> None:
+    """12b: the dry-run rows (the module docstring's item 12)."""
+    for (arch, shape), t0, proc in procs:
+        try:
+            out, err = proc.communicate(timeout=P12B_TIMEOUT_S)
+        finally:
+            proc.kill()
+        wall = time.perf_counter() - t0
+        _require(proc.returncode == 0,
+                 f"phase12b dry run {arch} x {shape}: exit "
+                 f"{proc.returncode}: {err[-2000:]}")
+        rows = [json.loads(ln) for ln in out.splitlines()
+                if ln.startswith("{")]
+        _require(len(rows) == 1 and rows[0]["status"] == "ok"
+                 and rows[0]["per_device_bytes"]["total_live"] > 0
+                 and rows[0]["flops"] > 0,
+                 f"phase12b dry run {arch} x {shape}: {out[-2000:]}")
+        print(f"phase12b dry run {arch} x {shape} (fake world of "
+              f"{rows[0]['chips']} ranks, {rows[0]['mesh']}; subprocess "
+              f"{wall:.1f} s from its start): {json.dumps(rows[0])}",
+              flush=True)
+
+
+def phase12(dev, procs=None) -> None:
+    """Phase 12: the sharded trainer and the dry run (the module
+    docstring's item 12), reading 12b's subprocesses ``procs`` (started
+    here unless the caller started them earlier, beside phase 11). It
+    launches no kernel of the port."""
+    import torch
+
+    from repro_torch.kernels import pairwise_distance as pk
+
+    t12 = time.perf_counter()
+    pk.reset_launches()
+    procs = procs or phase12_dryruns()
+    try:
+        t0 = time.perf_counter()
+        phase12a(dev)
+        print(f"phase12a: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        phase12b(procs)
+        print(f"phase12b: {time.perf_counter() - t0:.1f} s after 12a",
+              flush=True)
+    finally:
+        for _, _, proc in procs:
+            proc.kill()
+    torch.cuda.empty_cache()
+    _require(dict(pk.LAUNCHES) == {}, f"phase12: kernel launches "
+                                      f"{dict(pk.LAUNCHES)} on the sharded "
+                                      f"training path")
+    print(f"phase12: {time.perf_counter() - t12:.1f} s", flush=True)
 
 
 def main() -> int:
@@ -3872,8 +4075,18 @@ def main() -> int:
     torch.cuda.empty_cache()
     print(f"phase10: {time.perf_counter() - t10:.1f} s", flush=True)
 
-    # ------------- phase 11: training on the card
-    phase11(dev)
+    # ------------- phase 11: training on the card; 12b's dry runs start
+    # now on the host's CPU, beside it
+    dryruns = phase12_dryruns()
+    try:
+        phase11(dev)
+    except BaseException:
+        for _, _, proc in dryruns:
+            proc.kill()
+        raise
+
+    # ------------- phase 12: the sharded trainer and the dry run
+    phase12(dev, dryruns)
 
     for kern, row in led.rows.items():
         _require(row["launches"] > 0 or kern in UNCALLED,

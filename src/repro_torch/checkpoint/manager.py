@@ -21,8 +21,14 @@ one leaf at a time. bf16 is stored as f32 (npz has no bf16; lossless) and
 * rotation keeps the newest ``keep`` checkpoints;
 * ``latest_step`` / ``restore`` pick the newest committed checkpoint.
 
-Elastic placement on a new mesh (the reference's ``shardings=``) comes with
-the meshes, ROADMAP item 14f.
+Under an initialised ``torch.distributed`` world every rank calls
+``save``: a DTensor leaf is gathered whole (``full_tensor``, a collective,
+in the same order on every rank), rank 0 alone writes, and it commits
+after a barrier, so every rank returns with the checkpoint committed.
+``restore(shardings=)`` is the reference's elastic placement: each rank
+reads the full array and keeps its own shard of the leaf's
+``NamedSharding`` (``distribute_tensor(..., src_data_rank=None)``, no
+scatter), whatever mesh wrote it.
 """
 from __future__ import annotations
 
@@ -60,9 +66,26 @@ def _flatten_with_paths(tree, prefix=()):
     return [(prefix, tree)]
 
 
-def _to_numpy(leaf) -> np.ndarray:
+def _world():
+    """(rank, world size) of the initialised process group, else (0, 1)."""
+    dist = torch.distributed
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _materialize(leaf):
+    """A leaf's value: a callable called, a DTensor gathered whole."""
+    from torch.distributed.tensor import DTensor
     if callable(leaf) and not isinstance(leaf, (torch.Tensor, np.ndarray)):
         leaf = leaf()
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
+    return leaf
+
+
+def _to_numpy(leaf) -> np.ndarray:
+    leaf = _materialize(leaf)
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach()
         if t.dtype == torch.bfloat16:   # npz has no bf16: store f32
@@ -97,22 +120,33 @@ def _write_npz(path: str, items: list) -> list:
 
 def save(ckpt_dir: str, step: int, tree: Any, *, extra: Optional[dict] = None,
          keep: int = 3) -> str:
-    """Atomically write the checkpoint of ``step``; rotate old ones."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    """Atomically write the checkpoint of ``step``; rotate old ones. Under
+    a process group every rank calls it (see the module docstring)."""
+    rank, world = _world()
     final = os.path.join(ckpt_dir, f"step_{step:08d}")
     tmp = final + ".tmp"
-    if os.path.exists(tmp):
-        shutil.rmtree(tmp)
-    os.makedirs(tmp)
     items = [("/".join(p), leaf) for p, leaf in _flatten_with_paths(tree)]
-    keys = _write_npz(os.path.join(tmp, "arrays.npz"), items)
-    meta = {"step": step, "keys": sorted(keys), "extra": extra or {}}
-    with open(os.path.join(tmp, "META.json"), "w") as f:
-        json.dump(meta, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.rename(tmp, final)         # atomic commit
-    _rotate(ckpt_dir, keep)
+    if rank:
+        for _, leaf in items:        # the gathers rank 0 makes as it writes
+            _materialize(leaf)
+    else:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        if os.path.exists(tmp):
+            shutil.rmtree(tmp)
+        os.makedirs(tmp)
+        keys = _write_npz(os.path.join(tmp, "arrays.npz"), items)
+        meta = {"step": step, "keys": sorted(keys), "extra": extra or {}}
+        with open(os.path.join(tmp, "META.json"), "w") as f:
+            json.dump(meta, f)
+    if world > 1:
+        torch.distributed.barrier()
+    if not rank:
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.rename(tmp, final)         # atomic commit
+        _rotate(ckpt_dir, keep)
+    if world > 1:
+        torch.distributed.barrier()
     return final
 
 
@@ -139,13 +173,16 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, target: Any,
-            step: Optional[int] = None) -> tuple[Any, dict]:
+def restore(ckpt_dir: str, target: Any, step: Optional[int] = None,
+            shardings: Any = None) -> tuple[Any, dict]:
     """Restore into the structure of ``target``, a tree whose leaves are
     tensors (on the meta device, a shape and dtype only) or numpy arrays.
     Each leaf comes back as ``target``'s kind of leaf in its dtype: a
     tensor on the leaf's device (the CPU for a meta leaf), or a numpy
-    array. Returns (tree, META)."""
+    array. ``shardings``: a tree of the same paths whose leaves are
+    ``models.sharding.NamedSharding`` (or None); such a leaf comes back as
+    a DTensor of that sharding on its mesh's device, this rank's shard of
+    the full array. Returns (tree, META)."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -154,6 +191,8 @@ def restore(ckpt_dir: str, target: Any,
     with open(os.path.join(d, "META.json")) as f:
         meta = json.load(f)
     npz = os.path.join(d, "arrays.npz")
+    placed = dict((p, s) for p, s in _flatten_with_paths(shardings)) \
+        if shardings is not None else {}
 
     def load(path, leaf):
         arr = _read_member(npz, "/".join(path))
@@ -162,7 +201,11 @@ def restore(ckpt_dir: str, target: Any,
                 arr = np.ascontiguousarray(arr)
             t = torch.from_numpy(arr).to(leaf.dtype)
             dev = leaf.device if leaf.device.type != "meta" else "cpu"
-            return t.to(dev)
+            t = t.to(dev)
+            if placed.get(path) is not None:
+                from repro_torch.models.sharding import distribute
+                t = distribute(t, placed[path])
+            return t
         return np.asarray(arr).astype(np.asarray(leaf).dtype)
 
     return _map_with_paths(load, target), meta

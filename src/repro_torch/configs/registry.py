@@ -1,12 +1,18 @@
-"""Architecture registry of the port (``repro.configs.registry`` without
-the dry run's ``ShapeDtypeStruct`` specs: ``input_specs`` and
-``cache_specs`` come with the dry-run slice, ROADMAP item 14f)."""
+"""Architecture registry of the port (``repro.configs.registry``).
+
+``input_specs`` and ``cache_specs`` give a cell's inputs and decode cache
+as tensors on the ``meta`` device, the port's ``ShapeDtypeStruct``: shapes
+and dtypes that hold no memory (the dry run and the partition specs read
+them)."""
 from __future__ import annotations
 
 import importlib
 from typing import Dict
 
-from repro_torch.configs.base import SHAPES, ModelCfg, cell_is_supported
+import torch
+
+from repro_torch.configs.base import (SHAPES, InputShape, ModelCfg,
+                                      cell_is_supported)
 
 _MODULES = {
     "internlm2-1.8b": "repro_torch.configs.internlm2_1_8b",
@@ -36,6 +42,39 @@ def get_smoke_config(name: str) -> ModelCfg:
 
 def list_configs() -> Dict[str, ModelCfg]:
     return {n: get_config(n) for n in ARCH_NAMES}
+
+
+def _sds(shape, dtype) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelCfg, shape: InputShape) -> dict:
+    """Meta-tensor stand-ins for every model input of this cell.
+
+    train/prefill: the full token batch (+ modality stubs).
+    decode: one new token per sequence (the KV cache spec comes from
+    ``cache_specs``)."""
+    B, S = shape.global_batch, shape.seq_len
+    dt = torch.bfloat16 if cfg.dtype == "bfloat16" else torch.float32
+    if shape.kind in ("train", "prefill"):
+        batch = {"tokens": _sds((B, S), torch.int32)}
+        if cfg.family == "audio":
+            batch["frames"] = _sds((B, cfg.num_audio_frames, cfg.d_model),
+                                   dt)
+        if cfg.family == "vlm":
+            batch["image_embed"] = _sds((B, cfg.num_image_tokens,
+                                         cfg.d_model), dt)
+        return batch
+    # decode: one token per sequence
+    return {"token": _sds((B,), torch.int32)}
+
+
+def cache_specs(cfg: ModelCfg, shape: InputShape) -> dict:
+    """Shape/dtype of the decode cache at context length = shape.seq_len
+    (the model's ``init_cache`` on the meta device)."""
+    from repro_torch.models.model import build_model
+    return build_model(cfg).init_cache(shape.global_batch, shape.seq_len,
+                                       device="meta")
 
 
 def all_cells():

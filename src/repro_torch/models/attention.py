@@ -20,8 +20,8 @@ h % KV instead, which only KV = 1 cannot tell apart.
 ``window`` is a per-layer Python int: 0 means global causal attention, w > 0
 attends to keys with ``q_pos - k_pos < w``.
 
-Without a mesh the reference's ``constrain`` calls are the identity, so they
-are left out (ROADMAP item 14f).
+``constrain`` puts q and k on the reference's (batch, -, model, -) layout
+under a mesh's rules and is the identity otherwise.
 """
 from __future__ import annotations
 
@@ -29,9 +29,11 @@ import math
 from typing import Optional
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models import flash
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import constrain, unflatten
 
 NEG_INF = -1e30
 
@@ -67,10 +69,39 @@ def _project_qkv(params, x, num_heads, num_kv_heads, head_dim):
         q = q + params["bq"]
         k = k + params["bk"]
         v = v + params["bv"]
-    q = q.reshape(B, S, num_heads, head_dim)
-    k = k.reshape(B, S, num_kv_heads, head_dim)
-    v = v.reshape(B, S, num_kv_heads, head_dim)
-    return q, k, v
+    return (split_heads(q, num_heads, head_dim),
+            split_heads(k, num_kv_heads, head_dim),
+            split_heads(v, num_kv_heads, head_dim))
+
+
+def split_heads(t: torch.Tensor, heads: int, head_dim: int) -> torch.Tensor:
+    """(B, S, heads * head_dim) -> (B, S, heads, head_dim)
+    (:func:`~repro_torch.models.sharding.unflatten`)."""
+    return unflatten(t, -1, (heads, head_dim))
+
+
+def write_slot(cache: torch.Tensor, pos: int, val: torch.Tensor) -> None:
+    """``cache[:, pos] = val`` in place ((B, S, ...) and (B, ...)). On a
+    DTensor cache each rank writes its own shard, and only the rank whose
+    sequence slice holds ``pos`` writes anything (the reference's
+    ``dynamic_update_slice`` on a sequence-sharded cache)."""
+    if not isinstance(cache, DTensor):
+        cache[:, pos] = val.to(cache.dtype)
+        return
+    mesh, place = cache.device_mesh, cache.placements
+    # val's dims are the cache's without the sequence dim 1
+    want = [Replicate() if not p.is_shard() or p.dim == 1 else
+            Shard(p.dim - 1 if p.dim > 1 else 0) for p in place]
+    local_val = val.redistribute(mesh, want).to_local()
+    local = cache.to_local()
+    coord = mesh.get_coordinate()
+    start, n = 0, local.shape[1]
+    for i, p in enumerate(place):           # nested in mesh order
+        if p.is_shard(1):
+            start = start * mesh.shape[i] + coord[i]
+    lo = start * n
+    if lo <= pos < lo + n:
+        local[:, pos - lo] = local_val.to(local.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -91,6 +122,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash.flash_attention_trainable(
             q, k, v, causal=causal, window=window, q_offset=q_offset,
             block_q=block_q, block_kv=block_kv, scale=scale)
+    if isinstance(q, DTensor):
+        return flash.sharded_attention(
+            lambda a, b, c: flash_attention(
+                a, b, c, causal=causal, window=window, q_offset=q_offset,
+                block_q=block_q, block_kv=block_kv, scale=scale), q, k, v)
     B, Sq, H, Dh = q.shape
     _, Skv, KV, _ = k.shape
     Dv = v.shape[-1]
@@ -174,7 +210,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     pos = torch.full((B,), pos, dtype=torch.int64, device=dev) \
         if isinstance(pos, int) else torch.as_tensor(pos, device=dev).expand(B)
     # head h reads KV head h // rep (see the module docstring)
-    qf = q.float().reshape(B, KV, rep, Dh) * scale
+    qf = unflatten(q.float(), 1, (KV, rep)) * scale
     s = torch.einsum("bkrd,bjkd->bkrj", qf, cache_k.float())
     idx = torch.arange(Smax, device=dev)
     mask = idx[None, :] <= pos[:, None]                  # (B, Smax)
@@ -200,6 +236,8 @@ def self_attn_apply(params, x, *, num_heads, num_kv_heads, head_dim,
         positions = q_offset + torch.arange(S, device=x.device)[None, :]
     q = L.apply_rope(q, positions, theta)
     k = L.apply_rope(k, positions, theta)
+    q = constrain(q, "batch", None, "model", None)
+    k = constrain(k, "batch", None, "model", None)
     out = flash_attention(q, k, v, causal=True, window=window,
                           q_offset=q_offset, differentiable=differentiable)
     out = out.reshape(B, S, num_heads * head_dim)
@@ -219,8 +257,8 @@ def self_attn_decode(params, x, cache_k, cache_v, pos: int, *, num_heads,
     posv = torch.full((B, 1), pos, dtype=torch.int64, device=x.device)
     q = L.apply_rope(q, posv, theta)
     k = L.apply_rope(k, posv, theta)
-    cache_k[:, pos] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, pos] = v[:, 0].to(cache_v.dtype)
+    write_slot(cache_k, pos, k[:, 0])
+    write_slot(cache_v, pos, v[:, 0])
     out = decode_attention(q[:, 0], cache_k, cache_v, pos, window=window)
     out = out.reshape(B, 1, num_heads * head_dim)
     return out @ params["wo"], cache_k, cache_v

@@ -23,6 +23,7 @@ from repro_torch.configs.base import ModelCfg
 from repro_torch.convert import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import constrain
 
 POS_DEC_ROWS = 8192
 
@@ -102,6 +103,7 @@ def encode(params, cfg: ModelCfg, frames: torch.Tensor,
     training attention (``flash.flash_attention_trainable``)."""
     B, S, d = frames.shape
     x = frames + _sinusoid(S, d, frames.device).to(frames.dtype)[None]
+    x = constrain(x, "batch", None, None)
     for pl in params["enc"]:
         h = L.layernorm(pl["ln1"], x)
         q, k, v = A._project_qkv(pl["attn"], h, cfg.num_heads,
@@ -144,7 +146,7 @@ def decode_train(params, cfg: ModelCfg, tokens: torch.Tensor,
     the attention is the training path; ``remat`` recomputes each layer in
     the backward pass (see ``transformer.transformer_forward``)."""
     B, S = tokens.shape
-    x = params["embed"][tokens.long()] + \
+    x = L.embed_lookup(params["embed"], tokens) + \
         params["pos_dec"][torch.arange(S, device=tokens.device)][None]
     kvs, xkvs = [], []
     for pl in params["dec"]:
@@ -160,7 +162,8 @@ def decode_train(params, cfg: ModelCfg, tokens: torch.Tensor,
     x = L.layernorm(params["ln_f"], x)
     if return_hidden:
         return x, caches
-    return L.unembed(params["embed"], x), caches
+    return constrain(L.unembed(params["embed"], x), "batch", None,
+                     "vocab"), caches
 
 
 def encdec_init_cache(cfg: ModelCfg, batch: int, max_len: int,
@@ -200,7 +203,7 @@ def encdec_decode_step(params, cfg: ModelCfg, token: torch.Tensor,
     B = token.shape[0]
     pos = int(pos)
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-    x = params["embed"][token.long()][:, None, :] + \
+    x = L.embed_lookup(params["embed"], token)[:, None, :] + \
         params["pos_dec"][pos][None, None]
     for i, pl in enumerate(params["dec"]):
         k_l, v_l = cache["k"][i], cache["v"][i]
@@ -208,8 +211,8 @@ def encdec_decode_step(params, cfg: ModelCfg, token: torch.Tensor,
         q = (h @ pl["self"]["wq"] + pl["self"]["bq"]).reshape(B, 1, H, Dh)
         k = (h @ pl["self"]["wk"] + pl["self"]["bk"]).reshape(B, 1, KV, Dh)
         v = (h @ pl["self"]["wv"] + pl["self"]["bv"]).reshape(B, 1, KV, Dh)
-        k_l[:, pos] = k[:, 0].to(k_l.dtype)
-        v_l[:, pos] = v[:, 0].to(v_l.dtype)
+        A.write_slot(k_l, pos, k[:, 0])
+        A.write_slot(v_l, pos, v[:, 0])
         attn = A.decode_attention(q[:, 0], k_l, v_l, pos)
         x = x + attn.reshape(B, 1, -1) @ pl["self"]["wo"]
         h = L.layernorm(pl["ln_x"], x)

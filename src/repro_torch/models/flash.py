@@ -20,6 +20,14 @@ GQA layout as in ``attention.py``: q (B, Sq, H, Dh); k, v (B, Skv, KV, Dh);
 query head h reads KV head h // rep. ``window`` 0 is unbounded, > 0 keeps
 ``q_pos - k_pos < window``; keys at or past ``skv_true`` (the wrapper's
 padding) stay masked.
+
+Under a mesh, q, k and v are DTensors. :func:`sharded_attention` runs the
+plain function on each rank's own heads and batch rows (``local_map``): a
+mesh dim that shards q's batch or heads shards all three alike, any other
+layout is gathered first. Where a head shard would cut k's KV heads apart
+(the smoke config's 2 KV heads on 4 ranks), k and v are expanded to one KV
+head a query head first (``repeat_interleave``: the same pairs, and the
+expansion's backward sums each KV head's gradient over its query heads).
 """
 from __future__ import annotations
 
@@ -168,12 +176,41 @@ class FlashTrain(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None, None
 
 
+def sharded_attention(fn, q, k, v):
+    """``fn(q, k, v)`` of plain tensors (B, S, heads, Dh) on DTensors: each
+    rank runs it on its batch rows and query heads (see the module
+    docstring); the result is a DTensor laid out as q."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+    mesh = q.device_mesh
+    place = [p if p in (Shard(0), Shard(2)) else Replicate()
+             for p in q.placements]
+    heads = math.prod(n for p, n in zip(place, mesh.shape) if p == Shard(2))
+    H, KV = q.shape[2], k.shape[2]
+    if H % heads:
+        place = [Replicate() if p == Shard(2) else p for p in place]
+    elif KV % heads:
+        whole = [Replicate() if p == Shard(2) else p for p in place]
+        k, v = (t.redistribute(mesh, whole).repeat_interleave(H // KV, dim=2)
+                for t in (k, v))
+    place = tuple(place)
+    return local_map(fn, out_placements=list(place),
+                     in_placements=(place, place, place), device_mesh=mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
 def flash_attention_trainable(q, k, v, *, causal: bool = True, window=0,
                               q_offset: int = 0, block_q: int = 512,
                               block_kv: int = 1024,
                               scale: Optional[float] = None) -> torch.Tensor:
     """Padding and dispatch; the training path's ``flash_attention``.
     Returns q's dtype."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(q, DTensor):
+        return sharded_attention(
+            lambda a, b, c: flash_attention_trainable(
+                a, b, c, causal=causal, window=window, q_offset=q_offset,
+                block_q=block_q, block_kv=block_kv, scale=scale), q, k, v)
     B, Sq, H, Dh = q.shape
     _, Skv, KV, _ = k.shape
     scale = scale or (1.0 / math.sqrt(Dh))

@@ -13,9 +13,11 @@ generator's device, else by the port's device rule (CUDA, or raise). On the
 ``meta`` device they draw nothing and only give shapes and dtypes (the
 converter's expected tree).
 
-The JAX package's ``sharding.constrain`` annotations are the identity
-without a mesh, so the port leaves them out; they come back with the mesh
-slice (ROADMAP item 14f).
+Activations carry the reference's ``sharding.constrain`` annotations:
+the identity on one device, a ``redistribute`` of a DTensor under a mesh's
+logical rules (``models/sharding.py``). :func:`embed_lookup` gathers rows
+with ``F.embedding``, which DTensor shards over a vocab-sharded table
+(each rank looks up its own rows, then a sum over the model axis).
 """
 from __future__ import annotations
 
@@ -25,8 +27,10 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.convert import resolve_device
+from repro_torch.models.sharding import constrain, gather_weight
 
 
 class ParamTree(nn.Module):
@@ -34,7 +38,9 @@ class ParamTree(nn.Module):
     frozen parameters, its dicts child nodes, its lists ``ModuleList``s of
     nodes (the port's unstacked layer axes). Read as the reference reads
     its dict, ``node["name"]`` and ``"name" in node``; the state_dict names
-    are the dotted paths (``layers.3.ffn.shared.w_up``)."""
+    are the dotted paths (``layers.3.ffn.shared.w_up``). Under a mesh's
+    rules a DTensor weight reads as ``sharding.gather_weight`` gives it
+    (gathered over the batch axes that ZeRO / FSDP shard it on)."""
 
     def __init__(self, tree: dict):
         super().__init__()
@@ -46,7 +52,7 @@ class ParamTree(nn.Module):
                     name, nn.Parameter(v, requires_grad=False))
 
     def __getitem__(self, name: str):
-        return getattr(self, name)
+        return gather_weight(getattr(self, name))
 
     def __contains__(self, name: str) -> bool:
         return name in self._parameters or name in self._modules
@@ -189,6 +195,7 @@ def mlp_apply(params, x: torch.Tensor, act: str = "silu",
         h = (_silu(gate) if act == "silu" else _gelu(gate)) * up
     else:
         h = _gelu(up) if act == "gelu" else _silu(up)
+    h = constrain(h, "batch", None, "model")
     return h @ params["w_down"]
 
 
@@ -198,6 +205,20 @@ def pad_seq(t: torch.Tensor, axis: int, pad: int,
     ``value``."""
     widths = [0, 0] * (t.ndim - 1 - axis) + [0, pad]
     return F.pad(t, widths, value=value)
+
+
+def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``table[ids]`` (the reference's ``params["embed"][tokens]``). On a
+    vocab-sharded DTensor table each rank looks up the ids in its rows and
+    the masked partial rows are summed here, once (DTensor's masked
+    partial can be reduced only once, and the rows have two readers)."""
+    out = F.embedding(ids.long(), table)
+    if isinstance(out, DTensor) and any(p.is_partial()
+                                        for p in out.placements):
+        from torch.distributed.tensor import Replicate
+        out = out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements])
+    return out
 
 
 def unembed(embed: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,8 @@ import torch
 
 from repro_torch.configs.base import MLACfg
 from repro_torch.models import layers as L
-from repro_torch.models.attention import flash_attention
+from repro_torch.models.attention import flash_attention, write_slot
+from repro_torch.models.sharding import constrain
 
 NEG_INF = -1e30
 
@@ -75,6 +76,7 @@ def mla_prefill(params, x, *, num_heads: int, cfg: MLACfg, theta: float,
     v = (c_kv @ params["w_uv"]).reshape(B, S, num_heads, dv)
     k = torch.cat([k_nope, k_rope.expand(B, S, num_heads, dr)], dim=-1)
     q = torch.cat([q_nope, q_rope], dim=-1)
+    q = constrain(q, "batch", None, "model", None)
     out = flash_attention(q, k, v, causal=True, q_offset=q_offset,
                           scale=1.0 / math.sqrt(dn + dr),
                           differentiable=differentiable)
@@ -97,8 +99,8 @@ def mla_decode(params, x, cache_ckv, cache_krope, pos: int, *,
     q_rope = L.apply_rope(q_rope, posv, theta)
     c_kv, k_rope = _latent(params, x)               # (B,1,r), (B,1,dr)
     k_rope = L.apply_rope(k_rope[:, :, None, :], posv, theta)[:, :, 0, :]
-    cache_ckv[:, pos] = c_kv[:, 0].to(cache_ckv.dtype)
-    cache_krope[:, pos] = k_rope[:, 0].to(cache_krope.dtype)
+    write_slot(cache_ckv, pos, c_kv[:, 0])
+    write_slot(cache_krope, pos, k_rope[:, 0])
 
     # absorb W_uk into the query: q_c (B, H, r)
     w_uk = params["w_uk"].reshape(r, num_heads, dn)

@@ -22,6 +22,7 @@ import dataclasses
 from typing import Any, Callable, Union
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.configs.base import ModelCfg
 from repro_torch.convert import resolve_device
@@ -29,6 +30,7 @@ from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
+from repro_torch.models.sharding import _rules, constrain
 
 FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
@@ -49,19 +51,52 @@ def _generator(seed: Union[int, torch.Generator], device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+def _token_xent(logits: torch.Tensor, targets: torch.Tensor):
+    """``logsumexp(logits) - logits[..., targets]`` a token. On a DTensor
+    whose vocab dim is whole on every rank (the full-logits branch), each
+    rank computes its own rows (``local_map``), so the backward meets the
+    per-token gradient at its (B, S) size, not expanded to (B, S, V); over
+    vocab-sharded logits the target logit is the reference's one-hot
+    product, laid out as the logits (each rank sums its own columns)."""
+    if not isinstance(logits, DTensor):
+        tl = logits.gather(-1, targets[..., None])[..., 0]
+        return torch.logsumexp(logits, dim=-1) - tl
+    vdim = logits.ndim - 1
+    if not any(p.is_shard(vdim) for p in logits.placements):
+        from torch.distributed.tensor import Replicate
+        from torch.distributed.tensor.experimental import local_map
+        place = [Replicate() if p.is_partial() else p
+                 for p in logits.placements]
+        return local_map(_token_xent, out_placements=place,
+                         in_placements=(place, place),
+                         device_mesh=logits.device_mesh,
+                         redistribute_inputs=True)(logits, targets)
+    ids = torch.arange(logits.shape[-1], device=logits.device)
+    onehot = constrain((ids == targets[..., None]).float(), "batch", None,
+                       "vocab")
+    return torch.logsumexp(logits, dim=-1) - (logits * onehot).sum(-1)
+
+
 def _xent(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     """Next-token CE on explicit logits (the small-vocab / test path)."""
-    lg = logits.float()[:, :-1]
-    targets = tokens[:, 1:].long()
-    tl = lg.gather(-1, targets[..., None])[..., 0]
-    return (torch.logsumexp(lg, dim=-1) - tl).mean()
+    logits = constrain(logits.float(), "batch", None, "vocab")
+    return _token_xent(logits[:, :-1], tokens[:, 1:].long()).mean()
 
 
 def _xent_chunk(xc, tc, vc, head):
     """The masked CE sum of one (B, c) chunk; ``head`` (V, d) in f32."""
-    logits = xc.float() @ head.T                          # (B, c, V)
-    tl = logits.gather(-1, tc[..., None])[..., 0]
-    return ((torch.logsumexp(logits, dim=-1) - tl) * vc[None, :]).sum()
+    logits = constrain(xc.float() @ head.T, "batch", None, "vocab")
+    return (_token_xent(logits, tc) * vc[None, :]).sum()
+
+
+def _pad_end(t: torch.Tensor, pad: int) -> torch.Tensor:
+    """``t`` zero-padded by ``pad`` (< its length) at the end of dim 1; a
+    DTensor by a ``cat`` of zeros laid out as it is (DTensor's ``pad``
+    loses the mesh's placements)."""
+    if isinstance(t, DTensor):
+        return torch.cat([t, torch.zeros_like(t[:, :pad])], dim=1)
+    widths = (0, 0) * (t.ndim - 2) + (0, pad)
+    return torch.nn.functional.pad(t, widths)
 
 
 def fused_xent(x: torch.Tensor, tokens: torch.Tensor, head: torch.Tensor,
@@ -73,19 +108,29 @@ def fused_xent(x: torch.Tensor, tokens: torch.Tensor, head: torch.Tensor,
     recomputed in the backward pass (``torch.utils.checkpoint``), so the
     full (B, S, V) f32 tensor never does. The sequence is zero-padded to
     whole chunks and the padded tail masked; the sum is divided by
-    B (S - 1). The reference's branch for a mesh with no axis left for the
-    vocabulary (one full logits block) is the identity without logical
-    rules; it comes with the meshes, ROADMAP item 14f."""
+    B (S - 1).
+
+    Under logical rules that leave no mesh axis for the vocabulary (the
+    pure-FSDP cells, where the batch takes every axis) the chunks' remat
+    would re-gather the FSDP-sharded head every chunk, so one full
+    (B_loc, S, V) logits block is computed instead, as the reference does.
+    Otherwise the head is laid out once as ``(None, "vocab")`` and each
+    chunk's logits vocab-sharded; over sharded logits the target logit is
+    the one-hot product and ``logsumexp`` is DTensor's, which gathers the
+    chunk's vocab columns (the reference's GSPMD reduces partial max and
+    sum instead; the values are the same). See :func:`_token_xent`."""
+    rules = _rules()
+    if rules is not None and rules.get("vocab") is None:
+        return _xent(x.float() @ head.float().T, tokens)
     B, S, d = x.shape
-    head = head.float()             # once, not per chunk
+    head = constrain(head, None, "vocab").float()   # once, not per chunk
     xs = x[:, :-1]
     targets = tokens[:, 1:].long()
     n = S - 1
     c = min(chunk, n)
     pad = (-n) % c
     if pad:
-        xs = torch.nn.functional.pad(xs, (0, 0, 0, pad))
-        targets = torch.nn.functional.pad(targets, (0, pad))
+        xs, targets = _pad_end(xs, pad), _pad_end(targets, pad)
     nc = (n + pad) // c
     valid = (torch.arange(nc * c, device=x.device) < n).float()
     acc = torch.zeros((), dtype=torch.float32, device=x.device)

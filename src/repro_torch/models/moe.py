@@ -35,6 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import MoECfg
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import constrain
 
 _ROUTING = contextvars.ContextVar("moe_routing", default=None)
 
@@ -126,10 +127,11 @@ def moe_apply(params, x: torch.Tensor, cfg: MoECfg, *,
                          "rows": min(g, S - gi * g)})
 
         ein = torch.einsum("bgec,bgd->becd", dispatch, xt.float())
-        ein = ein.to(xt.dtype)
+        ein = constrain(ein.to(xt.dtype), "batch", "expert", None, None)
         h = L._silu(torch.einsum("becd,edf->becf", ein, params["w_gate"])) \
             * torch.einsum("becd,edf->becf", ein, params["w_up"])
         out_e = torch.einsum("becf,efd->becd", h, params["w_down"])
+        out_e = constrain(out_e, "batch", "expert", None, None)
         y = torch.einsum("bgec,becd->bgd", combine, out_e.float())
 
         # Switch aux loss: fraction routed * mean router prob, per expert

@@ -26,9 +26,9 @@ and returns the cache. The hybrid's attention is the port's inference
 ``flash_attention``; the forward without ``collect_cache`` runs the
 training attention, as the reference does. ``remat`` recomputes each
 block, and each group around its blocks, in the backward pass (the
-reference's nested ``jax.checkpoint``). Without a mesh the reference's
-``constrain`` calls are the identity, so they are left out (ROADMAP item
-14f).
+reference's nested ``jax.checkpoint``). The embedded tokens and the
+logits carry the reference's ``constrain`` annotations
+(``models/sharding.py``), the identity on one device.
 """
 from __future__ import annotations
 
@@ -43,6 +43,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M2
 from repro_torch.models import transformer as T
 from repro_torch.models import xlstm as XL
+from repro_torch.models.sharding import constrain
 
 # the (V, d) unembedding matrix, tied or separate: the transformer's rule
 head_matrix = T.head_matrix
@@ -71,7 +72,8 @@ class Hybrid(L.ParamTree):
 
 def _head(params, cfg: ModelCfg, x):
     """Final norm, then f32 logits (tied: f32 by f32)."""
-    return T._head(params, cfg, L.rmsnorm(params["ln_f"], x))
+    return constrain(T._head(params, cfg, L.rmsnorm(params["ln_f"], x)),
+                     "batch", None, "vocab")
 
 
 def _stack_states(states, cls):
@@ -142,7 +144,8 @@ def xlstm_forward(params, cfg: ModelCfg, tokens: torch.Tensor,
     SLSTMState of (G, B, d_inner)). ``return_hidden``: the final normed
     hidden states in place of the logits. ``remat``: see the module
     docstring (the groups only without ``collect_state``)."""
-    x = params["embed"][tokens.long()]
+    x = L.embed_lookup(params["embed"], tokens)
+    x = constrain(x, "batch", None, None)
     H = cfg.num_heads
     m_states, s_states = [], []
     groups = params["groups"]
@@ -197,7 +200,7 @@ def xlstm_decode_step(params, cfg: ModelCfg, token: torch.Tensor, cache: dict,
     """token: (B,) ints (``pos`` is not read: the state is the position).
     Returns (logits (B, V) f32, cache), the cache's states updated in
     place."""
-    x = params["embed"][token.long()][:, None, :]
+    x = L.embed_lookup(params["embed"], token)[:, None, :]
     H = cfg.num_heads
     groups = params["groups"]
     for g, (pm, lns, ps, sln) in enumerate(zip(
@@ -293,7 +296,8 @@ def hybrid_forward(params, cfg: ModelCfg, tokens: torch.Tensor,
     ``collect_cache``: aux is (Mamba2State of (G, E, B, ...), (k, v) of
     (G, B, S, KV, Dh)); ``return_hidden`` and ``remat`` as in
     :func:`xlstm_forward`."""
-    x = params["embed"][tokens.long()]
+    x = L.embed_lookup(params["embed"], tokens)
+    x = constrain(x, "batch", None, None)
     sh = params["shared_attn"]
     m_states, ks, vs = [], [], []
     for pm, lns in zip(params["mamba"], params["mln"]):
@@ -350,7 +354,7 @@ def hybrid_decode_step(params, cfg: ModelCfg, token: torch.Tensor,
     """token: (B,) ints; pos: the position to write. Returns (logits (B, V)
     f32, cache), every Mamba2 state and group g's K/V (``cache["k"][g]``)
     written in place."""
-    x = params["embed"][token.long()][:, None, :]
+    x = L.embed_lookup(params["embed"], token)[:, None, :]
     sh = params["shared_attn"]
     for g, (pm, lns) in enumerate(zip(params["mamba"], params["mln"])):
         for e, (pl, ln) in enumerate(zip(pm, lns)):

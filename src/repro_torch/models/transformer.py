@@ -30,8 +30,9 @@ Dh). ``transformer_prefill`` returns the prompt's cache zero-padded to
 ``max_len`` as the reference does; ``transformer_decode_step`` writes the
 new token into that cache in place and returns it.
 
-Without a mesh the reference's ``constrain`` calls are the identity, so they
-are left out (ROADMAP item 14f).
+The residual stream, the embedded tokens and the logits carry the
+reference's ``constrain`` annotations (``models/sharding.py``): the identity
+on one device, a ``redistribute`` of a DTensor under a mesh's rules.
 """
 from __future__ import annotations
 
@@ -45,6 +46,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import layers as L
 from repro_torch.models import mla as MLA
 from repro_torch.models import moe as MOE
+from repro_torch.models.sharding import constrain
 
 
 class Transformer(L.ParamTree):
@@ -164,7 +166,7 @@ def _self_layer(p, cfg: ModelCfg, x, window: int, theta: float,
     x = x + attn_out
     h = L.rmsnorm(p["ln2"], x)
     ffn_out, aux = _ffn_apply(p["ffn"], cfg, h)
-    return x + ffn_out, aux, kv
+    return constrain(x + ffn_out, "batch", "seq", None), aux, kv
 
 
 def _cross_layer(p, cfg: ModelCfg, x, kv_k, kv_v,
@@ -218,7 +220,8 @@ def transformer_forward(params, cfg: ModelCfg, tokens: torch.Tensor,
     ``remat``: each layer (and a VLM's each group around its layers) is
     recomputed in the backward pass, ``jax.checkpoint``'s nesting; it
     changes memory, never values."""
-    x = params["embed"][tokens.long()]
+    x = L.embed_lookup(params["embed"], tokens)
+    x = constrain(x, "batch", "seq", None)
     diff = not collect_cache   # the training path is differentiable
     aux = 0.0
     kvs = []
@@ -264,7 +267,8 @@ def transformer_forward(params, cfg: ModelCfg, tokens: torch.Tensor,
     x = L.rmsnorm(params["ln_f"], x)
     if return_hidden:
         return x, aux, cache
-    return _head(params, cfg, x), aux, cache
+    return constrain(_head(params, cfg, x), "batch", None, "vocab"), aux, \
+        cache
 
 
 def head_matrix(params, cfg: ModelCfg) -> torch.Tensor:
@@ -355,7 +359,7 @@ def transformer_decode_step(params, cfg: ModelCfg, token: torch.Tensor,
     f32, cache), the cache written in place. A VLM's cross layers read the
     image K/V cached by the prefill; ``image_embed`` is not read (as in the
     reference)."""
-    x = params["embed"][token.long()][:, None, :]        # (B, 1, d)
+    x = L.embed_lookup(params["embed"], token)[:, None, :]   # (B, 1, d)
     if cfg.cross_attn_every:
         for g, (p_self, p_cross) in enumerate(zip(params["groups"]["self"],
                                                   params["groups"]["cross"])):

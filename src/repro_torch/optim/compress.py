@@ -50,7 +50,14 @@ def _dequantize(q: torch.Tensor, scale: torch.Tensor, shape) -> torch.Tensor:
 
 
 def compress_decompress(g: torch.Tensor) -> torch.Tensor:
-    """Round-trip int8 quantization (the lossy channel)."""
+    """Round-trip int8 quantization (the lossy channel). A DTensor's blocks
+    run over its full value, as the reference's over the global array:
+    every rank quantizes the gathered tensor and keeps its own shard."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    if isinstance(g, DTensor):
+        return distribute_tensor(compress_decompress(g.full_tensor()),
+                                 g.device_mesh, g.placements,
+                                 src_data_rank=None)
     q, s = _quantize(g.float())
     return _dequantize(q, s, g.shape)
 

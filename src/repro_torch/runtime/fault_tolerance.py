@@ -9,8 +9,10 @@ The port of ``repro.runtime.fault_tolerance`` (pure Python):
   the stateless data pipeline (skip to a step) and atomic checkpoints this
   gives exactly-once-equivalent training;
 * :func:`elastic_mesh_shape` sizes the largest (dp, tp) grid for the
-  healthy device count. Building the mesh itself (``elastic_remesh``) and
-  resharding a checkpoint onto it come with the meshes, ROADMAP item 14f.
+  healthy device count, and :func:`elastic_remesh` builds that
+  ("data", "model") ``DeviceMesh`` over the live ``torch.distributed``
+  world; ``checkpoint.manager.restore(shardings=)`` places a checkpoint
+  onto it (``launch/train.py``).
 """
 from __future__ import annotations
 
@@ -73,3 +75,13 @@ def elastic_mesh_shape(num_devices: int, preferred_tp: int = 16
     while tp > 1 and num_devices % tp:
         tp //= 2
     return num_devices // tp, tp
+
+
+def elastic_remesh(axis_names=("data", "model"), preferred_tp: int = 16):
+    """A (dp, tp) ``DeviceMesh`` over every rank of the initialised
+    process group, shaped by :func:`elastic_mesh_shape`."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+    return make_mesh(elastic_mesh_shape(dist.get_world_size(), preferred_tp),
+                     axis_names)

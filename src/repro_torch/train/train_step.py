@@ -13,6 +13,15 @@ returned state holds them. Gradients come from ``loss.backward()`` on the
 weights module, whose parameters :func:`init_train_state` makes trainable;
 a parameter the loss does not reach gets a zero gradient, as
 ``jax.grad`` gives it.
+
+Sharded state (``launch/train.py`` under a mesh): the parameters, moments
+and residuals are DTensors and the step runs as it is, DTensor placing
+every op. A gradient comes back as DTensor leaves it (a replicated
+weight's gradient is a partial sum over the ranks that shared its input)
+and is reduced to its parameter's placements before the update; the global
+norm's per-tensor sums are partial sums reduced once, at its square root;
+AdamW updates each shard in place; ``torch.utils.checkpoint`` recomputes
+the sharded ops, collectives included.
 """
 from __future__ import annotations
 
@@ -20,6 +29,7 @@ import dataclasses
 from typing import Any, NamedTuple, Optional
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw, compress, schedule
@@ -66,7 +76,10 @@ def _value_and_grad(model: Model, tcfg: TrainCfg, params, batch):
     loss.backward()
     grads = {}
     for k, p in params.named_parameters():
-        grads[k] = p.grad if p.grad is not None else torch.zeros_like(p)
+        g = p.grad if p.grad is not None else torch.zeros_like(p)
+        if isinstance(g, DTensor) and g.placements != p.placements:
+            g = g.redistribute(p.device_mesh, p.placements)
+        grads[k] = g
         p.grad = None
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             grads)

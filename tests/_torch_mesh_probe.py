@@ -1,0 +1,102 @@
+"""The process-group half of ``test_torch_mesh_cost.py``, in a process of
+its own (a group opened in a pytest worker would leak into later files).
+Usage::
+
+    python _torch_mesh_probe.py STORE_FILE IN_NPZ OUT_JSON
+
+1. A gloo world of one rank, a (1, 1) ("data", "model") mesh: the port's
+   ``fused_xent`` on DTensors (the hidden states batch-sharded, the head
+   laid out as ``param_specs`` lays out ``lm_head``'s transpose) under the
+   mesh's logical rules, with the vocab axis (chunked branch) and without
+   it (the full-logits branch): its value and the gradients of x and head.
+2. A ``fake`` world of 256 ranks on the (16, 16) production mesh: one
+   matmul on DTensors counted by ``op_cost`` and by ``FlopCounterMode``,
+   two collectives counted by ``op_cost``, and the dry run's
+   internlm2-1.8b x decode_32k row.
+
+Writes one JSON object to OUT_JSON."""
+import json
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+
+def xent_on_mesh(store, data):
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import logical_rules, make_mesh
+    from repro_torch.models.model import fused_xent
+    from repro_torch.models.sharding import logical_axis_rules
+
+    dist.init_process_group("gloo", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    mesh = make_mesh((1, 1), ("data", "model"))
+    out = {}
+    for name, vocab in (("chunked", "model"), ("full", None)):
+        x = distribute_tensor(torch.from_numpy(data["x"]), mesh,
+                              [Shard(0), Replicate()]).requires_grad_(True)
+        head = distribute_tensor(torch.from_numpy(data["head"]), mesh,
+                                 [Replicate(), Shard(0)]
+                                 ).requires_grad_(True)
+        tokens = distribute_tensor(torch.from_numpy(data["tokens"]), mesh,
+                                   [Shard(0), Replicate()])
+        rules = dict(logical_rules(mesh), vocab=vocab)
+        with implicit_replication(), logical_axis_rules(rules):
+            loss = fused_xent(x, tokens, head, chunk=int(data["chunk"]))
+            loss.backward()
+        out[name] = {"loss": float(loss.full_tensor()),
+                     "dx": x.grad.full_tensor().tolist(),
+                     "dhead": head.grad.full_tensor().tolist()}
+    dist.destroy_process_group()
+    return out
+
+
+def on_fake_world():
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed._functional_collectives import (all_gather_tensor,
+                                                           all_reduce)
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.roofline.op_cost import OpCounter
+
+    dryrun.init_fake_world()
+    mesh = make_production_mesh()
+    out = {}
+    with FakeTensorMode():
+        x = distribute_tensor(torch.empty(256, 4096, 2048), mesh,
+                              [Shard(0), Replicate()], src_data_rank=None)
+        w = distribute_tensor(torch.empty(2048, 8192), mesh,
+                              [Replicate(), Shard(1)], src_data_rank=None)
+        with OpCounter() as c:
+            x @ w
+        with FlopCounterMode(display=False) as f:
+            x @ w
+        out["matmul"] = {"op_cost": c.cost().dot_flops,
+                         "flop_counter": f.get_total_flops()}
+    with OpCounter() as c:
+        all_reduce(torch.zeros(1024, 512), "sum", dist.group.WORLD)
+        all_gather_tensor(torch.zeros(8, dtype=torch.bfloat16), 0,
+                          dist.group.WORLD)
+    out["collectives"] = c.cost().collective_by_kind
+    out["decode_row"] = dryrun.dryrun_cell("internlm2-1.8b", "decode_32k",
+                                           verbose=False)
+    return out
+
+
+def main():
+    data = dict(np.load(sys.argv[2]))
+    res = {"xent": xent_on_mesh(sys.argv[1], data)}
+    res.update(on_fake_world())
+    with open(sys.argv[3], "w") as f:
+        json.dump(res, f)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()

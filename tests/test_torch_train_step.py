@@ -11,7 +11,8 @@
   0.9, one of the suite's known failures) continued by the port's
   ``launch.train``: its step-3 loss is JAX's.
 * The port's resume and its restart after a crash against an uninterrupted
-  run, bit for bit; the one-device guard; the CLI; the example.
+  run, bit for bit; the CLI; the example. (The sharded trainer's tests
+  are ``test_torch_mesh_train.py``.)
 
 Tolerances. fp32: a step's loss within rtol 1e-4, the learning rate
 rtol 1e-6, the grad norm rtol 2e-3 (read: 1.1e-5, 8e-8, 3e-4 with
@@ -31,7 +32,6 @@ import os
 import jax
 import numpy as np
 import pytest
-import torch
 
 from _torch_lm import example
 from repro.checkpoint import manager as jckpt
@@ -177,13 +177,6 @@ def test_restart_after_a_crash_resumes_from_the_checkpoint(tmp_path,
     # steps 0-2, then step 2 again from the step-2 checkpoint, then step 3
     assert got["losses"][:3] == full["losses"][:3]
     assert got["losses"][3:] == full["losses"][2:]
-
-
-def test_more_than_one_rank_raises(monkeypatch):
-    monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
-    monkeypatch.setattr(torch.distributed, "get_world_size", lambda: 2)
-    with pytest.raises(RuntimeError, match="14f"):
-        tlaunch.train("internlm2-1.8b", device="cpu")
 
 
 def test_cli_prints_the_reference_summary(tmp_path, capsys):
