@@ -232,8 +232,10 @@ nonzero:
    sharded run's; ms a step sharded and unsharded (DTensor's host
    overhead) and peak memory printed; (b) ``python -m repro_torch.launch.dryrun`` in a subprocess a
    cell, started before phase 11 and run beside it on the host's CPU (a
-   fake-backend world of 256 ranks, the step under ``FakeTensorMode``):
-   P12B_CELLS on the (16, 16) mesh, each row printed.
+   fake-backend world of 256 ranks, or 512 with ``--multi-pod``, the step
+   under ``FakeTensorMode``): P12B_CELLS, the (arch x shape) cells and the
+   distributed medoid engines' rows, each row printed and held to an
+   ``ok`` status, live bytes and flops.
 
 It then prints the kernels' JSON line, the card's name and power limit, and
 last ``{"ok": true, "device": {...}}``. It needs one CUDA card and the rest
@@ -431,16 +433,32 @@ FLASH_MEM_BLOCKS = 16
 
 # Phase 12, the sharded trainer and the dry run: 12a's cut of
 # internlm2-1.8b (full width, P12_LAYERS of its 24 layers), batch, steps and
-# checkpoints, and its bound against the unsharded run; 12b's dry-run cells
-# (pure FSDP with the batch over all 256 ranks, so fused_xent's
-# full-logits branch; the sequence-sharded decode cache) and the time
-# limit of each subprocess
+# checkpoints, and its bound against the unsharded run; 12b's dry runs, each
+# the arguments of one ``python -m repro_torch.launch.dryrun`` (pure FSDP
+# with the batch over all 256 ranks, so fused_xent's full-logits branch;
+# the sequence-sharded decode caches of a KV-head-sharded attention
+# (gemma3, zamba2), of xLSTM's 4 heads cut by the model axis and of
+# whisper past its position table; the 512-rank mesh; the medoid engines,
+# v2 at the reference's defaults and v1 at n = 2^16: at the defaults v1
+# scores ~1.26M references a rank 32 at a time (the reference backend's l1
+# loop, a few fake ops a block), past the time limit), and the time limit
+# of each subprocess
 P12_LAYERS = 4
 P12_BATCH, P12_SEQ = 2, 2048
 P12_STEPS, P12_CKPT_EVERY = 4, 2
 P12_LOSS_RTOL = 1e-6
-P12B_CELLS = (("internlm2-1.8b", "train_4k"), ("internlm2-1.8b",
-                                              "decode_32k"))
+P12B_CELLS = (
+    ("--arch", "internlm2-1.8b", "--shape", "train_4k"),
+    ("--arch", "internlm2-1.8b", "--shape", "decode_32k"),
+    ("--arch", "gemma3-27b", "--shape", "decode_32k"),
+    ("--arch", "zamba2-2.7b", "--shape", "decode_32k"),
+    ("--arch", "xlstm-1.3b", "--shape", "decode_32k"),
+    ("--arch", "whisper-small", "--shape", "decode_32k"),
+    ("--arch", "xlstm-1.3b", "--shape", "long_500k"),
+    ("--arch", "internlm2-1.8b", "--shape", "decode_32k", "--multi-pod"),
+    ("--medoid-engine", "v2"),
+    ("--medoid-engine", "v1", "--n", str(1 << 16)),
+)
 P12B_TIMEOUT_S = 300
 
 # Phase 5, the quantized path: name, dataset, n, d, metric, precision, base
@@ -1629,13 +1647,15 @@ def phase11(dev) -> None:
 
 def phase12_dryruns() -> list:
     """12b: one ``python -m repro_torch.launch.dryrun`` a cell, started
-    now on the host's CPU; :func:`phase12b` collects them."""
+    now on the host's CPU at a lower priority (niceness 10), so that the
+    card's host-bound phases beside them keep their core; :func:`phase12b`
+    collects them."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"),
                OMP_NUM_THREADS="1", CUDA_VISIBLE_DEVICES="")
-    return [(cell, time.perf_counter(), subprocess.Popen(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
-         cell[0], "--shape", cell[1]], cwd=ROOT, env=env,
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    return [(" ".join(cell), time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *cell],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, preexec_fn=lambda: os.nice(10)))
         for cell in P12B_CELLS]
 
 
@@ -1745,25 +1765,26 @@ def phase12a(dev) -> None:
 
 def phase12b(procs) -> None:
     """12b: the dry-run rows (the module docstring's item 12)."""
-    for (arch, shape), t0, proc in procs:
+    for cell, t0, proc in procs:
         try:
             out, err = proc.communicate(timeout=P12B_TIMEOUT_S)
         finally:
             proc.kill()
         wall = time.perf_counter() - t0
         _require(proc.returncode == 0,
-                 f"phase12b dry run {arch} x {shape}: exit "
+                 f"phase12b dry run {cell}: exit "
                  f"{proc.returncode}: {err[-2000:]}")
         rows = [json.loads(ln) for ln in out.splitlines()
                 if ln.startswith("{")]
         _require(len(rows) == 1 and rows[0]["status"] == "ok"
                  and rows[0]["per_device_bytes"]["total_live"] > 0
                  and rows[0]["flops"] > 0,
-                 f"phase12b dry run {arch} x {shape}: {out[-2000:]}")
-        print(f"phase12b dry run {arch} x {shape} (fake world of "
-              f"{rows[0]['chips']} ranks, {rows[0]['mesh']}; subprocess "
-              f"{wall:.1f} s from its start): {json.dumps(rows[0])}",
-              flush=True)
+                 f"phase12b dry run {cell}: {out[-2000:]}")
+        own = rows[0].get("setup_s", 0.0) + rows[0]["run_s"]
+        print(f"phase12b dry run {cell} (fake world of "
+              f"{rows[0]['chips']} ranks, {rows[0]['mesh']}; {own:.1f} s "
+              f"set-up and step, read {wall:.1f} s after its start): "
+              f"{json.dumps(rows[0])}", flush=True)
 
 
 def phase12(dev, procs=None) -> None:

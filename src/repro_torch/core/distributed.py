@@ -51,7 +51,13 @@ class MeshLayout:
 
 def mesh_layout(mesh) -> MeshLayout:
     """The row sharding of ``mesh`` as seen from this rank. A mesh of more
-    than one dimension must span the default process group."""
+    than one dimension must span the default process group. A
+    :class:`MeshLayout` is returned as it is: the engines take one in place
+    of its mesh, so a caller can read the mesh's rank table on the host
+    before a ``FakeTensorMode`` (where that read has no value) and hand
+    them the layout."""
+    if isinstance(mesh, MeshLayout):
+        return mesh
     coord = mesh.get_coordinate()
     if coord is None:
         raise ValueError("this rank is not in the mesh")
@@ -130,8 +136,8 @@ def distributed_corr_sh(x_local: torch.Tensor, key: rng.Key, mesh, *,
                         backend: str = "reference") -> torch.Tensor:
     """The medoid (a 0-d int64 tensor, the same on every rank) of the (n,
     d) dataset whose rows ``x_local`` this rank holds, row-sharded over
-    ``mesh`` (n = P rows of ``x_local``). ``key`` is the same on every
-    rank."""
+    ``mesh`` (n = P rows of ``x_local``), a ``DeviceMesh`` or its
+    :class:`MeshLayout`. ``key`` is the same on every rank."""
     lay = mesh_layout(mesh)
     n_local = x_local.shape[0]
     n = n_local * lay.shards
@@ -164,4 +170,6 @@ def distributed_corr_sh(x_local: torch.Tensor, key: rng.Key, mesh, *,
         if rd.exact or s <= 2:
             break
         idx = idx[default_select(theta_hat, math.ceil(s / 2))]
-    return idx[torch.argmin(theta_hat)]
+    # a one-element gather keeps the index on the device (a 0-d index
+    # tensor would be read on the host)
+    return idx[torch.argmin(theta_hat).reshape(1)][0]

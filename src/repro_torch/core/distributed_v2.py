@@ -57,7 +57,8 @@ def distributed_corr_sh_v2(x_local: torch.Tensor, key: rng.Key, mesh, *,
                            backend: str = "reference") -> torch.Tensor:
     """The medoid (a 0-d int64 tensor, the same on every rank) of the (n,
     d) dataset whose rows ``x_local`` this rank holds, row-sharded over
-    ``mesh`` (see :mod:`repro_torch.core.distributed`)."""
+    ``mesh``, a ``DeviceMesh`` or its ``MeshLayout`` (see
+    :mod:`repro_torch.core.distributed`)."""
     lay = mesh_layout(mesh)
     p, sid = lay.shards, lay.shard_id
     n_local, d = x_local.shape
@@ -114,7 +115,8 @@ def distributed_corr_sh_v2(x_local: torch.Tensor, key: rng.Key, mesh, *,
             part = theta_sums(cand, local_refs) * sel
             theta = _mean(psum(part, lay), t_r)
             if rd.exact or s <= 2:
-                return surv_idx[torch.argmin(theta)]
+                # a one-element gather, on the device (see v1)
+                return surv_idx[torch.argmin(theta).reshape(1)][0]
             surv_idx = surv_idx[default_select(theta, math.ceil(s / 2))]
     if surv_idx is not None:
         return surv_idx[0]

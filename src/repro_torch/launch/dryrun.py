@@ -25,6 +25,8 @@ Examples:
       --shape decode_32k
   PYTHONPATH=src python -m repro_torch.launch.dryrun --all --multi-pod \\
       --out build/dryrun.jsonl
+  PYTHONPATH=src python -m repro_torch.launch.dryrun --medoid-engine v2 \\
+      [--n 1048576]
 """
 from __future__ import annotations
 
@@ -33,6 +35,7 @@ import json
 import sys
 import time
 import traceback
+from typing import Optional
 
 import torch
 
@@ -87,11 +90,17 @@ def _state_tree(state: TrainState) -> list:
 
 
 def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
-                tcfg=None, verbose: bool = True) -> dict:
+                tcfg=None, verbose: bool = True,
+                layers: Optional[int] = None) -> dict:
+    """One cell's row. ``layers`` cuts the config's depth to that many
+    layers (a quick look at the layout; the row's ``num_layers`` says
+    so); ``None`` keeps the published depth."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor.experimental import implicit_replication
 
     cfg = get_config(arch)
+    if layers is not None:
+        cfg = cfg.scaled(num_layers=layers)
     shape = SHAPES[shape_name]
     ok, reason = cell_is_supported(cfg, shape)
     if not ok:
@@ -246,7 +255,8 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     result = {
         "arch": arch, "shape": shape_name, "status": "ok",
         "mesh": "2x16x16" if multi_pod else "16x16", "chips": chips,
-        "params": n_params, "microbatches": tcfg.num_microbatches,
+        "params": n_params, "num_layers": cfg.num_layers,
+        "microbatches": tcfg.num_microbatches,
         "fsdp": bool(fsdp), "fsdp_pure": bool(fsdp_pure),
         "pure_dp": bool(pure_dp),
         "seq_shard": bool(seq_shard),
@@ -302,8 +312,21 @@ def main(argv=None):
     ap.add_argument("--multi-pod", action="store_true")
     ap.add_argument("--all", action="store_true",
                     help="run every supported (arch x shape) cell")
+    ap.add_argument("--medoid-engine", default=None, choices=("v1", "v2"),
+                    help="dry-run the distributed corrSH engine instead "
+                         "(dryrun_medoid_engine)")
+    ap.add_argument("--n", type=int, default=1 << 20,
+                    help="--medoid-engine's rows (the reference's default)")
     ap.add_argument("--out", default=None, help="write JSONL results here")
     args = ap.parse_args(argv)
+
+    if args.medoid_engine:
+        r = dryrun_medoid_engine(n=args.n, multi_pod=args.multi_pod,
+                                 engine=args.medoid_engine)
+        if args.out:
+            with open(args.out, "a") as f:
+                f.write(json.dumps(r) + "\n")
+        return 0
 
     cells = []
     if args.all:
@@ -345,38 +368,40 @@ def dryrun_medoid_engine(*, n: int = 1 << 20, d: int = 1024,
                          multi_pod: bool = False, verbose: bool = True,
                          engine: str = "v2") -> dict:
     """Dry-run the paper's engine itself on the production mesh: one
-    distributed corrSH call over an (n, d) row-sharded dataset, counted on
-    rank 0's fake shard.
+    distributed corrSH call (``engine`` "v1" or "v2") over an (n, d)
+    row-sharded dataset at ``budget_per_arm`` pulls an arm, counted on rank
+    0's fake shard of n / chips rows.
 
-    Under ``FakeTensorMode`` the engines stop where they read a tensor on
-    the host: ``mesh_layout`` reads the mesh's rank table with
-    ``tolist()`` (``core/distributed.py:68``), and the last round indexes
-    the survivors with a 0-d device index (``surv_idx[torch.argmin(theta)]``
-    at ``core/distributed_v2.py:117``, ``idx[torch.argmin(theta_hat)]`` at
-    ``core/distributed.py:167``), which Python turns into ``.item()``. A
-    fake tensor has no value to read, so this raises
-    ``DataDependentOutputException`` (ROADMAP records the gap; XLA traces
-    the same indexing as a device gather)."""
+    The engines run as they run on cards. The one host read they make, the
+    mesh's rank table (``core.distributed.mesh_layout``), is made here
+    before ``FakeTensorMode``, and the layout is handed to the engine in
+    place of its mesh; every other value, the last round's index included,
+    stays on the device. The row gives the per-card bytes (the shard, the
+    peak of the engine's own allocations), the collectives by kind and the
+    roofline of one rank's ops."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from repro_torch.core.distributed import distributed_corr_sh
+    from repro_torch.core.distributed import (distributed_corr_sh,
+                                              mesh_layout)
     from repro_torch.core.distributed_v2 import distributed_corr_sh_v2
     from repro_torch.engine import rng
     from repro_torch.engine.schedule import schedule_pulls
 
+    if engine not in ("v1", "v2"):
+        raise ValueError(f"engine must be 'v1' or 'v2', got {engine!r}")
     init_fake_world(multi_pod)
     mesh = make_production_mesh(multi_pod=multi_pod)
     chips = mesh.size()
+    lay = mesh_layout(mesh)        # the rank table, read on the host
     fn = distributed_corr_sh if engine == "v1" else distributed_corr_sh_v2
     t0 = time.time()
-    # the mesh's own rank table is a real tensor the engine reads
-    with FakeTensorMode(allow_non_fake_inputs=True):
+    with FakeTensorMode():
         x_local = torch.empty((n // chips, d), dtype=torch.float32)
         key = rng.key(0, "cpu")
         counter = OpCounter()
         arg_bytes = counter.track_arguments([x_local])
         with counter:
-            fn(x_local, key, mesh, budget=budget_per_arm * n, metric=metric)
+            fn(x_local, key, lay, budget=budget_per_arm * n, metric=metric)
     t_run = time.time() - t0
     cost = counter.cost()
     per_pull = {"l1": 3 * d, "l2": 2 * d, "sql2": 2 * d, "cosine": 2 * d}[metric]
@@ -384,6 +409,7 @@ def dryrun_medoid_engine(*, n: int = 1 << 20, d: int = 1024,
     live = arg_bytes + cost.peak_bytes
     roof = RA.from_cost(cost, chips=chips, live_bytes=live,
                         model_flops=model_flops)
+    coll = RA.collective_stats(cost)
     result = {
         "arch": f"corrsh-engine-{engine}",
         "shape": f"n{n}_d{d}_b{budget_per_arm}",
@@ -392,11 +418,14 @@ def dryrun_medoid_engine(*, n: int = 1 << 20, d: int = 1024,
         "per_device_bytes": {"arguments": int(arg_bytes),
                              "temp": int(cost.peak_bytes),
                              "total_live": int(live)},
+        "collectives": {"bytes": coll.bytes_by_kind,
+                        "count": coll.count_by_kind},
         **{k: (round(v, 6) if isinstance(v, float) else v)
            for k, v in roof.row().items()},
     }
     if verbose:
         print(json.dumps(result))
+        sys.stdout.flush()
     return result
 
 

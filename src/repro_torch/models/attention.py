@@ -33,7 +33,7 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from repro_torch.models import flash
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import constrain, unflatten
+from repro_torch.models.sharding import constrain, dot, seq_of, unflatten
 
 NEG_INF = -1e30
 
@@ -62,9 +62,9 @@ def attn_init(gen, d_model: int, num_heads: int, num_kv_heads: int,
 
 def _project_qkv(params, x, num_heads, num_kv_heads, head_dim):
     B, S, _ = x.shape
-    q = x @ params["wq"]
-    k = x @ params["wk"]
-    v = x @ params["wv"]
+    q = dot(x, params["wq"])
+    k = dot(x, params["wk"])
+    v = dot(x, params["wv"])
     if "bq" in params:
         q = q + params["bq"]
         k = k + params["bk"]
@@ -124,8 +124,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             block_q=block_q, block_kv=block_kv, scale=scale)
     if isinstance(q, DTensor):
         return flash.sharded_attention(
-            lambda a, b, c: flash_attention(
-                a, b, c, causal=causal, window=window, q_offset=q_offset,
+            lambda a, b, c, start: flash_attention(
+                a, b, c, causal=causal, window=window,
+                q_offset=q_offset + start,
                 block_q=block_q, block_kv=block_kv, scale=scale), q, k, v)
     B, Sq, H, Dh = q.shape
     _, Skv, KV, _ = k.shape
@@ -195,6 +196,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out[:, :Sq].to(q.dtype)
 
 
+def _like_cache(q: torch.Tensor, cache: torch.Tensor) -> torch.Tensor:
+    """q (B, H, Dh) placed as the cache (B, S_max, KV, Dh) is: the batch
+    sharded where the cache's batch is, the heads where its KV heads are,
+    replicated over the rest (the model axis of a sequence-sharded cache).
+    GSPMD reshards q there; DTensor, handed q's heads sharded against the
+    cache's sequence, cannot contract the two without reading a value."""
+    if not (isinstance(q, DTensor) and isinstance(cache, DTensor)):
+        return q
+    want = tuple(Shard(0) if p.is_shard(0) else Shard(1) if p.is_shard(2)
+                 else Replicate() for p in cache.placements)
+    if tuple(q.placements) == want:
+        return q
+    return q.redistribute(q.device_mesh, want)
+
+
 def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
                      cache_v: torch.Tensor, pos, *, window: int = 0,
                      scale: Optional[float] = None) -> torch.Tensor:
@@ -210,7 +226,7 @@ def decode_attention(q: torch.Tensor, cache_k: torch.Tensor,
     pos = torch.full((B,), pos, dtype=torch.int64, device=dev) \
         if isinstance(pos, int) else torch.as_tensor(pos, device=dev).expand(B)
     # head h reads KV head h // rep (see the module docstring)
-    qf = unflatten(q.float(), 1, (KV, rep)) * scale
+    qf = unflatten(_like_cache(q, cache_k).float(), 1, (KV, rep)) * scale
     s = torch.einsum("bkrd,bjkd->bkrj", qf, cache_k.float())
     idx = torch.arange(Smax, device=dev)
     mask = idx[None, :] <= pos[:, None]                  # (B, Smax)
@@ -236,12 +252,15 @@ def self_attn_apply(params, x, *, num_heads, num_kv_heads, head_dim,
         positions = q_offset + torch.arange(S, device=x.device)[None, :]
     q = L.apply_rope(q, positions, theta)
     k = L.apply_rope(k, positions, theta)
-    q = constrain(q, "batch", None, "model", None)
+    # the reference's (batch, None, model, None) for q and k; the queries
+    # keep a sequence shard the stream brings (pure FSDP), each rank
+    # attending with its own rows to the whole k and v
+    q = constrain(q, "batch", seq_of(q), "model", None)
     k = constrain(k, "batch", None, "model", None)
     out = flash_attention(q, k, v, causal=True, window=window,
                           q_offset=q_offset, differentiable=differentiable)
     out = out.reshape(B, S, num_heads * head_dim)
-    return out @ params["wo"], (k, v)
+    return dot(out, params["wo"]), (k, v)
 
 
 def self_attn_decode(params, x, cache_k, cache_v, pos: int, *, num_heads,
@@ -270,14 +289,14 @@ def cross_attn_apply(params, x, kv_k, kv_v, *, num_heads, num_kv_heads,
     """Non-causal cross attention against precomputed K/V (B, S_kv, KV,
     Dh); ``bq`` is added where the params have it."""
     B, S, _ = x.shape
-    q = x @ params["wq"]
+    q = dot(x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
-    q = q.reshape(B, S, num_heads, head_dim)
+    q = split_heads(q, num_heads, head_dim)
     out = flash_attention(q, kv_k, kv_v, causal=False, window=0,
                           differentiable=differentiable)
     out = out.reshape(B, S, num_heads * head_dim)
-    return out @ params["wo"]
+    return dot(out, params["wo"])
 
 
 def cross_kv(params, src, *, num_kv_heads, head_dim):
@@ -289,5 +308,5 @@ def cross_kv(params, src, *, num_kv_heads, head_dim):
     if "bk" in params:
         k = k + params["bk"]
         v = v + params["bv"]
-    return (k.reshape(B, S, num_kv_heads, head_dim),
-            v.reshape(B, S, num_kv_heads, head_dim))
+    return (split_heads(k, num_kv_heads, head_dim),
+            split_heads(v, num_kv_heads, head_dim))

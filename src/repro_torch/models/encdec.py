@@ -23,7 +23,7 @@ from repro_torch.configs.base import ModelCfg
 from repro_torch.convert import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import layers as L
-from repro_torch.models.sharding import constrain
+from repro_torch.models.sharding import constrain, dot
 
 POS_DEC_ROWS = 8192
 
@@ -110,8 +110,8 @@ def encode(params, cfg: ModelCfg, frames: torch.Tensor,
                                  cfg.num_kv_heads, cfg.resolved_head_dim)
         attn = A.flash_attention(q, k, v, causal=False, window=0,
                                  differentiable=differentiable)
-        x = x + attn.reshape(B, S, -1) @ pl["attn"]["wo"]
-        x = x + _gelu_mlp(pl, x)
+        x = L.residual(x, attn.reshape(B, S, -1) @ pl["attn"]["wo"])
+        x = L.residual(x, _gelu_mlp(pl, x))
     return L.layernorm(params["ln_enc"], x)
 
 
@@ -123,7 +123,7 @@ def _dec_layer(pl, cfg: ModelCfg, x, enc_out, differentiable: bool):
                              cfg.num_kv_heads, cfg.resolved_head_dim)
     attn = A.flash_attention(q, k, v, causal=True, window=0,
                              differentiable=differentiable)
-    x = x + attn.reshape(B, S, -1) @ pl["self"]["wo"]
+    x = x + dot(attn.reshape(B, S, -1), pl["self"]["wo"])
     h = L.layernorm(pl["ln_x"], x)
     kk, vv = A.cross_kv(pl["cross"], enc_out,
                         num_kv_heads=cfg.num_kv_heads,
@@ -137,6 +137,16 @@ def _dec_layer(pl, cfg: ModelCfg, x, enc_out, differentiable: bool):
     return x, (k, v), (kk, vv)
 
 
+def _pos_rows(positions: torch.Tensor) -> torch.Tensor:
+    """The rows of the decoder's position table for ``positions`` (on the
+    device), clamped to its last row: parity with the reference's gathers
+    (``repro/models/encdec.py:105, 167``, in ``decode_train`` and
+    ``encdec_decode_step``), which clamp an index past the end as every JAX
+    gather does. Past row ``POS_DEC_ROWS - 1`` every position reads that
+    row; the decode step, whose position is a host int, clamps it there."""
+    return positions.clamp(max=POS_DEC_ROWS - 1)
+
+
 def decode_train(params, cfg: ModelCfg, tokens: torch.Tensor,
                  enc_out: torch.Tensor, remat: bool = False,
                  collect_cache: bool = False, return_hidden: bool = False):
@@ -146,8 +156,8 @@ def decode_train(params, cfg: ModelCfg, tokens: torch.Tensor,
     the attention is the training path; ``remat`` recomputes each layer in
     the backward pass (see ``transformer.transformer_forward``)."""
     B, S = tokens.shape
-    x = L.embed_lookup(params["embed"], tokens) + \
-        params["pos_dec"][torch.arange(S, device=tokens.device)][None]
+    rows = _pos_rows(torch.arange(S, device=tokens.device))
+    x = L.embed_lookup(params["embed"], tokens) + params["pos_dec"][rows][None]
     kvs, xkvs = [], []
     for pl in params["dec"]:
         x, kv, xkv = L.remat_call(remat, _dec_layer, pl, cfg, x, enc_out,
@@ -204,13 +214,11 @@ def encdec_decode_step(params, cfg: ModelCfg, token: torch.Tensor,
     pos = int(pos)
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     x = L.embed_lookup(params["embed"], token)[:, None, :] + \
-        params["pos_dec"][pos][None, None]
+        params["pos_dec"][min(pos, POS_DEC_ROWS - 1)][None, None]
     for i, pl in enumerate(params["dec"]):
         k_l, v_l = cache["k"][i], cache["v"][i]
         h = L.layernorm(pl["ln1"], x)
-        q = (h @ pl["self"]["wq"] + pl["self"]["bq"]).reshape(B, 1, H, Dh)
-        k = (h @ pl["self"]["wk"] + pl["self"]["bk"]).reshape(B, 1, KV, Dh)
-        v = (h @ pl["self"]["wv"] + pl["self"]["bv"]).reshape(B, 1, KV, Dh)
+        q, k, v = A._project_qkv(pl["self"], h, H, KV, Dh)
         A.write_slot(k_l, pos, k[:, 0])
         A.write_slot(v_l, pos, v[:, 0])
         attn = A.decode_attention(q[:, 0], k_l, v_l, pos)

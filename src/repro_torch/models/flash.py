@@ -23,8 +23,10 @@ padding) stay masked.
 
 Under a mesh, q, k and v are DTensors. :func:`sharded_attention` runs the
 plain function on each rank's own heads and batch rows (``local_map``): a
-mesh dim that shards q's batch or heads shards all three alike, any other
-layout is gathered first. Where a head shard would cut k's KV heads apart
+mesh dim that shards q's batch or heads shards all three alike; one that
+shards q's sequence keeps each rank's query rows against the whole k and v
+(their causal offset moved by the rank's first row); any other layout is
+gathered first. Where a head shard would cut k's KV heads apart
 (the smoke config's 2 KV heads on 4 ranks), k and v are expanded to one KV
 head a query head first (``repeat_interleave``: the same pairs, and the
 expansion's backward sums each KV head's gradient over its query heads).
@@ -177,13 +179,16 @@ class FlashTrain(torch.autograd.Function):
 
 
 def sharded_attention(fn, q, k, v):
-    """``fn(q, k, v)`` of plain tensors (B, S, heads, Dh) on DTensors: each
-    rank runs it on its batch rows and query heads (see the module
-    docstring); the result is a DTensor laid out as q."""
-    from torch.distributed.tensor import Replicate, Shard
+    """``fn(q, k, v, start)`` of plain tensors (B, S, heads, Dh) on
+    DTensors: each rank runs it on its batch rows and query heads (see the
+    module docstring) and, where q's sequence is sharded (the pure-FSDP
+    rules), on its own query rows against the whole k and v; ``start`` is
+    the first query row a rank holds (0 unless the queries are cut). The
+    result is a DTensor laid out as q."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
     mesh = q.device_mesh
-    place = [p if p in (Shard(0), Shard(2)) else Replicate()
+    place = [p if p in (Shard(0), Shard(1), Shard(2)) else Replicate()
              for p in q.placements]
     heads = math.prod(n for p, n in zip(place, mesh.shape) if p == Shard(2))
     H, KV = q.shape[2], k.shape[2]
@@ -193,9 +198,19 @@ def sharded_attention(fn, q, k, v):
         whole = [Replicate() if p == Shard(2) else p for p in place]
         k, v = (t.redistribute(mesh, whole).repeat_interleave(H // KV, dim=2)
                 for t in (k, v))
+    rows, start = 1, 0
+    for i, p in enumerate(place):
+        if p == Shard(1):
+            rows *= mesh.size(i)
+            start = start * mesh.size(i) + mesh.get_local_rank(i)
+    start *= -(-q.shape[1] // rows)
     place = tuple(place)
-    return local_map(fn, out_placements=list(place),
-                     in_placements=(place, place, place), device_mesh=mesh,
+    kv = tuple(Replicate() if p == Shard(1) else p for p in place)
+    # each rank's dk, dv is its query rows' share: a sum over those shards
+    dkv = tuple(Partial() if p == Shard(1) else p for p in place)
+    return local_map(lambda a, b, c: fn(a, b, c, start),
+                     out_placements=list(place), in_placements=(place, kv, kv),
+                     in_grad_placements=(place, dkv, dkv), device_mesh=mesh,
                      redistribute_inputs=True)(q, k, v)
 
 
@@ -208,8 +223,9 @@ def flash_attention_trainable(q, k, v, *, causal: bool = True, window=0,
     from torch.distributed.tensor import DTensor
     if isinstance(q, DTensor):
         return sharded_attention(
-            lambda a, b, c: flash_attention_trainable(
-                a, b, c, causal=causal, window=window, q_offset=q_offset,
+            lambda a, b, c, start: flash_attention_trainable(
+                a, b, c, causal=causal, window=window,
+                q_offset=q_offset + start,
                 block_q=block_q, block_kv=block_kv, scale=scale), q, k, v)
     B, Sq, H, Dh = q.shape
     _, Skv, KV, _ = k.shape

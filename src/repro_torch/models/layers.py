@@ -30,7 +30,8 @@ from torch import nn
 from torch.distributed.tensor import DTensor
 
 from repro_torch.convert import resolve_device
-from repro_torch.models.sharding import constrain, gather_weight
+from repro_torch.models.sharding import (constrain, dot, gather_weight,
+                                         grad_as_value, seq_of)
 
 
 class ParamTree(nn.Module):
@@ -135,6 +136,20 @@ def layernorm(params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def residual(x: torch.Tensor, out: torch.Tensor,
+             seq: bool = False) -> torch.Tensor:
+    """``x + out``, with ``out`` and the sum on the residual stream's layout
+    under a mesh's rules: (batch, seq, -), the reference's transformer
+    layer output, with ``seq``; (batch, -, -), its recurrent and whisper
+    streams, without. GSPMD reduces a block's sum over the model axis
+    there; DTensor would carry it pending into the next block, whose norm
+    and products then cannot contract it (whisper's 1500 frames, which 16
+    ranks cut unevenly, leave a padded shard its matmul cannot view). The
+    plain sum without rules."""
+    s = "seq" if seq else None
+    return constrain(x + constrain(out, "batch", s, None), "batch", s, None)
+
+
 # ----------------------------------------------------------------- RoPE ----
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -189,14 +204,16 @@ def _gelu(x: torch.Tensor) -> torch.Tensor:
 
 def mlp_apply(params, x: torch.Tensor, act: str = "silu",
               gated: bool = True) -> torch.Tensor:
-    up = x @ params["w_up"]
+    up = dot(x, params["w_up"])
     if gated:
-        gate = x @ params["w_gate"]
+        gate = dot(x, params["w_gate"])
         h = (_silu(gate) if act == "silu" else _gelu(gate)) * up
     else:
         h = _gelu(up) if act == "gelu" else _silu(up)
-    h = constrain(h, "batch", None, "model")
-    return h @ params["w_down"]
+    # the reference's (batch, None, model); a sequence shard the stream
+    # brings is kept (GSPMD would gather it here only to slice it again)
+    h = constrain(h, "batch", seq_of(h), "model")
+    return dot(h, params["w_down"])
 
 
 def pad_seq(t: torch.Tensor, axis: int, pad: int,
@@ -211,13 +228,16 @@ def embed_lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """``table[ids]`` (the reference's ``params["embed"][tokens]``). On a
     vocab-sharded DTensor table each rank looks up the ids in its rows and
     the masked partial rows are summed here, once (DTensor's masked
-    partial can be reduced only once, and the rows have two readers)."""
+    partial can be reduced only once, and the rows have two readers). The
+    rows' gradient is reduced to their placements before it reaches the
+    masked partial's backward, which takes no pending sum (the layers
+    behind a tensor-parallel weight give one)."""
     out = F.embedding(ids.long(), table)
     if isinstance(out, DTensor) and any(p.is_partial()
                                         for p in out.placements):
         from torch.distributed.tensor import Replicate
-        out = out.redistribute(out.device_mesh, [
-            Replicate() if p.is_partial() else p for p in out.placements])
+        out = grad_as_value(out.redistribute(out.device_mesh, [
+            Replicate() if p.is_partial() else p for p in out.placements]))
     return out
 
 

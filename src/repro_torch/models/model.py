@@ -30,7 +30,7 @@ from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import recurrent as R
 from repro_torch.models import transformer as T
-from repro_torch.models.sharding import _rules, constrain
+from repro_torch.models.sharding import _rules, constrain, grad_as_value
 
 FAMILIES = ("dense", "moe", "vlm", "audio", "ssm", "hybrid")
 
@@ -114,16 +114,21 @@ def fused_xent(x: torch.Tensor, tokens: torch.Tensor, head: torch.Tensor,
     pure-FSDP cells, where the batch takes every axis) the chunks' remat
     would re-gather the FSDP-sharded head every chunk, so one full
     (B_loc, S, V) logits block is computed instead, as the reference does.
-    Otherwise the head is laid out once as ``(None, "vocab")`` and each
-    chunk's logits vocab-sharded; over sharded logits the target logit is
+    Otherwise the (V, d) head is laid out once by vocab rows, ``("vocab",
+    None)`` (the reference's ``(None, "vocab")`` cuts its d, and DTensor
+    then makes each rank's head gradient whole), and each chunk's logits
+    vocab-sharded; over sharded logits the target logit is
     the one-hot product and ``logsumexp`` is DTensor's, which gathers the
     chunk's vocab columns (the reference's GSPMD reduces partial max and
-    sum instead; the values are the same). See :func:`_token_xent`."""
+    sum instead; the values are the same). See :func:`_token_xent`. On a
+    DTensor ``x``'s gradient, a pending sum over the vocab shards, is
+    reduced at ``x`` (``sharding.grad_as_value``)."""
+    x = grad_as_value(x)
     rules = _rules()
     if rules is not None and rules.get("vocab") is None:
         return _xent(x.float() @ head.float().T, tokens)
     B, S, d = x.shape
-    head = constrain(head, None, "vocab").float()   # once, not per chunk
+    head = constrain(head, "vocab", None).float()   # once, not per chunk
     xs = x[:, :-1]
     targets = tokens[:, 1:].long()
     n = S - 1

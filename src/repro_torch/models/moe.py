@@ -32,6 +32,8 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.configs.base import MoECfg
 from repro_torch.models import layers as L
@@ -91,6 +93,24 @@ def route(router: torch.Tensor, xt: torch.Tensor, K: int):
     return probs, vals, idx
 
 
+def _combine(combine: torch.Tensor, out_e: torch.Tensor) -> torch.Tensor:
+    """``einsum("bgec,becd->bgd")``. On DTensors whose experts are sharded,
+    each rank combines its own experts' slots and the partial sums are
+    reduced over the expert shards, as GSPMD contracts a sharded dim: the
+    plain einsum would flatten (e, c) into a strided shard that DTensor
+    cannot contract."""
+    if not isinstance(out_e, DTensor):
+        return torch.einsum("bgec,becd->bgd", combine, out_e)
+    place = [(Shard(0),) * 3 if p == Shard(0) else
+             (Shard(2), Shard(1), Partial()) if p == Shard(1) else
+             (Replicate(),) * 3 for p in out_e.placements]
+    c_in, e_in, y_out = (list(t) for t in zip(*place))
+    return local_map(lambda c, o: torch.einsum("bgec,becd->bgd", c, o),
+                     out_placements=y_out, in_placements=(c_in, e_in),
+                     device_mesh=out_e.device_mesh,
+                     redistribute_inputs=True)(combine, out_e)
+
+
 def moe_apply(params, x: torch.Tensor, cfg: MoECfg, *,
               group: int = 512) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) -> (y (B, S, d) in x's dtype, aux loss f32 scalar)."""
@@ -132,7 +152,7 @@ def moe_apply(params, x: torch.Tensor, cfg: MoECfg, *,
             * torch.einsum("becd,edf->becf", ein, params["w_up"])
         out_e = torch.einsum("becf,efd->becd", h, params["w_down"])
         out_e = constrain(out_e, "batch", "expert", None, None)
-        y = torch.einsum("bgec,becd->bgd", combine, out_e.float())
+        y = _combine(combine, out_e.float())
 
         # Switch aux loss: fraction routed * mean router prob, per expert
         frac = torch.mean(onehot.sum(dim=2), dim=1)            # (B, E)

@@ -125,7 +125,7 @@ def xlstm_init(gen, cfg: ModelCfg, device=None) -> XLSTM:
 
 
 def _mlstm_block(pl, ln, x, num_heads):
-    return x + XL.mlstm_apply(pl, L.rmsnorm(ln, x), num_heads)
+    return L.residual(x, XL.mlstm_apply(pl, L.rmsnorm(ln, x), num_heads))
 
 
 def _xlstm_group(x, pm, lns, ps, sln, num_heads, remat):
@@ -133,7 +133,7 @@ def _xlstm_group(x, pm, lns, ps, sln, num_heads, remat):
     recomputed in the backward with ``remat``), then the sLSTM block."""
     for pl, ln in zip(pm, lns):
         x = L.remat_call(remat, _mlstm_block, pl, ln, x, num_heads)
-    return x + XL.slstm_apply(ps, L.rmsnorm(sln, x), num_heads)
+    return L.residual(x, XL.slstm_apply(ps, L.rmsnorm(sln, x), num_heads))
 
 
 def xlstm_forward(params, cfg: ModelCfg, tokens: torch.Tensor,
@@ -160,11 +160,11 @@ def xlstm_forward(params, cfg: ModelCfg, tokens: torch.Tensor,
             out, st = XL.mlstm_apply(pl, L.rmsnorm(ln, x), H,
                                      return_state=True)
             gm.append(st)
-            x = x + out
+            x = L.residual(x, out)
         out, st = _slstm_apply_with_state(ps, x, H, sln)
         m_states.append(_stack_states(gm, XL.MLSTMState))
         s_states.append(st)
-        x = x + out
+        x = L.residual(x, out)
     states = (_stack_states(m_states, XL.MLSTMState),
               _stack_states(s_states, XL.SLSTMState)) \
         if collect_state else None
@@ -208,10 +208,10 @@ def xlstm_decode_step(params, cfg: ModelCfg, token: torch.Tensor, cache: dict,
         for r, (pl, ln) in enumerate(zip(pm, lns)):
             out, _ = XL.mlstm_decode(pl, L.rmsnorm(ln, x),
                                      _slot(cache["mlstm"], g, r), H)
-            x = x + out
+            x = L.residual(x, out)
         out, _ = XL.slstm_decode(ps, L.rmsnorm(sln, x),
                                  _slot(cache["slstm"], g), H)
-        x = x + out
+        x = L.residual(x, out)
     return _head(params, cfg, x)[:, 0], cache
 
 
@@ -266,7 +266,7 @@ def hybrid_init(gen, cfg: ModelCfg, device=None) -> Hybrid:
 
 
 def _mamba_block(pl, ln, x, ssm):
-    return x + M2.mamba2_apply(pl, L.rmsnorm(ln, x), ssm)
+    return L.residual(x, M2.mamba2_apply(pl, L.rmsnorm(ln, x), ssm))
 
 
 def _shared_block(sh, cfg: ModelCfg, x, differentiable: bool):
@@ -276,8 +276,8 @@ def _shared_block(sh, cfg: ModelCfg, x, differentiable: bool):
         sh["attn"], h, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
         theta=cfg.rope_theta, window=0, differentiable=differentiable)
-    x = x + attn_out
-    return x + L.mlp_apply(sh["mlp"], L.rmsnorm(sh["ln2"], x)), kv
+    x = L.residual(x, attn_out)
+    return L.residual(x, L.mlp_apply(sh["mlp"], L.rmsnorm(sh["ln2"], x))), kv
 
 
 def _hybrid_group(x, pm, lns, sh, cfg: ModelCfg, remat: bool):
@@ -310,7 +310,7 @@ def hybrid_forward(params, cfg: ModelCfg, tokens: torch.Tensor,
             out, st = M2.mamba2_apply(pl, L.rmsnorm(ln, x), cfg.ssm,
                                       return_state=True)
             gm.append(st)
-            x = x + out
+            x = L.residual(x, out)
         x, (k, v) = _shared_block(sh, cfg, x, False)
         m_states.append(_stack_states(gm, M2.Mamba2State))
         ks.append(k)
@@ -360,12 +360,12 @@ def hybrid_decode_step(params, cfg: ModelCfg, token: torch.Tensor,
         for e, (pl, ln) in enumerate(zip(pm, lns)):
             out, _ = M2.mamba2_decode(pl, L.rmsnorm(ln, x),
                                       _slot(cache["mamba"], g, e), cfg.ssm)
-            x = x + out
+            x = L.residual(x, out)
         h = L.rmsnorm(sh["ln1"], x)
         attn_out, _, _ = A.self_attn_decode(
             sh["attn"], h, cache["k"][g], cache["v"][g], pos,
             num_heads=cfg.num_heads, num_kv_heads=cfg.num_kv_heads,
             head_dim=cfg.resolved_head_dim, theta=cfg.rope_theta)
-        x = x + attn_out
-        x = x + L.mlp_apply(sh["mlp"], L.rmsnorm(sh["ln2"], x))
+        x = L.residual(x, attn_out)
+        x = L.residual(x, L.mlp_apply(sh["mlp"], L.rmsnorm(sh["ln2"], x)))
     return _head(params, cfg, x)[:, 0], cache

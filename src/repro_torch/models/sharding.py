@@ -141,24 +141,94 @@ def unflatten(x: torch.Tensor, dim: int, sizes) -> torch.Tensor:
     return x.unflatten(dim, sizes)
 
 
+def _axis_names(entry: Axis) -> tuple:
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def seq_of(x: torch.Tensor) -> Optional[str]:
+    """``"seq"`` where ``x``'s dim 1 is sharded on the mesh axes the
+    installed rules give the sequence, else ``None``: the sequence entry of
+    a constraint that keeps the layout the residual stream brings (the
+    transformer's stream is sequence-sharded under the pure-FSDP rules of a
+    (2, 16, 16) train cell; the recurrent and whisper streams are whole)
+    and so moves no rows."""
+    rules = _rules()
+    if not rules or rules.get("seq") is None or not isinstance(x, DTensor):
+        return None
+    seq = _axis_names(rules["seq"])
+    names = x.device_mesh.mesh_dim_names
+    return "seq" if any(p.is_shard(1) and names[i] in seq
+                        for i, p in enumerate(x.placements)) else None
+
+
 def gather_weight(p: torch.Tensor) -> torch.Tensor:
     """A weight as the layer computes with it: a DTensor sharded over the
-    batch axes of the installed rules (ZeRO / FSDP) is all-gathered over
+    batch axes of the installed rules (ZeRO / FSDP), or over the sequence
+    axes where no tensor parallelism shares them (pure FSDP with the
+    sequence sharded: those shards are FSDP's too), is all-gathered over
     them (its backward reduce-scatters the gradient back), its model-axis
     (tensor-parallel) sharding kept. GSPMD gathers there because the
-    activations are batch-sharded; DTensor's own choice could gather the
-    activations instead. The identity without rules or sharding."""
+    activations are batch- or sequence-sharded; DTensor's own choice could
+    gather the activations instead, or find no way to contract a
+    sequence-sharded activation with a weight sharded on its input dim.
+    The identity without rules or sharding."""
     rules = _rules()
     if rules is None or not isinstance(p, DTensor):
         return p
-    axes = rules.get("batch") or ()
-    axes = (axes,) if isinstance(axes, str) else tuple(axes)
+    tp = _axis_names(rules.get("model"))
+    axes = _axis_names(rules.get("batch")) + tuple(
+        a for a in _axis_names(rules.get("seq")) if a not in tp)
     names = p.device_mesh.mesh_dim_names
     want = tuple(Replicate() if names[i] in axes else pl
                  for i, pl in enumerate(p.placements))
     if want == tuple(p.placements):
         return p
     return p.redistribute(p.device_mesh, want)
+
+
+def grad_as_value(x: torch.Tensor) -> torch.Tensor:
+    """``x``, its gradient reduced to ``x``'s own placements in the
+    backward before autograd hands it on (``from_local``'s backward
+    redistributes): a gradient that comes back a pending sum over a
+    vocab-sharded contraction is all-reduced there, not left for DTensor
+    to scatter onto the sequence or to meet a masked partial's backward.
+    The identity on a tensor that is not a DTensor."""
+    if not isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x.to_local(), x.device_mesh, x.placements,
+                              run_check=False, shape=x.shape,
+                              stride=x.stride())
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``: an activation (..., d) times a weight (d, f). A DTensor
+    ``x`` whose rows are sharded on two or more dims (the batch and the
+    sequence, pure FSDP's layout) times a weight that is whole on those
+    mesh dims is contracted shard by shard: each rank multiplies its own
+    rows, and the weight's gradient there is each rank's partial sum.
+    DTensor would flatten those rows into the product's one row dim, a
+    strided shard it cannot contract (GSPMD contracts the 3-D operand
+    as it is). Any other ``x @ w`` is DTensor's or torch's own."""
+    if not (isinstance(x, DTensor) and isinstance(w, DTensor)):
+        return x @ w
+    rows = {p.dim for p in x.placements if p.is_shard()}
+    if (len(rows) < 2 or x.ndim - 1 in rows or w.ndim != 2
+            or any(p.is_partial() for p in x.placements)
+            or not all(q.is_replicate() for q in w.placements)):
+        return x @ w
+    from torch.distributed.tensor import Partial
+    mesh = x.device_mesh
+    grad_w = [Partial() if p.is_shard() else Replicate()
+              for p in x.placements]
+    out = x.to_local() @ w.to_local(grad_placements=grad_w)
+    shape = x.shape[:-1] + w.shape[-1:]
+    stride = [1]
+    for n in reversed(shape[1:]):
+        stride.insert(0, stride[0] * n)
+    return DTensor.from_local(out, mesh, x.placements, run_check=False,
+                              shape=shape, stride=tuple(stride))
 
 
 def local_value(x):

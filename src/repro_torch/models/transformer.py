@@ -163,10 +163,10 @@ def _self_layer(p, cfg: ModelCfg, x, window: int, theta: float,
             num_kv_heads=cfg.num_kv_heads, head_dim=cfg.resolved_head_dim,
             theta=theta, window=window, q_offset=q_offset,
             differentiable=differentiable)
-    x = x + attn_out
+    x = L.residual(x, attn_out, seq=True)
     h = L.rmsnorm(p["ln2"], x)
     ffn_out, aux = _ffn_apply(p["ffn"], cfg, h)
-    return constrain(x + ffn_out, "batch", "seq", None), aux, kv
+    return L.residual(x, ffn_out, seq=True), aux, kv
 
 
 def _cross_layer(p, cfg: ModelCfg, x, kv_k, kv_v,
@@ -177,10 +177,11 @@ def _cross_layer(p, cfg: ModelCfg, x, kv_k, kv_v,
                                   num_kv_heads=cfg.num_kv_heads,
                                   head_dim=cfg.resolved_head_dim,
                                   differentiable=differentiable)
-    x = x + torch.tanh(p["gate"]).to(attn_out.dtype) * attn_out
+    x = L.residual(x, torch.tanh(p["gate"]).to(attn_out.dtype) * attn_out,
+                   seq=True)
     h = L.rmsnorm(p["ln2"], x)
     ffn_out, _ = _ffn_apply(p["ffn"], cfg, h)
-    return x + ffn_out
+    return L.residual(x, ffn_out, seq=True)
 
 
 def _stack_pairs(pairs):

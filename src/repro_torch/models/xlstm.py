@@ -30,11 +30,46 @@ from typing import NamedTuple, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor, Replicate, Shard
+from torch.distributed.tensor.experimental import local_map
 
 from repro_torch.convert import resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models.sharding import unflatten
 
 NEG_INF = -1e30
+
+
+def _log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``F.logsigmoid``; on a DTensor, shard by shard (``local_map``:
+    DTensor has no sharding rule for it, and the op is elementwise, so each
+    shard's value is the whole tensor's there). A pending sum is reduced
+    first."""
+    if not isinstance(x, DTensor):
+        return F.logsigmoid(x)
+    place = [Replicate() if p.is_partial() else p for p in x.placements]
+    return local_map(F.logsigmoid, out_placements=place,
+                     in_placements=(place,), device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x)
+
+
+def _per_shard(fn, *ts: torch.Tensor) -> torch.Tensor:
+    """``fn(*ts)`` of plain tensors whose dims 0 and 2 (batch and heads)
+    are independent rows, on DTensors: each rank runs ``fn`` on its own
+    batch rows and heads (``local_map``); a mesh dim that shards anything
+    else (the sequence, or heads it would cut unevenly) is gathered
+    first. The result is laid out as the inputs."""
+    if not isinstance(ts[0], DTensor):
+        return fn(*ts)
+    mesh = ts[0].device_mesh
+    place = [p if p in (Shard(0), Shard(2)) else Replicate()
+             for p in ts[0].placements]
+    heads = math.prod(n for p, n in zip(place, mesh.shape) if p == Shard(2))
+    if ts[0].shape[2] % heads:
+        place = [Replicate() if p == Shard(2) else p for p in place]
+    return local_map(fn, out_placements=place,
+                     in_placements=(place,) * len(ts), device_mesh=mesh,
+                     redistribute_inputs=True)(*ts)
 
 
 # =============================== mLSTM =====================================
@@ -80,12 +115,12 @@ def _mlstm_qkvif(params, x, num_heads):
     xi, z = torch.chunk(up, 2, dim=-1)                   # inner stream + gate
     d_inner = xi.shape[-1]
     P = d_inner // num_heads
-    q = (xi @ params["w_q"]).reshape(B, S, num_heads, P)
+    q = unflatten(xi @ params["w_q"], 2, (num_heads, P))
     # the reference divides by sqrt(P) taken in x's dtype (a weakly typed
     # constant): round it there, then divide
-    k = (xi @ params["w_k"]).reshape(B, S, num_heads, P) \
+    k = unflatten(xi @ params["w_k"], 2, (num_heads, P)) \
         / _in_dtype(math.sqrt(P), x.dtype)
-    v = (xi @ params["w_v"]).reshape(B, S, num_heads, P)
+    v = unflatten(xi @ params["w_v"], 2, (num_heads, P))
     it = L.wide(xi) @ params["w_i"] + params["b_i"]                # (B,S,H)
     ft = L.wide(xi) @ params["w_f"] + params["b_f"]
     return q, k, v, it, ft, z, d_inner, P
@@ -96,7 +131,7 @@ def _mlstm_parallel(q, k, v, it, ft, *, block_q: int = 256,
     """Blockwise stabilised quadratic mLSTM. q, k, v: (B, S, H, P); it, ft:
     (B, S, H) f32. Returns (B, S, H, P) f32."""
     B, S, H, P = q.shape
-    logf = F.logsigmoid(ft)                              # (B,S,H)
+    logf = _log_sigmoid(ft)                              # (B,S,H)
     cum = torch.cumsum(logf, dim=1)                      # inclusive cumsum
     # weight for pair (t, s): exp(cum_t - cum_s + i_s), s <= t
     bq = min(block_q, S)
@@ -151,7 +186,7 @@ def mlstm_apply(params, x, num_heads: int, return_state: bool = False):
     """x: (B, S, d) -> out (B, S, d) [, the final MLSTMState]."""
     B, S, _ = x.shape
     q, k, v, it, ft, z, d_inner, P = _mlstm_qkvif(params, x, num_heads)
-    y = _mlstm_parallel(q, k, v, it, ft)
+    y = _per_shard(_mlstm_parallel, q, k, v, it, ft)
     y = y.reshape(B, S, d_inner).to(x.dtype)
     y = L.rmsnorm(params["norm"], y) * L._silu(z)
     out = y @ params["w_down"]
@@ -159,7 +194,7 @@ def mlstm_apply(params, x, num_heads: int, return_state: bool = False):
         return out
     # closed-form final state:
     # C_S = sum_s exp(cum_S - cum_s + i_s - m) v_s k_s^T
-    logf = F.logsigmoid(ft)
+    logf = _log_sigmoid(ft)
     cum = torch.cumsum(logf, dim=1)                      # (B,S,H)
     logw = cum[:, -1:, :] - cum + it                     # (B,S,H)
     m_fin = logw.amax(dim=1)                             # (B,H)
@@ -192,7 +227,7 @@ def mlstm_decode(params, x, state: MLSTMState, num_heads: int
     q, k, v, it, ft, z, d_inner, P = _mlstm_qkvif(params, x, num_heads)
     q1, k1, v1 = (L.wide(t[:, 0]) for t in (q, k, v))       # (B,H,P)
     i1, f1 = it[:, 0], ft[:, 0]                          # (B,H)
-    logf = F.logsigmoid(f1)
+    logf = _log_sigmoid(f1)
     m_new = torch.maximum(state.m + logf, i1)
     a = torch.exp(state.m + logf - m_new)                # decay of old state
     b = torch.exp(i1 - m_new)                            # write strength
@@ -244,7 +279,7 @@ def slstm_init(gen, d_model: int, num_heads: int, dtype,
 
 def _slstm_cell(gates, st: SLSTMState, d_inner: int) -> SLSTMState:
     zt, it, ft, ot = torch.split(gates, d_inner, dim=-1)   # each (B, d_inner)
-    logf = F.logsigmoid(ft)
+    logf = _log_sigmoid(ft)
     m_new = torch.maximum(logf + st.m, it)
     i = torch.exp(it - m_new)
     f = torch.exp(logf + st.m - m_new)
@@ -285,21 +320,36 @@ def slstm_init_state(batch: int, d_model: int, num_heads: int,
 
 def slstm_apply(params, x, num_heads: int, return_state: bool = False):
     """A serial loop over time (no parallel form exists). x: (B, S, d) ->
-    out (B, S, d) [, the final SLSTMState]."""
+    out (B, S, d) [, the final SLSTMState]. On DTensors each rank runs the
+    loop on its own batch rows (``local_map``; ``R`` and ``b`` whole), so
+    the S steps' small ops do not each go through DTensor's dispatch."""
     B, S, d_model = x.shape
     d_inner = params["w_in"].shape[1] // 4
     xin = L.wide(x @ params["w_in"])                     # (B,S,4 d_inner)
-    st = slstm_init_state(B, d_model, num_heads, device=x.device,
-                          dtype=xin.dtype)
-    hs = []
-    for t in range(S):
-        gates = _slstm_gates(params, xin[:, t], st.h, num_heads, d_inner)
-        st = _slstm_cell(gates, st, d_inner)
-        hs.append(st.h)
-    y = torch.stack(hs, dim=1).to(x.dtype)               # (B,S,d_inner)
+
+    def scan(xin, R, b):
+        rb = {"R": R, "b": b}
+        st = slstm_init_state(xin.shape[0], d_model, num_heads,
+                              device=xin.device, dtype=xin.dtype)
+        hs = []
+        for t in range(S):
+            gates = _slstm_gates(rb, xin[:, t], st.h, num_heads, d_inner)
+            st = _slstm_cell(gates, st, d_inner)
+            hs.append(st.h)
+        return (torch.stack(hs, dim=1), *st)             # (B,S,d_inner)
+
+    if isinstance(xin, DTensor):
+        rows = [p if p == Shard(0) else Replicate() for p in xin.placements]
+        whole = [Replicate()] * len(rows)
+        scan = local_map(scan, out_placements=(rows,) * 5,
+                         in_placements=(rows, whole, whole),
+                         device_mesh=xin.device_mesh,
+                         redistribute_inputs=True)
+    hs, *st = scan(xin, params["R"], params["b"])
+    y = hs.to(x.dtype)
     y = L.rmsnorm(params["norm"], y)
     out = y @ params["w_down"]
-    return (out, st) if return_state else out
+    return (out, SLSTMState(*st)) if return_state else out
 
 
 def slstm_decode(params, x, state: SLSTMState, num_heads: int):

@@ -23,9 +23,10 @@ Counted, as ``hlo_cost`` counts them:
   input element of a reduction;
 * traffic: operand plus result bytes of every op that is not a view or a
   factory, the unfused upper bound (``traffic_upper``);
-* collectives: the result bytes of every ``_c10d_functional`` all-reduce
-  (counted twice: reduce-scatter then all-gather on a ring), all-gather,
-  reduce-scatter and all-to-all;
+* collectives: the result bytes of every all-reduce (counted twice:
+  reduce-scatter then all-gather on a ring), all-gather, reduce-scatter
+  and all-to-all, whether DTensor issued it (``_c10d_functional``) or a
+  ``torch.distributed`` call did (``c10d``, the medoid engines' own);
 * memory: the bytes of the storages the ops allocate, live until freed
   (``peak_bytes``, the step's temporaries), apart from the storages of
   the tensors registered with :meth:`OpCounter.track_arguments`.
@@ -46,6 +47,14 @@ COLLECTIVES = {"all_reduce": "all-reduce", "all_reduce_": "all-reduce",
                "all_gather_into_tensor_out": "all-gather",
                "reduce_scatter_tensor": "reduce-scatter",
                "all_to_all_single": "all-to-all"}
+# the in-place ops of ``torch.distributed``'s calls (namespace ``c10d``)
+C10D_COLLECTIVES = {"allreduce_": "all-reduce", "allgather_": "all-gather",
+                    "_allgather_base_": "all-gather",
+                    "allgather_into_tensor_coalesced_": "all-gather",
+                    "reduce_scatter_": "reduce-scatter",
+                    "_reduce_scatter_base_": "reduce-scatter",
+                    "alltoall_": "all-to-all",
+                    "alltoall_base_": "all-to-all"}
 
 _ELEMENTWISE = {
     "add", "sub", "rsub", "mul", "div", "abs", "neg", "exp", "exp2", "expm1",
@@ -155,8 +164,9 @@ class OpCounter(TorchDispatchMode):
         ns = func.namespace
         name = func.overloadpacket.__name__
         outs = [t for t in tree_leaves(out) if isinstance(t, torch.Tensor)]
-        if ns == "_c10d_functional" and name in COLLECTIVES:
-            kind = COLLECTIVES[name]
+        kind = (COLLECTIVES.get(name) if ns == "_c10d_functional" else
+                C10D_COLLECTIVES.get(name) if ns == "c10d" else None)
+        if kind is not None:
             b = float(sum(_nbytes(t) for t in outs))
             self.coll[kind] += 2.0 * b if kind == "all-reduce" else b
             self.coll_n[kind] += 1

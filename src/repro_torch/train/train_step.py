@@ -32,6 +32,7 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.models.model import Model
+from repro_torch.models.sharding import unflatten
 from repro_torch.optim import adamw, compress, schedule
 
 
@@ -85,18 +86,31 @@ def _value_and_grad(model: Model, tcfg: TrainCfg, params, batch):
             grads)
 
 
+def _placed_as(part: torch.Tensor, whole: torch.Tensor) -> torch.Tensor:
+    """A microbatch on its batch's placements. Microbatch i is rows
+    i B/n ... (i+1) B/n, the reference's ``reshape((n, B // n) + ...)[i]``;
+    where the batch's data shards would cut the microbatches, ``unflatten``
+    gathered the batch once (an all-gather, as GSPMD reshards there), and
+    each microbatch is sliced back to the batch's shards here, locally."""
+    if isinstance(whole, DTensor) and part.placements != whole.placements:
+        part = part.redistribute(whole.device_mesh, whole.placements)
+    return part
+
+
 def make_train_step(model: Model, tcfg: TrainCfg):
     def train_step(state: TrainState, batch) -> tuple[TrainState, dict]:
         n = tcfg.num_microbatches
         if n > 1:
-            grads = {k: torch.zeros(p.shape, dtype=torch.float32,
-                                    device=p.device)
+            # laid out as the weights (a DTensor's zeros are one)
+            grads = {k: torch.zeros_like(p, dtype=torch.float32)
                      for k, p in state.params.named_parameters()}
             loss_sum = torch.zeros((), dtype=torch.float32,
                                    device=state.step.device)
+            split = {k: unflatten(v, 0, (n, v.shape[0] // n))
+                     for k, v in batch.items()}
             for i in range(n):
-                mb = {k: v.reshape((n, v.shape[0] // n) + v.shape[1:])[i]
-                      for k, v in batch.items()}
+                mb = {k: _placed_as(split[k][i], batch[k])
+                      for k in batch}
                 l, metrics, g = _value_and_grad(model, tcfg, state.params,
                                                 mb)
                 for k in grads:

@@ -3,6 +3,7 @@ its own (a group opened in a pytest worker would leak into later files).
 Usage::
 
     python _torch_mesh_probe.py STORE_FILE IN_NPZ OUT_JSON
+    python _torch_mesh_probe.py --multi-pod OUT_JSON
 
 1. A gloo world of one rank, a (1, 1) ("data", "model") mesh: the port's
    ``fused_xent`` on DTensors (the hidden states batch-sharded, the head
@@ -11,8 +12,14 @@ Usage::
    it (the full-logits branch): its value and the gradients of x and head.
 2. A ``fake`` world of 256 ranks on the (16, 16) production mesh: one
    matmul on DTensors counted by ``op_cost`` and by ``FlopCounterMode``,
-   two collectives counted by ``op_cost``, and the dry run's
-   internlm2-1.8b x decode_32k row.
+   two collectives counted by ``op_cost`` and the same two issued by
+   ``torch.distributed``'s own calls (the medoid engines' kind), the dry
+   run's internlm2-1.8b x decode_32k row, ``dryrun_medoid_engine``'s
+   rows for v1 and v2 at n = ENGINE_N, d = ENGINE_D, and the row of
+   TRAIN_ARCH x train_4k cut to TRAIN_LAYERS layers.
+3. With ``--multi-pod`` (a process of its own, run beside the first): a
+   ``fake`` world of 512 ranks, the (2, 16, 16) mesh, and the same train
+   row there.
 
 Writes one JSON object to OUT_JSON."""
 import json
@@ -21,6 +28,13 @@ import sys
 import numpy as np
 import torch
 import torch.distributed as dist
+
+# the medoid engines' dry run: n rows of d on the (16, 16) mesh (v1's
+# rounds cost more host time a row, so it runs at fewer)
+ENGINE_N = {"v1": 1 << 12, "v2": 1 << 14}
+ENGINE_D = 64
+# the train cell held on both meshes, its depth cut
+TRAIN_ARCH, TRAIN_LAYERS = "internlm2-1.8b", 1
 
 
 def xent_on_mesh(store, data):
@@ -86,14 +100,36 @@ def on_fake_world():
     out["collectives"] = c.cost().collective_by_kind
     out["decode_row"] = dryrun.dryrun_cell("internlm2-1.8b", "decode_32k",
                                            verbose=False)
+    with OpCounter() as c:
+        dist.all_reduce(torch.zeros(1024, 512))
+        dist.all_gather([torch.zeros(8, dtype=torch.bfloat16)
+                         for _ in range(256)],
+                        torch.zeros(8, dtype=torch.bfloat16))
+    out["c10d_collectives"] = c.cost().collective_by_kind
+    out["engine_rows"] = {e: dryrun.dryrun_medoid_engine(
+        n=n, d=ENGINE_D, engine=e, verbose=False)
+        for e, n in ENGINE_N.items()}
+    out["train_row"] = train_row(False)
     return out
 
 
+def train_row(multi_pod):
+    from repro_torch.launch import dryrun
+    return dryrun.dryrun_cell(TRAIN_ARCH, "train_4k", multi_pod=multi_pod,
+                              layers=TRAIN_LAYERS, verbose=False)
+
+
 def main():
-    data = dict(np.load(sys.argv[2]))
-    res = {"xent": xent_on_mesh(sys.argv[1], data)}
-    res.update(on_fake_world())
-    with open(sys.argv[3], "w") as f:
+    if sys.argv[1] == "--multi-pod":
+        from repro_torch.launch import dryrun
+        dryrun.init_fake_world(multi_pod=True)
+        res, path = {"train_row": train_row(True)}, sys.argv[2]
+    else:
+        data = dict(np.load(sys.argv[2]))
+        res = {"xent": xent_on_mesh(sys.argv[1], data)}
+        res.update(on_fake_world())
+        path = sys.argv[3]
+    with open(path, "w") as f:
         json.dump(res, f)
     dist.destroy_process_group()
 

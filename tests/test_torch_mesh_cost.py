@@ -18,9 +18,19 @@ against the JAX package.
 * The dry run's internlm2-1.8b x decode_32k row: its per-rank argument
   bytes are the sum over JAX's params and cache of each leaf's bytes over
   its spec's shard factor, plus the replicated token batch.
+* ``dryrun_medoid_engine`` for v1 (n = 2^12) and v2 (n = 2^14), d = 64,
+  on the fake world: an ``ok`` row each, flops counted, the argument bytes
+  rank 0's shard of rows, (n / 256) * d * 4, and the engines' own
+  ``torch.distributed`` collectives counted as DTensor's are.
+* The dry run's internlm2-1.8b x train_4k row, cut to one layer, on
+  (16, 16) and (2, 16, 16): twice the cards split the same step, so a
+  rank's flops fall (its tokens halve: 1 row of 4096 against 8 rows of
+  256), and the flops of one rank times the ranks stay within 1.2x of the
+  model's. A step whose products ran the whole sequence on each of the
+  16 ranks of the model axis counted ~7.6x more on (2, 16, 16) instead.
 
-The process groups live in ``_torch_mesh_probe.py``'s process, started
-first and read last."""
+The process groups live in ``_torch_mesh_probe.py``'s two processes (the
+256-rank world, the 512-rank one), started first and read last."""
 import json
 import math
 import os
@@ -98,17 +108,25 @@ def probe(tmp_path_factory):
     data = _inputs()
     np.savez(tmp / "in.npz", **data)
     env = dict(os.environ, PYTHONPATH=SRC, OMP_NUM_THREADS="1")
-    proc = subprocess.Popen(
-        [sys.executable, os.path.join(TESTS, "_torch_mesh_probe.py"),
-         str(tmp / "store"), str(tmp / "in.npz"), str(tmp / "out.json")],
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    probe = os.path.join(TESTS, "_torch_mesh_probe.py")
+    procs = [subprocess.Popen(
+        [sys.executable, probe, *args], env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True) for args in (
+            (str(tmp / "store"), str(tmp / "in.npz"), str(tmp / "out.json")),
+            ("--multi-pod", str(tmp / "pod.json")))]
     try:
         want = _jax_xent(data)
-        _, err = proc.communicate(timeout=TIMEOUT_S)
+        errs = [p.communicate(timeout=TIMEOUT_S)[1] for p in procs]
     finally:
-        proc.kill()
-    assert proc.returncode == 0, err[-3000:]
-    return data, want, json.loads((tmp / "out.json").read_text())
+        for p in procs:
+            p.kill()
+    for p, err in zip(procs, errs):
+        assert p.returncode == 0, err[-3000:]
+    got = json.loads((tmp / "out.json").read_text())
+    got["train_rows"] = {
+        "16x16": got.pop("train_row"),
+        "2x16x16": json.loads((tmp / "pod.json").read_text())["train_row"]}
+    return data, want, got
 
 
 def _close(loss, dx, dhead, want):
@@ -247,3 +265,35 @@ def test_dryrun_decode_arguments_are_jax_shard_bytes(probe):
             sizes) + shape.global_batch * 4   # the replicated int32 tokens
     assert row["per_device_bytes"]["arguments"] == want
     assert row["flops"] > 0 and row["collective_bytes"] > 0
+
+
+def test_op_cost_counts_torch_distributed_collectives(probe):
+    _, _, got = probe
+    c = got["c10d_collectives"]
+    assert c["all-reduce"] == got["collectives"]["all-reduce"]
+    assert c["all-gather"] == 256 * 8 * 2
+
+
+@pytest.mark.parametrize("engine", ("v1", "v2"))
+def test_dryrun_medoid_engine_row(probe, engine):
+    _, _, got = probe
+    row = got["engine_rows"][engine]
+    n, d = {"v1": 1 << 12, "v2": 1 << 14}[engine], 64
+    assert row["status"] == "ok" and row["chips"] == 256
+    assert row["arch"] == f"corrsh-engine-{engine}"
+    assert row["flops"] > 0
+    assert row["per_device_bytes"]["arguments"] == (n // 256) * d * 4
+    assert row["collectives"]["bytes"]["all-reduce"] > 0
+    assert row["collectives"]["bytes"]["all-gather"] > 0
+
+
+def test_dryrun_train_flops_fall_as_the_cards_grow(probe):
+    _, _, got = probe
+    rows = got["train_rows"]
+    one, two = rows["16x16"], rows["2x16x16"]
+    assert one["status"] == two["status"] == "ok"
+    assert (one["chips"], two["chips"]) == (256, 512)
+    assert two["seq_shard"] and not one["seq_shard"]
+    assert two["flops"] < 0.75 * one["flops"], (one["flops"], two["flops"])
+    for row in (one, two):
+        assert row["flops"] * row["chips"] < 1.2 * row["model_flops"], row
