@@ -179,10 +179,11 @@ nonzero:
    kernel launched before 10e), phase 9's serving and checks: (a)
    xlstm-1.3b and (b) zamba2-2.7b served in bf16 (ms a prefill and a decode
    step, tokens/s, peak memory, a slot's recurrent state, one decode step
-   profiled); (c) decode vs forward (LM_LOGIT_TOL) at full depth, B =
-   P10_BATCH on a P10_PROMPT-token prompt (several of xLSTM's query and KV
-   blocks, zamba2's SSD chunks with a ragged last one): zamba2 on an fp32
-   copy; xLSTM on a float64 copy, then on an fp32 copy as a reading held
+   profiled; xLSTM's prefill of one prompt profiled, sLSTM's loop over its
+   64 steps, as ``phase10a_prefill`` does alone); (c) decode vs forward
+   (LM_LOGIT_TOL) at full depth, B = P10_BATCH on a P10_PROMPT-token
+   prompt (several of xLSTM's query and KV blocks, zamba2's SSD chunks
+   with a ragged last one): zamba2 on an fp32 copy; xLSTM on a float64 copy, then on an fp32 copy as a reading held
    to no bound (its fp32 rounding, amplified over 48 layers, exceeds
    LM_LOGIT_TOL), and on one fp32 group; (d) one group of each (8 xLSTM
    layers; 6 Mamba2 blocks and the shared block) in fp32 on the card
@@ -588,6 +589,35 @@ def busy_note(busy, steady_s):
     return (f"profiled call: {busy[0]} device activities, busy "
             f"{busy[1]:.2f} ms = {busy[1] / (steady_s * 1e3):.1%} of the "
             f"unprofiled repeat; top device ops: {top}")
+
+
+def prefill_note(prefill, what) -> None:
+    """One call of ``prefill`` timed (after a warm-up call) and profiled:
+    ms a prefill beside its device activities."""
+    import torch
+    prefill()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    prefill()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    print(f"{what} one prefill of {P9_PROMPT} tokens at batch 1 "
+          f"{secs * 1e3:.2f} ms; {busy_note(profiled(prefill), secs)}",
+          flush=True)
+
+
+def phase10a_prefill(dev) -> None:
+    """10a's profiled prefill alone: xlstm-1.3b's full config in bf16
+    (seed 0) on one of the CLI's prompts. With ``PYTHONPATH`` at another
+    checkout's ``src`` it measures that tree's model code the same way
+    (parent against change in one call)."""
+    from repro_torch.launch.serve import Server, prompts
+    srv = Server("xlstm-1.3b", smoke=False, batch_slots=P9_SLOTS,
+                 max_len=P9_MAX_LEN, device=dev)
+    tok = prompts(1, P9_PROMPT, srv.cfg.vocab_size, dev)[0]
+    prefill_note(lambda: srv.model.prefill(srv.params, {"tokens": tok[None]},
+                                           P9_MAX_LEN),
+                 "phase10a xlstm-1.3b")
 
 
 def lm_close(what, got, want, tol):
@@ -1021,6 +1051,9 @@ class LMCheck:
         print(f"{what} one decode step {step_s * 1e3:.2f} ms; "
               f"{busy_note(profiled(one_step), step_s)}", flush=True)
         del lp, pcache
+        if cfg.family == "ssm":       # sLSTM's loop over the prompt
+            prefill_note(lambda: m.prefill(params, {
+                "tokens": reqs[0].prompt[None], **extra}, P9_MAX_LEN), what)
 
         if cfg.moe is not None:
             with MOE.record_routing() as tape:

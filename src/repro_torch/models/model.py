@@ -51,30 +51,80 @@ def _generator(seed: Union[int, torch.Generator], device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(int(seed))
 
 
+class _VocabParallelXent(torch.autograd.Function):
+    """``logsumexp(logits) - logits[targets]`` a token, on one rank's
+    columns of logits whose vocab dim is cut across ranks (Megatron-LM's
+    ``vocab_parallel_cross_entropy``; the reduction GSPMD makes of the
+    reference's ``logsumexp`` and one-hot product over vocab-sharded
+    logits). ``lo`` is this rank's first vocab column; ``groups`` the
+    (mesh, dim) pairs that cut the vocab. The forward all-reduces three
+    (B, c) rows: the max, the sum of exponentials and the target's logit
+    (0 off the shard that holds it). The backward, ``g (softmax - onehot)``
+    on the local columns, needs no collective, and rounds as autograd
+    does through the plain branch's ``logsumexp`` and ``gather``: ``g
+    softmax`` first, then ``-g`` added at the target."""
+
+    @staticmethod
+    def forward(ctx, logits, targets, lo, groups):
+        from torch.distributed._functional_collectives import all_reduce
+
+        def reduce(t, op):
+            for g in groups:
+                t = all_reduce(t, op, g)
+            return t
+        m = reduce(logits.amax(-1), "max")
+        lse = m + torch.log(reduce(
+            torch.exp(logits - m[..., None]).sum(-1), "sum"))
+        col = targets - lo
+        inside = (col >= 0) & (col < logits.shape[-1])
+        col = torch.where(inside, col, 0)
+        tl = torch.where(inside, logits.gather(-1, col[..., None])[..., 0],
+                         0.0)
+        ctx.save_for_backward(logits, lse, col, inside)
+        return lse - reduce(tl, "sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, col, inside = ctx.saved_tensors
+        grad = torch.exp(logits - lse[..., None]).mul_(g[..., None])
+        grad.scatter_add_(-1, col[..., None],
+                          torch.where(inside, -g, 0.0)[..., None])
+        return grad, None, None, None
+
+
 def _token_xent(logits: torch.Tensor, targets: torch.Tensor):
     """``logsumexp(logits) - logits[..., targets]`` a token. On a DTensor
-    whose vocab dim is whole on every rank (the full-logits branch), each
-    rank computes its own rows (``local_map``), so the backward meets the
-    per-token gradient at its (B, S) size, not expanded to (B, S, V); over
-    vocab-sharded logits the target logit is the reference's one-hot
-    product, laid out as the logits (each rank sums its own columns)."""
+    each rank computes on its own shard (``local_map``), so the backward
+    meets the per-token gradient at its (B, S) size, not expanded to (B,
+    S, V): where the vocab dim is whole on every rank (the full-logits
+    branch) each rank computes its own rows; where it is sharded each rank
+    its own columns, reduced across the vocab shards by
+    :class:`_VocabParallelXent` (the chunk's vocab columns are never
+    gathered)."""
     if not isinstance(logits, DTensor):
         tl = logits.gather(-1, targets[..., None])[..., 0]
         return torch.logsumexp(logits, dim=-1) - tl
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
     vdim = logits.ndim - 1
-    if not any(p.is_shard(vdim) for p in logits.placements):
-        from torch.distributed.tensor import Replicate
-        from torch.distributed.tensor.experimental import local_map
-        place = [Replicate() if p.is_partial() else p
-                 for p in logits.placements]
+    mesh = logits.device_mesh
+    place = [Replicate() if p.is_partial() else p for p in logits.placements]
+    rows = [Replicate() if p.is_shard(vdim) else p for p in place]
+    if rows == place:
         return local_map(_token_xent, out_placements=place,
-                         in_placements=(place, place),
-                         device_mesh=logits.device_mesh,
+                         in_placements=(place, place), device_mesh=mesh,
                          redistribute_inputs=True)(logits, targets)
-    ids = torch.arange(logits.shape[-1], device=logits.device)
-    onehot = constrain((ids == targets[..., None]).float(), "batch", None,
-                       "vocab")
-    return torch.logsumexp(logits, dim=-1) - (logits * onehot).sum(-1)
+    lo, size = 0, logits.shape[vdim]
+    for i, (p, k) in enumerate(zip(place, mesh.get_coordinate())):
+        if p.is_shard(vdim):   # DTensor's nesting: mesh order, chunk sizes
+            step = -(-size // mesh.size(i))
+            lo += min(k * step, size)
+            size = max(0, min(step, size - k * step))
+    groups = [(mesh, i) for i, p in enumerate(place) if p.is_shard(vdim)]
+    return local_map(
+        lambda lg, tg: _VocabParallelXent.apply(lg, tg, lo, groups),
+        out_placements=rows, in_placements=(place, rows), device_mesh=mesh,
+        redistribute_inputs=True)(logits, targets)
 
 
 def _xent(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
@@ -117,12 +167,12 @@ def fused_xent(x: torch.Tensor, tokens: torch.Tensor, head: torch.Tensor,
     Otherwise the (V, d) head is laid out once by vocab rows, ``("vocab",
     None)`` (the reference's ``(None, "vocab")`` cuts its d, and DTensor
     then makes each rank's head gradient whole), and each chunk's logits
-    vocab-sharded; over sharded logits the target logit is
-    the one-hot product and ``logsumexp`` is DTensor's, which gathers the
-    chunk's vocab columns (the reference's GSPMD reduces partial max and
-    sum instead; the values are the same). See :func:`_token_xent`. On a
-    DTensor ``x``'s gradient, a pending sum over the vocab shards, is
-    reduced at ``x`` (``sharding.grad_as_value``)."""
+    vocab-sharded; each rank reduces its own columns and all-reduces the
+    (B, c) max, sum of exponentials and target logit across the vocab
+    shards, as the reference's GSPMD program does (see
+    :class:`_VocabParallelXent`). On a DTensor ``x``'s gradient, a pending
+    sum over the vocab shards, is reduced at ``x``
+    (``sharding.grad_as_value``)."""
     x = grad_as_value(x)
     rules = _rules()
     if rules is not None and rules.get("vocab") is None:

@@ -318,26 +318,52 @@ def slstm_init_state(batch: int, d_model: int, num_heads: int,
                                    device=device))
 
 
+def _slstm_scan(xin, R, b):
+    """sLSTM's loop over time on plain tensors, the arithmetic of
+    ``_slstm_gates`` and ``_slstm_cell`` a step. xin: (B, S, 4 d_inner)
+    in the state's dtype; R: (H, P, 4P); b: (4 d_inner,). Returns hs (B, S,
+    d_inner) and the final c, n, h, m, each (B, d_inner).
+
+    ``b`` is added once, before the loop, and the gates are laid out head-
+    major, (S, H, B, 4P) with each head's 4P gate-major as ``R``'s columns,
+    so a step's recurrent product is one ``baddbmm`` straight into its
+    gates, and the state stays (H, B, P) throughout: 18 ops a step, none a
+    copy of the layout. ``logsigmoid(f) + m`` is taken once for both of
+    its uses, as the reference's two are the same sum."""
+    B, S, _ = xin.shape
+    H, P, _ = R.shape
+    gx = (xin + b).unflatten(-1, (4, H, P)).permute(1, 3, 0, 2, 4) \
+        .reshape(S, H, B, 4 * P)
+    c = torch.zeros((H, B, P), dtype=xin.dtype, device=xin.device)
+    n, h = torch.zeros_like(c), torch.zeros_like(c)
+    m = torch.full_like(c, NEG_INF)
+    hs = []
+    for t in range(S):
+        zt, it, ft, ot = torch.baddbmm(gx[t], h, R).split(P, dim=-1)
+        logf_m = F.logsigmoid(ft) + m
+        m_new = torch.maximum(logf_m, it)
+        i = torch.exp(it - m_new)
+        f = torch.exp(logf_m - m_new)
+        c = torch.addcmul(f * c, i, torch.tanh(zt))
+        n = torch.clamp_min(torch.addcmul(i, f, n), 1.0)
+        h = torch.sigmoid(ot) * c / n
+        m = m_new
+        hs.append(h)
+
+    def rows(t):                                         # (H,B,P)->(B,H P)
+        return t.transpose(0, 1).reshape(B, H * P)
+    hs = torch.stack(hs, dim=2).permute(1, 2, 0, 3).reshape(B, S, H * P)
+    return (hs, *map(rows, (c, n, h, m)))
+
+
 def slstm_apply(params, x, num_heads: int, return_state: bool = False):
-    """A serial loop over time (no parallel form exists). x: (B, S, d) ->
-    out (B, S, d) [, the final SLSTMState]. On DTensors each rank runs the
-    loop on its own batch rows (``local_map``; ``R`` and ``b`` whole), so
-    the S steps' small ops do not each go through DTensor's dispatch."""
-    B, S, d_model = x.shape
-    d_inner = params["w_in"].shape[1] // 4
+    """A serial loop over time (no parallel form exists; ``_slstm_scan``).
+    x: (B, S, d) -> out (B, S, d) [, the final SLSTMState]. On DTensors
+    each rank runs the loop on its own batch rows (``local_map``; ``R``
+    and ``b`` whole), so the S steps' small ops do not each go through
+    DTensor's dispatch."""
     xin = L.wide(x @ params["w_in"])                     # (B,S,4 d_inner)
-
-    def scan(xin, R, b):
-        rb = {"R": R, "b": b}
-        st = slstm_init_state(xin.shape[0], d_model, num_heads,
-                              device=xin.device, dtype=xin.dtype)
-        hs = []
-        for t in range(S):
-            gates = _slstm_gates(rb, xin[:, t], st.h, num_heads, d_inner)
-            st = _slstm_cell(gates, st, d_inner)
-            hs.append(st.h)
-        return (torch.stack(hs, dim=1), *st)             # (B,S,d_inner)
-
+    scan = _slstm_scan
     if isinstance(xin, DTensor):
         rows = [p if p == Shard(0) else Replicate() for p in xin.placements]
         whole = [Replicate()] * len(rows)

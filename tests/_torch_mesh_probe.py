@@ -16,7 +16,11 @@ Usage::
    ``torch.distributed``'s own calls (the medoid engines' kind), the dry
    run's internlm2-1.8b x decode_32k row, ``dryrun_medoid_engine``'s
    rows for v1 and v2 at n = ENGINE_N, d = ENGINE_D, and the row of
-   TRAIN_ARCH x train_4k cut to TRAIN_LAYERS layers.
+   TRAIN_ARCH x train_4k cut to TRAIN_LAYERS layers, and ``fused_xent``'s
+   forward and backward alone at XENT's widths, laid out as that train
+   cell on (2, 16, 16) lays them out (x sharded by batch on the data axis
+   and by sequence on the model axis, the head by vocab rows on the model
+   axis): its peak, and each collective's kind and shape.
 3. With ``--multi-pod`` (a process of its own, run beside the first): a
    ``fake`` world of 512 ranks, the (2, 16, 16) mesh, and the same train
    row there.
@@ -35,6 +39,10 @@ ENGINE_N = {"v1": 1 << 12, "v2": 1 << 14}
 ENGINE_D = 64
 # the train cell held on both meshes, its depth cut
 TRAIN_ARCH, TRAIN_LAYERS = "internlm2-1.8b", 1
+# fused_xent alone on the (16, 16) mesh: B_loc rows a data shard, S, d,
+# internlm2's vocab, chunk c (d cut so the hidden states weigh little
+# beside a chunk's logits)
+XENT = {"B_loc": 2, "S": 4096, "d": 256, "V": 92544, "c": 256}
 
 
 def xent_on_mesh(store, data):
@@ -110,7 +118,48 @@ def on_fake_world():
         n=n, d=ENGINE_D, engine=e, verbose=False)
         for e, n in ENGINE_N.items()}
     out["train_row"] = train_row(False)
+    out["xent_fake"] = xent_on_fake_mesh(mesh)
     return out
+
+
+def xent_on_fake_mesh(mesh):
+    """The peak bytes and the collectives (kind, shape) of ``fused_xent``'s
+    forward and backward on one rank, under the train cell's rules."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.launch.mesh import logical_rules
+    from repro_torch.models.model import fused_xent
+    from repro_torch.models.sharding import logical_axis_rules
+    from repro_torch.roofline.op_cost import COLLECTIVES, OpCounter
+
+    class Counter(OpCounter):
+        def _count(self, func, args, kwargs, out, leaves):
+            name = func.overloadpacket.__name__
+            if func.namespace == "_c10d_functional" and name in COLLECTIVES:
+                self.issued.append((COLLECTIVES[name], list(out.shape)))
+            super()._count(func, args, kwargs, out, leaves)
+
+    n = XENT
+    rules = logical_rules(mesh, seq_shard=True)
+    with FakeTensorMode():
+        def place(shape, dtype, placements):
+            return distribute_tensor(torch.empty(shape, dtype=dtype), mesh,
+                                     placements, src_data_rank=None)
+        x = place((16 * n["B_loc"], n["S"], n["d"]), torch.bfloat16,
+                  [Shard(0), Shard(1)]).requires_grad_(True)
+        head = place((n["V"], n["d"]), torch.bfloat16,
+                     [Replicate(), Shard(0)]).requires_grad_(True)
+        tokens = place((16 * n["B_loc"], n["S"]), torch.int64,
+                       [Shard(0), Replicate()])
+        c = Counter()
+        c.issued = []
+        c.track_arguments([x, head, tokens])
+        with c, implicit_replication(), logical_axis_rules(rules):
+            loss = fused_xent(x, tokens, head, chunk=n["c"])
+            loss.backward()
+    return {"peak": c.cost().peak_bytes, "collectives": c.issued}
 
 
 def train_row(multi_pod):

@@ -121,6 +121,89 @@ def test_slstm_gates_and_cell():
     assert bool(torch.isfinite(torch.stack(list(tst))).all())
 
 
+def _slstm_weights(rng, d, Hh):
+    """{name: numpy array} of one sLSTM block, d_model ``d``, ``Hh``
+    heads; the forget bias at the init's 3.0 and the rest seeded."""
+    d_inner, P = XL.slstm_dims(d, Hh)
+    f32 = np.float32
+    b = rng.standard_normal(4 * d_inner).astype(f32)
+    b[2 * d_inner:3 * d_inner] += 3.0
+    return {"w_in": (rng.standard_normal((d, 4 * d_inner))
+                     / np.sqrt(d)).astype(f32),
+            "R": (rng.standard_normal((Hh, P, 4 * P))
+                  / np.sqrt(P)).astype(f32),
+            "b": b,
+            "w_down": (rng.standard_normal((d_inner, d))
+                       / np.sqrt(d_inner)).astype(f32),
+            "norm": {"scale": (1.0 + 0.1 * rng.standard_normal(d_inner)
+                               ).astype(f32)}}
+
+
+def _torch_tree(p, dtype=torch.float32):
+    return {k: _torch_tree(v, dtype) if isinstance(v, dict)
+            else torch.from_numpy(v).to(dtype) for k, v in p.items()}
+
+
+def test_slstm_apply_step_dispatches_at_most_20_ops():
+    """aten ops dispatched by ``slstm_apply`` at S 24 less those at S 8,
+    over the 16 steps between: the loop's ops a step (39 before the
+    head-major layout, 18 with it)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.n += 1
+            return func(*args, **(kwargs or {}))
+
+    rng = np.random.default_rng(7)
+    p = _torch_tree(_slstm_weights(rng, 64, 4))
+    counts = {}
+    for S in (8, 24):
+        x = torch.from_numpy(rng.standard_normal((2, S, 64)).astype(
+            np.float32))
+        with torch.no_grad(), Count() as c:
+            XL.slstm_apply(p, x, 4)
+        counts[S] = c.n
+    assert (counts[24] - counts[8]) / 16 <= 20, counts
+
+
+@pytest.mark.parametrize("dtype", (torch.float32, torch.float64))
+def test_slstm_apply_and_state_match_jax_scan(dtype):
+    """37 steps, batch 3, d 16 in 4 heads of P = 5: the output and the
+    final c, n, h, m against JAX's ``slstm_apply`` and its scan of
+    ``_slstm_gates`` / ``_slstm_cell`` on the same weights, within rtol =
+    atol = 1e-5; the float64 copy (weights and input in float64, widened
+    through ``layers.wide``) keeps every value in float64 and meets the
+    same bound against JAX's fp32."""
+    rng = np.random.default_rng(8)
+    B, S, d, Hh = 3, 37, 16, 4
+    d_inner, _ = XL.slstm_dims(d, Hh)
+    p = _slstm_weights(rng, d, Hh)
+    x = rng.standard_normal((B, S, d)).astype(np.float32)
+    jp = jax.tree.map(jnp.asarray, p)
+    want = JX.slstm_apply(jp, jnp.asarray(x), Hh)
+    xin = (jnp.asarray(x) @ jp["w_in"]).astype(jnp.float32)
+
+    def step(st, xt):
+        g = JX._slstm_gates(jp, xt, st.h, Hh, d_inner)
+        st = JX._slstm_cell(g, st, d_inner)
+        return st, None
+    jst, _ = jax.lax.scan(step, JX.slstm_init_state(B, d, Hh),
+                          xin.transpose(1, 0, 2))
+    out, st = XL.slstm_apply(_torch_tree(p, dtype),
+                             torch.from_numpy(x).to(dtype), Hh,
+                             return_state=True)
+    assert out.dtype == dtype and out.shape == (B, S, d)
+    np.testing.assert_allclose(out.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    for name, a, b in zip(XL.SLSTMState._fields, st, jst):
+        assert a.dtype == dtype and a.shape == (B, d_inner), name
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5,
+                                   atol=1e-5, err_msg=name)
+
+
 def test_layout_and_init():
     """The pattern must be mLSTM runs then sLSTM; the weights keep the
     reference's dtypes (gates, R, b and the norms f32); the cache is the

@@ -28,6 +28,15 @@ against the JAX package.
   256), and the flops of one rank times the ranks stay within 1.2x of the
   model's. A step whose products ran the whole sequence on each of the
   16 ranks of the model axis counted ~7.6x more on (2, 16, 16) instead.
+  The (2, 16, 16) row's temporaries stay within the (16, 16) row's: its
+  loss no longer gathers a chunk's logits gradient (12.1 of 13.4 GB).
+* ``fused_xent`` alone on the fake (16, 16) world, laid out as the
+  (2, 16, 16) train cell lays it out (x by batch and sequence, the head
+  by vocab rows, at ``_torch_mesh_probe.XENT``'s widths): forward and
+  backward peak at most 6 local chunk blocks (B_loc, c, V / 16) in f32
+  (4.76; 35.8 when DTensor's ``logsumexp`` gathered the vocab), every
+  all-reduce is of one (B_loc, c) row, and no collective moves logits
+  (the one all-gather and reduce-scatter carry x and its gradient).
 
 The process groups live in ``_torch_mesh_probe.py``'s two processes (the
 256-rank world, the 512-rank one), started first and read last."""
@@ -43,6 +52,7 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_mesh_probe import XENT
 from _torch_train import GRAD_TOL, LOSS_RTOL
 from repro.configs import SHAPES as JSHAPES
 from repro.configs import get_config as jget
@@ -158,6 +168,24 @@ def test_fused_xent_under_rules_on_plain_tensors_matches_jax(probe, branch):
     loss.backward()
     _close(float(loss.detach()), x.grad.numpy(), head.grad.numpy(),
            want[branch])
+
+
+def test_fused_xent_on_one_rank_is_the_plain_branch_bit_for_bit(probe):
+    """On the 1-rank mesh the vocab-parallel branch's all-reduces are the
+    identity and its backward rounds as autograd does through the plain
+    branch, so the sharded trainer's losses on one rank equal the
+    unsharded ones exactly (``chip_smoke.py``'s phase 12a)."""
+    data, _, got = probe
+    x = torch.tensor(data["x"], requires_grad=True)
+    head = torch.tensor(data["head"], requires_grad=True)
+    loss = fused_xent(x, torch.from_numpy(data["tokens"]), head, chunk=CHUNK)
+    loss.backward()
+    g = got["xent"]["chunked"]
+    assert np.float32(g["loss"]) == loss.detach().numpy()
+    np.testing.assert_array_equal(np.asarray(g["dx"], np.float32),
+                                  x.grad.numpy())
+    np.testing.assert_array_equal(np.asarray(g["dhead"], np.float32),
+                                  head.grad.numpy())
 
 
 def _hlo(f, *shapes):
@@ -297,3 +325,26 @@ def test_dryrun_train_flops_fall_as_the_cards_grow(probe):
     assert two["flops"] < 0.75 * one["flops"], (one["flops"], two["flops"])
     for row in (one, two):
         assert row["flops"] * row["chips"] < 1.2 * row["model_flops"], row
+
+
+def test_dryrun_train_temp_on_two_pods_within_one_pods(probe):
+    _, _, got = probe
+    one, two = (got["train_rows"][m]["per_device_bytes"]["temp"]
+                for m in ("16x16", "2x16x16"))
+    assert two <= one, (one, two)
+
+
+def test_fused_xent_reduces_across_vocab_shards(probe):
+    _, _, got = probe
+    r, n = got["xent_fake"], XENT
+    block = n["B_loc"] * n["c"] * (n["V"] // 16) * 4
+    assert r["peak"] <= 6 * block, r["peak"] / block
+    kinds = {}
+    for kind, shape in r["collectives"]:
+        kinds.setdefault(kind, []).append(shape)
+        assert shape[-1] != n["V"] // 16, (kind, shape)    # no logits
+    chunks = -(-(n["S"] - 1) // n["c"])
+    # max, sum of exponentials, target logit: forward and recompute
+    assert kinds.pop("all-reduce") == [[n["B_loc"], n["c"]]] * (
+        3 * 2 * chunks)
+    assert all(s[-1] == n["d"] for v in kinds.values() for s in v), kinds
