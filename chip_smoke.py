@@ -21,7 +21,11 @@ nonzero:
    pairwise kernels are also checked on both sides of their crossover
    ``PAIRWISE_S``, at d % 4 != 0, on a view that starts 4 bytes past a
    16-byte boundary and for bit-equal repeats, and both of their paths are
-   timed on either side of the crossover; so are both paths of the two
+   timed on either side of the crossover; the Gram kernels' gemm path
+   (``dot_pairwise`` and ``dot_centrality`` in fp32) is checked the same
+   way (l2, sql2 and cosine, masks, d = 4096) and timed beside the tile
+   path, the plain versions and ``x @ y.T`` on both sides of its crossover
+   (``GEMM_FILL``); so are both paths of the two
    centrality kernels on either side of their crossovers (``l1_centrality``
    at d = 1024 and 4096 around ``CENTRALITY_S``, ``dot_centrality`` for l2
    at d = 784 and cosine at d = 2048 around ``DOT_CENTRALITY_S``; every
@@ -519,7 +523,8 @@ class Ledger:
     def __init__(self):
         self.rows = {k: {"ms": 0.0, "plain_ms": 0.0, "bytes_s": 0.0,
                          "ops_s": 0.0, "bound_s": 0.0, "library_ms": None,
-                         "max_abs_err": 0.0, "launches": 0}
+                         "max_abs_err": 0.0, "launches": 0,
+                         "paths": Counter()}
                      for k in KERNELS}
 
     def add(self, name, ms, plain_ms, nbytes, ops_s, err, library_ms=None):
@@ -550,7 +555,20 @@ class Ledger:
                 "bound_by": ("bytes" if row["bytes_s"] >= row["ops_s"]
                              else "operations"),
                 "library_ms": row["library_ms"]})
+            if row["paths"]:   # the main path's launches by kernel path,
+                # as the wrappers counted them (PATH_LAUNCHES)
+                out[-1]["paths"] = dict(sorted(row["paths"].items()))
         return json.dumps({"kernels": out})
+
+
+class Launches(dict):
+    """The wrappers' counts read just after a main-path run: launches by
+    kernel (the dict; ``LAUNCHES``) and, in ``paths``, by (kernel, path)
+    (``PATH_LAUNCHES``)."""
+
+    def __init__(self, launches, paths):
+        super().__init__(launches)
+        self.paths = Counter(paths)
 
 
 def profiled(call):
@@ -2388,8 +2406,10 @@ def main() -> int:
             err, ms, pms, nbytes, ops_s, lib = shape_time(k, ds, c, r, metric,
                                                           m)
             b = max(_bound_s(nbytes, ops_s)) * 1e3
+            path = kernel_path(k, c, r, data[ds].shape[1])
             out.append(
-                f"{k} ({c}, {r}) x{nl}: kernel {ms * nl:.3f} ms, bound "
+                f"{k} ({c}, {r}) {path or ''} x{nl}: kernel {ms * nl:.3f} "
+                f"ms, bound "
                 f"{b * nl:.4f} ms ({b / ms:.1%} of it), plain {pms * nl:.3f} "
                 f"ms" + (f", library {lib * nl:.3f} ms (kernel / library "
                          f"{ms / lib:.2f})" if lib is not None else "")
@@ -2419,8 +2439,7 @@ def main() -> int:
         for k, c, r, masked in plan:
             if k != kern:
                 continue
-            path = pk.centrality_plan(c, r, d, sms,
-                                      crossover=cen_s[kern])[0]
+            path = kernel_path(kern, c, r, d)
             cls = ("masked refinement" if masked else
                    "middle" if path == pk.TILE else
                    "skinny C-short" if c <= r else "skinny R-short")
@@ -2455,14 +2474,48 @@ def main() -> int:
     paths = Counter()     # (pairwise kernel, path) -> main-path launches
     rank_cs = Counter()   # C -> topk_smallest launches of the main path
     cen_paths = {k: Counter() for k in CENTRALITY}
-    cen_s = {"l1_centrality": pk.CENTRALITY_S,
-             "dot_centrality": pk.DOT_CENTRALITY_S}
+
+    def kernel_path(kern, c, r, d):
+        """The path the wrapper of kernel ``kern`` (a ``LAUNCHES`` name)
+        takes at (c, r, d), or None for a kernel without paths."""
+        dtype = "bfloat16" if kern.endswith("_bf16") else "float32"
+        if kern.startswith("dot_pairwise"):
+            return pk.pairwise_plan(c, r, d, sms,
+                                    gemm=pk.dot_gemm(dtype))[0]
+        if kern.startswith("dot_centrality"):
+            return pk.centrality_plan(c, r, d, sms,
+                                      crossover=pk.dot_crossover(dtype),
+                                      gemm=pk.dot_gemm(dtype))[0]
+        if kern == "l1_pairwise":
+            return pk.pairwise_plan(c, r, d, sms)[0]
+        if kern == "l1_centrality":
+            return pk.centrality_plan(c, r, d, sms)[0]
+        return None
 
     def path_counts(plan, d):
-        """The pairwise launches of ``plan`` by the path pairwise_plan
+        """The pairwise launches of ``plan`` by the path their wrapper
         gives them."""
-        return Counter((kern, pk.pairwise_plan(c, r, d, sms)[0])
+        return Counter((kern, kernel_path(kern, c, r, d))
                        for kern, c, r, _ in plan if kern in PAIRWISE)
+
+    def check_launches(cell, counts, plan, d):
+        """Hold a main-path run's ``counts`` (a ``Launches``) against
+        ``plan``'s launches, by kernel and by the path ``kernel_path`` gives
+        each shape at width ``d``, and add them to the ledger."""
+        want = dict(Counter(k for k, *_ in plan))
+        _require(counts == want, f"{cell}: launches {counts}, expected "
+                                 f"{want}")
+        want = Counter()
+        for k, *shape in plan:
+            path = kernel_path(k, *shape[:2], d) if shape else None
+            if path is not None:
+                want[(k, path)] += 1
+        _require(counts.paths == want, f"{cell}: launches by path "
+                 f"{dict(counts.paths)}, expected {dict(want)}")
+        for k, v in counts.items():
+            led.rows[k]["launches"] += v
+        for (k, path), v in counts.paths.items():
+            led.rows[k]["paths"][path] += v
 
     def _breakdown(x, key, n, metric, backend, precision="fp32"):
         """Where a steady call's time goes: (host ms of the random draws
@@ -2548,6 +2601,88 @@ def main() -> int:
                     cross.append(f"{name[:2]} ({c}, {r}, {d}) stream "
                                  f"{us[0]:.2f} / tile {us[1]:.2f} us")
     print(f"phase2 pairwise crossover, both paths checked and timed "
+          f"({time.perf_counter() - t0:.1f} s): " + "; ".join(cross),
+          flush=True)
+
+    # the Gram kernels' gemm path (fp32), forced: checked against the plain
+    # versions on ragged shapes, d % 4 != 0, a view 4 bytes past a 16-byte
+    # boundary and several 256-column groups (l2 with self-pairs, sql2 and
+    # cosine, with and without a mask), two launches bit-equal; then timed
+    # beside the tile path, the plain versions and x @ y.T on both sides of
+    # its crossover (GEMM_FILL: squares, short sides 64-256, two widths)
+    t0 = time.perf_counter()
+    for c, r, d, off in ((300, 257, 784, 0), (1000, 1000, 783, 0),
+                         (333, 1234, 784, 1), (129, 130, 4096, 0)):
+        x = torch.randn(c * d + off, device=dev, generator=gen)[off:]
+        x = x.view(c, d)
+        y = torch.randn(r, d, device=dev, generator=gen)
+        y[:3] = x[:3]                                  # self-pairs
+        plan = pk.gemm_plan(c, r, sms)
+        what = f"dot_pairwise {plan} at ({c}, {r}, {d}) offset {off}"
+        got = pk.launch_pairwise("dot_pairwise", x, y, plan)
+        _require(torch.equal(got, pk.launch_pairwise("dot_pairwise", x, y,
+                                                     plan)),
+                 f"{what}: two launches differ")
+        want = pk.dot_pairwise_plain(x, y)
+        led.note_err("dot_pairwise", _agree(
+            got, want, _tolerance(want, "block", x, y, None), what))
+        for metric in ("l2", "sql2", "cosine"):
+            xk, yk, xn2, yn2 = centrality_inputs(metric, x, y)
+            for w in (None, (torch.rand(r, device=dev, generator=gen)
+                             > 0.3).float()):
+                what = (f"{metric} centrality {plan} at ({c}, {r}, {d}) "
+                        f"offset {off}, mask {w is not None}")
+                got = pk.launch_dot_centrality(xk, yk, xn2, yn2, w, plan,
+                                               metric)
+                _require(torch.equal(got, pk.launch_dot_centrality(
+                    xk, yk, xn2, yn2, w, plan, metric)),
+                    f"{what}: two launches differ")
+                want = pk.dot_centrality_plain(xk, yk, xn2, yn2, w,
+                                               metric=metric)
+                led.note_err("dot_centrality", _agree(
+                    got, want, _tolerance(want, metric, x, y, w), what))
+    cross = []
+    for c, r, d in ((128, 128, 784), (512, 512, 784), (896, 896, 784),
+                    (1024, 1024, 784), (1536, 1536, 784), (2048, 2048, 784),
+                    (160, 4096, 784), (192, 4096, 784), (256, 4096, 784),
+                    (4096, 512, 784), (64, 8192, 784), (128, 8192, 784),
+                    (128, 32768, 784), (896, 896, 2048), (48, 16384, 2048)):
+        x = torch.rand(c, d, device=dev, generator=gen)
+        y = torch.rand(r, d, device=dev, generator=gen)
+        w = (torch.rand(r, device=dev, generator=gen) > 0.3).float()
+        xn2, yn2 = ops._norms_sq(x), ops._norms_sq(y)
+        want_p = pk.dot_pairwise_plain(x, y)
+        want_c = pk.dot_centrality_plain(x, y, xn2, yn2, w, metric="l2")
+        us = []
+        for plan in (pk.gemm_plan(c, r, sms),
+                     pk.pairwise_plan(c, r, d, sms)):
+            what = f"({c}, {r}, {d}) {plan}"
+            _agree(pk.launch_pairwise("dot_pairwise", x, y, plan), want_p,
+                   _tolerance(want_p, "block", x, y, None),
+                   f"dot_pairwise {what}")
+            _agree(pk.launch_dot_centrality(x, y, xn2, yn2, w, plan, "l2"),
+                   want_c, _tolerance(want_c, "l2", x, y, w),
+                   f"l2 centrality {what}")
+            us.append(1e3 * timed(lambda plan=plan: pk.launch_pairwise(
+                "dot_pairwise", x, y, plan), 10))
+            us.append(1e3 * timed(lambda plan=plan: pk.launch_dot_centrality(
+                x, y, xn2, yn2, w, plan, "l2"), 10))
+        plain_p = 1e3 * timed(lambda: pk.dot_pairwise_plain(x, y), 3)
+        plain_c = 1e3 * timed(lambda: pk.dot_centrality_plain(
+            x, y, xn2, yn2, w, metric="l2"), 3)
+        lib = 1e3 * timed(lambda: x @ y.T, 10)
+        pick = pk.pairwise_plan(c, r, d, sms, gemm=True)[0]
+        cross.append(
+            f"({c}, {r}, {d}) fill {pk.gemm_fill(c, r, sms):.3f} plan "
+            f"{pick}: dot_pairwise gemm {us[0]:.2f} / "
+            f"tile {us[2]:.2f} / plain {plain_p:.2f} / x @ y.T {lib:.2f} us, "
+            f"dot_centrality l2 masked gemm {us[1]:.2f} / tile {us[3]:.2f} / "
+            f"plain {plain_c:.2f} us, bound "
+            f"{1e6 * _ops_s(2 * c * r * d):.2f} us")
+    print(f"phase2 gemm path (GEMM_FILL = {pk.GEMM_FILL}): dot_pairwise "
+          f"and dot_centrality (l2 with self-pairs, sql2, cosine; masks) "
+          f"agree at ragged shapes, d % 4 != 0, a misaligned view and d = "
+          f"4096, two launches bit-equal; both paths checked and timed "
           f"({time.perf_counter() - t0:.1f} s): " + "; ".join(cross),
           flush=True)
 
@@ -2700,13 +2835,10 @@ def main() -> int:
                           budget_per_arm=BUDGET_PER_ARM)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(pk.LAUNCHES)
+        counts = Launches(pk.LAUNCHES, pk.PATH_LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
         nrounds = len(res.rounds)
-        want = dict(Counter(k for k, *_ in medoid_plan(n, metric, backend)))
-        _require(counts == want, f"{name}: launches {counts}, expected {want}")
-        for k, v in counts.items():
-            led.rows[k]["launches"] += v
+        check_launches(name, counts, medoid_plan(n, metric, backend), d)
 
         t0 = time.perf_counter()
         again = find_medoid(x, key, metric=metric, backend=backend,
@@ -2825,10 +2957,8 @@ def main() -> int:
         res = call()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(pk.LAUNCHES)
+        counts = Launches(pk.LAUNCHES, pk.PATH_LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
-        for kk, v in counts.items():
-            led.rows[kk]["launches"] += v
 
         # the counts the schedules and the bucket plan give
         _require(len(sizes) == 1, f"{name}: {len(sizes)} refinement sweeps")
@@ -2841,8 +2971,7 @@ def main() -> int:
         n_assign = 1 + (res.refine_updates > 0)
         plan = kmedoids_plan(n, k, metric, backend, buckets, executed,
                              n_assign)
-        want = dict(Counter(kk for kk, *_ in plan))
-        _require(counts == want, f"{name}: launches {counts}, expected {want}")
+        check_launches(name, counts, plan, d)
 
         t0 = time.perf_counter()
         again = call()
@@ -2985,7 +3114,7 @@ def main() -> int:
         res = find_medoid(x, key, backend=backend, precision=precision, **kw)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        counts = dict(pk.LAUNCHES)
+        counts = Launches(pk.LAUNCHES, pk.PATH_LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
         fallback = not res.verified
         # one centrality launch per executed round of the widened loop, and
@@ -2993,10 +3122,7 @@ def main() -> int:
         plan = widened_plan(n, metric, precision, backend)
         if fallback:
             plan += medoid_plan(n, metric, backend)
-        want = dict(Counter(k for k, *_ in plan))
-        _require(counts == want, f"{name}: launches {counts}, expected {want}")
-        for k, v in counts.items():
-            led.rows[k]["launches"] += v
+        check_launches(name, counts, plan, x.shape[1])
         rounds = executed_rounds(n, BUDGET_PER_ARM * n)
         scheduled = sum(rd.pulls for rd in rounds)
         want_pulls = scheduled + verify_pulls(n, rounds) + (
@@ -3086,13 +3212,6 @@ def main() -> int:
                                  topk, masked=True) * live_slots
         return plan
 
-    def check_launches(cell, counts, plan):
-        want = dict(Counter(k for k, *_ in plan))
-        _require(counts == want, f"{cell}: launches {counts}, expected "
-                                 f"{want}")
-        for k, v in counts.items():
-            led.rows[k]["launches"] += v
-
     def mem_note(resident, peak):
         return (f"max_memory_allocated {peak / 2 ** 20:.1f} MiB = "
                 f"{resident / 2 ** 20:.1f} MiB resident + "
@@ -3161,7 +3280,7 @@ def main() -> int:
                                                    "cell": cell})
         pk.reset_launches()
         srv, wall = serve(policy, SRV_BACKEND, trace=sess)
-        counts = dict(pk.LAUNCHES)
+        counts = Launches(pk.LAUNCHES, pk.PATH_LAUNCHES)
         peak = torch.cuda.max_memory_allocated(dev)
         sess.close()
         path.with_suffix(".txt").write_text(srv.exposition())
@@ -3171,7 +3290,7 @@ def main() -> int:
         buckets = [int(e["bucket"].split("x")[0]) for e in spans]
         plan = slot_plan([(nb, e["batch"]) for nb, e in zip(buckets, spans)],
                          "dot_centrality", SRV_BACKEND == "pallas_fused_topk")
-        check_launches(cell, counts, plan)
+        check_launches(cell, counts, plan, reqs[0].shape[1])
         walls = [e["dur_s"] for e in spans]
         return (srv, wall, sess.events, buckets, plan, counts, walls,
                 mem_note(resident, peak))
@@ -3337,12 +3456,13 @@ def main() -> int:
                        n=store.n, version=version)
             path_peak()
             if (step + 1) % check_every == 0 or step == steps - 1:
-                saved = Counter(pk.LAUNCHES)      # checks are not the path
-                _require(check_answer(store, slot),
+                saved = Launches(pk.LAUNCHES, pk.PATH_LAUNCHES)
+                _require(check_answer(store, slot),      # not the path
                          f"{cell} version {version}: served slot {slot} "
                          f"fails check_answer")
-                pk.LAUNCHES.clear()
+                pk.reset_launches()
                 pk.LAUNCHES.update(saved)
+                pk.PATH_LAUNCHES.update(saved.paths)
                 checked.append(version)
             if step in ref_steps:
                 t0 = time.perf_counter()
@@ -3351,7 +3471,7 @@ def main() -> int:
                 ref_checked.append(version)
             torch.cuda.reset_peak_memory_stats(dev)
         path_peak()
-        counts = dict(pk.LAUNCHES)
+        counts = Launches(pk.LAUNCHES, pk.PATH_LAUNCHES)
         inserts, deletes = store.inserts, store.deletes
         metrics.finalize(mm)
         sess.close()
@@ -3369,7 +3489,7 @@ def main() -> int:
             nb = bucket_n(n_run, KM_MIN_BUCKET)
             plan += halving_plan(executed_rounds(nb, budget * nb), cen, topk,
                                  masked=True)
-        check_launches(cell, counts, plan)
+        check_launches(cell, counts, plan, store.d)
         ex_slot, ex_cent = exact_state(store)
         live_idx = torch.from_numpy(store.live_slots()).to(dev)
         got = store.cent[live_idx].cpu().numpy().astype(np.float64)
@@ -3450,7 +3570,7 @@ def main() -> int:
                                      device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = dict(pk.LAUNCHES)
+    counts = Launches(pk.LAUNCHES, pk.PATH_LAUNCHES)
     peak = torch.cuda.max_memory_allocated(dev)
     ari = adjusted_rand_index(res.labels, km_labels[ds])
     _require(ari >= 0.95, f"kmedoids_via_service: ARI {ari}")
@@ -3466,7 +3586,7 @@ def main() -> int:
     plan = kmedoids_plan(n, k, "l2", "pallas_fused", sorted(Counter(
         bucket_n(q.n, ksrv.min_bucket) for q in ksrv.done.values()).items()),
         executed, 1 + (res.refine_updates > 0))
-    check_launches("kmedoids_via_service", counts, plan)
+    check_launches("kmedoids_via_service", counts, plan, d)
     ledger_add(plan, ds, "l2")
     stream_rng = np.random.default_rng(SEED + 7)
     arrivals = x[torch.from_numpy(stream_rng.choice(
@@ -3589,7 +3709,7 @@ def main() -> int:
         res = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        return (res, wall, dict(pk.LAUNCHES),
+        return (res, wall, Launches(pk.LAUNCHES, pk.PATH_LAUNCHES),
                 mem_note(resident, torch.cuda.max_memory_allocated(dev)))
 
     # 7a: the paper's comparison on two of its datasets' lookalikes
@@ -3632,7 +3752,7 @@ def main() -> int:
         res, wall, counts, mem = main_path(lambda: find_medoid(
             x, key, metric=metric, backend="pallas_fused",
             budget_per_arm=BUDGET_PER_ARM))
-        check_launches(f"phase7 {ds} corr_sh", counts, plan)
+        check_launches(f"phase7 {ds} corr_sh", counts, plan, d)
         ledger_add(plan, ds, metric)
         _require(res.pulls == sum(s * t for s, t in res.rounds),
                  f"phase7 {ds} corr_sh: pull accounting")
@@ -3655,7 +3775,7 @@ def main() -> int:
                  f"{MEDDIT_BATCH} a step within the cap {cap}")
         check_launches(f"phase7 {ds} meddit", counts,
                        [("threefry",)] * chunks
-                       + [("topk_smallest",)] * (chunks * CHUNK))
+                       + [("topk_smallest",)] * (chunks * CHUNK), d)
         ledger_many("threefry", threefry_time(n), chunks)
         ledger_many("topk_smallest", select_time(n, MEDDIT_BATCH),
                     chunks * CHUNK)
@@ -3709,7 +3829,8 @@ def main() -> int:
                 res, wall, counts, mem = main_path(lambda: find_medoid(
                     x, key, mesh=mesh, distributed_impl=impl, metric=metric,
                     backend="pallas_fused", budget_per_arm=BUDGET_PER_ARM))
-                check_launches(f"phase7 {ds} {impl}", counts, plan)
+                check_launches(f"phase7 {ds} {impl}", counts, plan,
+                               x.shape[1])
                 ledger_add(plan, ds, metric)
                 _require(res.medoid == truth and res.algo
                          == f"corr_sh_distributed_{impl}",
@@ -3966,7 +4087,8 @@ def main() -> int:
         res, wall, counts, mem = main_path(
             lambda: emb_ex.representative(embs, backend))
         plan = fm_plan if backend == "pallas_fused" else []
-        check_launches(f"phase8d find_medoid {backend}", counts, plan)
+        check_launches(f"phase8d find_medoid {backend}", counts, plan,
+                       embs.shape[1])
         _require(res.medoid == truth or gap <= 2 * RTOL * float(
             theta[0].abs()), f"phase8d {backend}: medoid {res.medoid}, "
                              f"exact {truth}, output-round gap {gap}")
@@ -4004,7 +4126,7 @@ def main() -> int:
         [(nb, next_pow2(len(idxs))) for nb, idxs in
          plan_buckets(sizes[0], KM_MIN_BUCKET).items()],
         res.swap_pulls // per_swap, 1 + (res.refine_updates > 0))
-    check_launches("phase8d kmedoids", counts, km_plan)
+    check_launches("phase8d kmedoids", counts, km_plan, embs.shape[1])
     km_ref = emb_ex.cluster(embs, EMB_K, "reference")
     same = km_ref.medoids == res.medoids and np.array_equal(
         np.asarray(km_ref.labels), np.asarray(res.labels))
@@ -4024,7 +4146,7 @@ def main() -> int:
     sh_plan = slot_plan(sorted(Counter(bucket_n(b - a, KM_MIN_BUCKET)
                                        for a, b in shards).items()),
                         "dot_centrality", False)
-    check_launches("phase8d shards", counts, sh_plan)
+    check_launches("phase8d shards", counts, sh_plan, embs.shape[1])
     rsrv, rrids = emb_ex.shard_representatives(embs, EMB_QUERIES,
                                                "reference")
     got = {rids[r]: int(ssrv.done[r].medoid) for r in rids}
@@ -4047,7 +4169,7 @@ def main() -> int:
     sc_plan = halving_plan(executed_rounds(SIDECAR_N,
                                            SIDECAR_BUDGET * SIDECAR_N),
                            "dot_centrality", False) * SIDECAR_B
-    check_launches("phase8e sidecar", counts, sc_plan)
+    check_launches("phase8e sidecar", counts, sc_plan, out["d"])
     _require(out["medoids"] == want["medoids"],
              f"phase8e: {out['medoids']} != reference {want['medoids']}")
     key = rng.key(0, dev)
@@ -4107,7 +4229,8 @@ def main() -> int:
         res, wall, counts, mem = main_path(
             lambda: emb_ex.representative(embs, backend))
         plan = fm_plan if backend == "pallas_fused" else []
-        check_launches(f"phase10e find_medoid {backend}", counts, plan)
+        check_launches(f"phase10e find_medoid {backend}", counts, plan,
+                       embs.shape[1])
         _require(res.medoid == truth or gap <= 2 * RTOL * float(
             theta[0].abs()), f"phase10e {backend}: medoid {res.medoid}, "
                              f"exact {truth}, output-round gap {gap}")

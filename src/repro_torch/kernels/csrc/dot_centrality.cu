@@ -16,10 +16,14 @@
 // skinny rounds at either end (62.7 MB, 18.7 us, for a (20000, 2) round at
 // d = 784), which hold most of a run's bound, and latency the middle ones;
 // the k-medoids refinement's masked rounds (buckets of 1024-8192 rows)
-// move a few MB and are bound by latency. A fixed square tile wastes up to
-// 63/64 of its FMAs on the skinny rounds and leaves most SMs idle on the
-// small ones, so the wrapper picks one of the two paths of pairwise_tile.cuh
-// (centrality_plan in pairwise_distance.py; S_c = its crossover) with a
+// move a few MB and are bound by latency. The live corpora's exact re-runs
+// are the other kind: a masked (32768, 32768, 784) square is 1.68 TFLOP,
+// 25.1 ms at the fp32 rate, and its 0.21 GB of rows take 63 us. A fixed
+// square tile wastes up to 63/64 of its FMAs on the skinny rounds and
+// leaves most SMs idle on the small ones, and the latency tile runs the
+// squares at a quarter of the fp32 rate, so the wrapper picks one of the
+// three paths of pairwise_tile.cuh (centrality_plan in pairwise_distance.py;
+// S_c = its crossover, F = GEMM_FILL, the fill of gemm_fill) with a
 // centrality epilogue:
 //
 //  * stream path, min(C, R) <= S_c: the short rows sit in shared memory and
@@ -31,19 +35,25 @@
 //    lane keeps its candidate's weighted sum over the warp's rows, the block
 //    sums its warps in order into a (grid, C) partial, and a second pass
 //    sums the grid in a fixed order.
-//  * tile path, both sides > S_c: the cluster-split 32 x 32 tile; rank 0
-//    applies f to the complete tile the cluster has summed, weights it,
-//    sums its rows into an (r-tiles, C) partial, and the second pass sums
-//    the r-tiles.
+//  * tile path, both sides > S_c and a fill below F: the cluster-split 32 x 32
+//    tile; rank 0 applies f to the complete tile the cluster has summed,
+//    weights it, sums its rows into an (r-tiles, C) partial, and the second
+//    pass sums the r-tiles.
+//  * gemm path, dtype 0 only, both sides > S_c, fill >= F: a persistent
+//    grid of 128 x 128 tiles, 8 x 8 FFMA sums a thread over all of d; each
+//    thread applies f to its complete sums, weights them and sums its
+//    columns, a shuffle tree and a second warp sum each row's 128 columns
+//    in a fixed order into an (r-tiles, C) partial, and the second pass
+//    sums the r-tiles. Bound: the flops at the fp32 rate.
 //
-// The fp32 mode's Gram is plain fp32 FFMA on the CUDA cores: a TF32 Gram
-// keeps about three decimal digits and can flip the halving on near-ties,
-// and no round of the main path is bound by flops. d is summed in groups of
-// at most 256 columns, no atomics: two launches are bit-equal. The
-// arguments (path, grid, splits) come from centrality_plan; `scratch` (C * R
-// floats) holds the running d sums where the stream path takes several d
-// slabs, `partial` the rows of the second pass (pairwise::centrality_rows);
-// either may be null where unused.
+// The fp32 mode's Gram is plain fp32 FFMA on the CUDA cores on every path,
+// the flop-bound gemm path too: a TF32 Gram keeps about three decimal digits
+// and can flip the halving on near-ties. d is summed in groups of at most
+// 256 columns, no atomics: two launches are bit-equal. The arguments (path,
+// grid, splits) come from centrality_plan; `scratch` (C * R floats) holds
+// the running d sums where the stream path takes several d slabs, `partial`
+// the rows of the second pass (pairwise::centrality_rows); either may be
+// null where unused.
 //
 // dtype 1 is the TPU kernel's compute_dtype=bfloat16 mode, the centrality
 // of the quantized path (quant_bf16_fused): the same kernels with
@@ -61,7 +71,8 @@
 //    is exact in fp32), one fragment a warp, each 16-column product added to
 //    fp32 group sums of at most 256 columns. It beats the stream path from
 //    about 12 short rows on, so the bf16 mode crosses over there
-//    (DOT_CENTRALITY_BF16_S in pairwise_distance.py; 24 for dtype 0).
+//    (DOT_CENTRALITY_BF16_S in pairwise_distance.py; 24 for dtype 0). The
+//    bf16 mode has no gemm path.
 // What bounds it is what bounds dtype 0: the bytes of the fp32 rows it reads
 // on the skinny rounds, latency on the middle ones; the function's bytes
 // and bound are those of dtype 0. Left: storing the long operand as bf16

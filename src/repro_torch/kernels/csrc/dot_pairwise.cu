@@ -7,8 +7,8 @@
 // repro/kernels/ops.py.
 //
 // Bound on an H100: the call moves 4 * (C d + R d + C R) bytes and does
-// 2 C R d flops, and on the k-medoids path the bytes or the launch latency
-// bound every shape:
+// 2 C R d flops. On the k-medoids path the bytes or the launch latency bound
+// every shape; on the live corpora's bootstrap the flops do:
 //  * (n, k <= 10) assignment caches, (1, n) BUILD d1 rows and SWAP
 //    verifications, and the outer halving rounds, (n, 1) to (n / 16, 17)
 //    and (20, ~n / 20) to (2, n) at 16 pulls per arm: the bytes of the
@@ -19,14 +19,21 @@
 //    a few MB each, so latency. The tile path splits d across a cluster of
 //    blocks to put 100-160 blocks on the 132 SMs and sums the partial
 //    tiles through distributed shared memory.
-// Full fp32 FFMA: a TF32 Gram keeps about three decimal digits, and the
-// tensor cores would buy nothing on shapes that are not bound by flops.
+//  * the bootstrap square of a live corpus, (32768, 32768, 784): 1.68
+//    TFLOP, 25.1 ms at the fp32 rate, against 0.21 GB of operands and 4.3 GB
+//    of block (1.3 ms). The gemm path (where the shape fills GEMM_FILL of
+//    its tile slots, pairwise_distance.py) sums 128 x 128 tiles with 8 x 8
+//    FFMA a thread.
+// Full fp32 FFMA on every path: a TF32 Gram keeps about three decimal
+// digits, which the fp32 mode's contract (and the sql2 and l2 epilogues'
+// cancellation at near pairs) does not allow, so even the flop-bound gemm
+// path stays off the tensor cores.
 //
 // dtype 1 is the TPU kernel's compute_dtype=bfloat16 mode: both operands
 // rounded to bf16 once where they are staged (pairwise::Bf16GramPair), fp32
 // sums; the stream path does the fp32 mode's FFMAs on the rounded values,
-// the tile path multiplies on the tensor cores (see dot_centrality.cu). No
-// path of the JAX package or of the port calls it.
+// the tile path multiplies on the tensor cores (see dot_centrality.cu); it
+// has no gemm path. No path of the JAX package or of the port calls it.
 #include "pairwise_tile.cuh"
 
 extern "C" int dot_pairwise_launch(const float* x, const float* y, float* out,

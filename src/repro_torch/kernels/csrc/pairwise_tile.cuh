@@ -1,19 +1,25 @@
 // The two pairwise kernels (dot_pairwise.cu, l1_pairwise.cu): the (C, R)
 // block of d sums D[c, r] = sum_k op(x[c,k], y[r,k]), op a GramPair,
-// Bf16GramPair or L1Pair (below), written to out[c * R + r]. The same two paths carry the
-// two centrality kernels (dot_centrality.cu, l1_centrality.cu) with a
-// centrality epilogue (Sink below): the weighted row sums of the block after
-// a finish of each complete d sum, and the block never reaches device memory.
+// Bf16GramPair or L1Pair (below), written to out[c * R + r]. The same paths
+// carry the two centrality kernels (dot_centrality.cu, l1_centrality.cu)
+// with a centrality epilogue (Sink below): the weighted row sums of the
+// block after a finish of each complete d sum, and the block never reaches
+// device memory.
 //
-// Shapes on the k-medoids path decide the design. The BUILD and SWAP
-// halvings run rounds from (n, 1) to (2, n) with about 20k-40k pairs each;
-// the assignment caches are (n, k <= 10) and the BUILD d1 rows and SWAP
-// verifications (1, n). Every one of them is bound by bytes or by latency,
-// never by arithmetic (the largest middle round, (157, 135, 784), is 33
-// MFLOP: half a microsecond of fp32 FFMA). A fixed square tile wastes up to
+// The shapes decide the design, and they come in two kinds. The k-medoids
+// BUILD and SWAP halvings and find_medoid run rounds from (n, 1) to (2, n)
+// with about 20k-40k pairs each; the assignment caches are (n, k <= 10) and
+// the BUILD d1 rows and SWAP verifications (1, n). Every one of them is
+// bound by bytes or by latency, never by arithmetic (the largest middle
+// round, (157, 135, 784), is 33 MFLOP: half a microsecond of fp32 FFMA). The
+// live corpora's bootstrap and exact re-runs are squares, (32768, 32768,
+// 784): 1.68 TFLOP, bound by arithmetic. A fixed square tile wastes up to
 // 63/64 of its work on the skinny shapes and leaves most SMs idle on the
-// middle ones, so the wrapper picks one of two paths from (C, R, d)
-// (pairwise_plan in pairwise_distance.py; S = its crossover):
+// middle ones, and a tile built for latency runs the squares at a quarter of
+// the fp32 rate, so the wrapper picks one of three paths from (C, R, d)
+// (pairwise_plan in pairwise_distance.py; S = its crossover, and F =
+// GEMM_FILL, the share of the gemm launch's tile slots that the tile path's
+// 32-row-padded outputs must fill, gemm_fill):
 //
 //  * stream path, min(C, R) <= S. The M = min(C, R) rows of the short
 //    operand stay in shared memory (in d slabs when M * d * 4 bytes exceed
@@ -23,30 +29,44 @@
 //    lane), keeping one accumulator per short row. A shuffle tree that
 //    halves the live values at each step leaves the complete sum for short
 //    row m in lane m. Bound: the long operand's bytes.
-//  * tile path, both C and R > S. One 32 x 32 output tile per thread-block
-//    cluster; the cluster's blocks (2-8, along d) each own a contiguous run
-//    of d columns, streamed through a ring of cp.async slabs so that later
-//    slabs' loads overlap the current slab's FFMA. The partial tiles are
-//    summed through distributed shared memory in rank order and rank 0
-//    writes the tile. The d split is what fills the card: a (157, 135, 784)
-//    round has 25 tiles, run as 125 blocks in 5-block clusters. Bound:
-//    latency, then the bytes of both operands.
+//  * tile path, both C and R > S (and a fill below F where the kernel has
+//    a gemm path). One 32 x 32 output tile per thread-block cluster; the
+//    cluster's blocks (2-8, along d) each own a contiguous run of d
+//    columns, streamed through a ring of cp.async slabs so that later
+//    slabs' loads overlap the current slab's FFMA. The partial tiles are summed through
+//    distributed shared memory in rank order and rank 0 writes the tile.
+//    The d split is what fills the card: a (157, 135, 784) round has 25
+//    tiles, run as 125 blocks in 5-block clusters. Each of its FFMAs needs
+//    one shared-memory read, which caps it near a quarter of the fp32 rate.
+//    Bound: latency, then the bytes of both operands.
+//  * gemm path, GramPair (the fp32 Gram) only, both C and R > S, fill >= F.
+//    A register-blocked SGEMM tile: 128 x 128 outputs a block of 256
+//    threads, each summing an 8 x 8 micro-tile with FFMA from float4 reads
+//    of shared memory, 4 shared-memory reads per 64 FFMAs. A persistent
+//    grid of one block an SM walks the tiles in groups of 8 tile rows, so
+//    that the blocks in flight share operand rows in L2, and one block owns
+//    a tile over all of d: no d split, no cluster. Slabs of 32 columns
+//    arrive by TMA, one tensor copy an operand a slab (4-byte cp.async
+//    where rows are not 16-byte aligned). Bound: 2 C R d operations at the
+//    fp32 rate (the squares' bytes take a fiftieth of that).
 //
-// Both paths: full fp32 FFMA on the CUDA cores (no TF32), except the tile
-// path of the bf16 mode (Bf16GramPair below), whose products of bf16 values
-// run on the tensor cores; no running sum spans more than 256 d terms
-// before it joins a sum of group sums (one running sum over d = 4096 terms
-// of simplex rows drifted 6e-5 from the plain version on an H100, beyond
-// the 1e-5 tolerance); no atomics
-// and a fixed summation order, so two launches on the same input are
-// bit-equal; 64-bit offsets (an n = 100k, d = 28k matrix exceeds 2^31
-// elements); rows past C or R and columns past d are zeros or guarded,
-// never written. 16-byte loads need d % 4 == 0 and 16-byte-aligned bases (a
-// contiguous view may start at any element), else both paths load 4 bytes
-// at a time.
+// All paths: full fp32 FFMA on the CUDA cores (no TF32: the fp32 mode keeps
+// the fp32 Gram's precision, which a TF32 product would cut to about three
+// decimal digits, so the gemm path stays off the tensor cores), except the
+// tile path of the bf16 mode (Bf16GramPair below), whose products of bf16
+// values run on the tensor cores; no running sum spans more than 256 d
+// terms before it joins a sum of group sums (one running sum over d = 4096
+// terms of simplex rows drifted 6e-5 from the plain version on an H100,
+// beyond the 1e-5 tolerance); no atomics and a fixed summation order, so
+// two launches on the same input are bit-equal; 64-bit offsets (an
+// n = 100k, d = 28k matrix exceeds 2^31 elements); rows past C or R and
+// columns past d are zeros or guarded, never written. 16-byte loads need
+// d % 4 == 0 and 16-byte-aligned bases (a contiguous view may start at any
+// element), else every path loads 4 bytes at a time.
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,9 +83,10 @@ namespace cg = cooperative_groups;
 // bf16, and the tile path multiplies on the tensor cores. A centrality Op
 // adds finish(s, xa, yb), which maps a complete d sum to the pair's distance
 // given per-row and per-reference inputs (squared norms for the Gram
-// metrics, unused by l1).
+// metrics, unused by l1). kGemm: the gemm path takes this Op.
 struct GramPair {
   static constexpr bool kBf16 = false;
+  static constexpr bool kGemm = true;
   static __device__ __forceinline__ float stage(float a) { return a; }
   static __device__ __forceinline__ float pair(float acc, float a, float b) {
     return fmaf(a, b, acc);
@@ -81,6 +102,7 @@ struct GramPair {
 // is bit-equal to the fp32 mode on rows rounded beforehand.
 struct Bf16GramPair : GramPair {
   static constexpr bool kBf16 = true;
+  static constexpr bool kGemm = false;
   static __device__ __forceinline__ float stage(float a) {
     return __bfloat162float(__float2bfloat16_rn(a));
   }
@@ -88,6 +110,7 @@ struct Bf16GramPair : GramPair {
 
 struct L1Pair {
   static constexpr bool kBf16 = false;
+  static constexpr bool kGemm = false;
   static __device__ __forceinline__ float stage(float a) { return a; }
   static __device__ __forceinline__ float pair(float acc, float a, float b) {
     return acc + fabsf(a - b);
@@ -96,6 +119,7 @@ struct L1Pair {
 
 constexpr int PATH_STREAM = 0;
 constexpr int PATH_TILE = 1;
+constexpr int PATH_GEMM = 2;
 
 // stream path
 constexpr int S_WARPS = 8;                 // warps per block
@@ -118,6 +142,19 @@ constexpr int T_SMEM = 2 * T_STAGES * T_TILE * T_PAD * (int)sizeof(float);
 constexpr int T_BPAD = T_BK + 8;           // bf16 slab row stride: 80 bytes, so
                                            // an ldmatrix phase's 8 rows of 16
                                            // bytes fall in distinct banks
+
+// gemm path (slabs of T_BK columns at a row stride of T_PAD floats, so the
+// float4 at one column of 8 consecutive rows falls in distinct banks)
+constexpr int G_TILE = 128;                // output tile, C and R
+constexpr int G_MICRO = 8;                 // a thread's rows and columns
+constexpr int G_THREADS = 256;             // 16 x 16 threads, 8 x 8 each
+constexpr int G_STAGES = 4;                // ring depth
+constexpr int G_GROUP_M = 8;               // tile rows a swizzle group
+// the 4-byte copies' padded ring, which also holds the TMA ring of unpadded
+// rows and its 1024-byte alignment
+constexpr int G_SMEM = 2 * G_STAGES * G_TILE * T_PAD * (int)sizeof(float);
+static_assert(2 * G_STAGES * G_TILE * T_BK * (int)sizeof(float) + 1023 <= G_SMEM,
+              "the TMA ring fits");
 
 template <int VW>
 struct Vec;
@@ -217,6 +254,39 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// The gemm path's TMA loads: a tensor copy of a 2-D box of rows into shared
+// memory, completing on an mbarrier that counts the bytes.
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)), "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "WAIT_%=:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@!p bra WAIT_%=;\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int col, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, "
+      "{%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(map), "r"(smem_u32(bar)), "r"(col), "r"(row)
+      : "memory");
 }
 
 // The tensor-core Gram of the bf16 tile path: ldmatrix fragments of bf16
@@ -627,6 +697,253 @@ tile_kernel(const float* __restrict__ x, const float* __restrict__ y, Sink sink,
   cluster.sync();   // no block leaves while rank 0 may read its tile
 }
 
+// The gemm path's 4-byte loads (rows not 16-byte aligned or d % 4 != 0; TMA
+// takes the rest). One operand's share of a slab for this thread: copy s
+// (< NS) moves one float of row r + s * RS of the tile at column col of the
+// slab (r, col from the thread index), so each copy's source is a fixed
+// offset from one pointer set once a tile (at() below) and advanced by the
+// slab's column. Rows past `rows` and columns past d are zero-filled.
+struct GemmSlabLoader {
+  static constexpr int RS = G_THREADS / T_BK;
+  static constexpr int NS = G_TILE * T_BK / G_THREADS;
+  static_assert(G_TILE * T_BK % G_THREADS == 0 && NS <= 32, "whole copies per thread");
+  const float* base;   // row r, column col of the tile's first slab
+  int64_t step;        // RS rows
+  unsigned rows_in;    // bit s: row r + s * RS lies before `rows`
+  int col;
+
+  __device__ __forceinline__ void at(const float* src, int64_t row0, int64_t rows, int64_t d) {
+    const int r = (int)threadIdx.x / T_BK;
+    col = (int)threadIdx.x % T_BK;
+    step = (int64_t)RS * d;
+    base = src + (row0 + r) * d + col;
+    rows_in = 0;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) rows_in |= (row0 + r + s * RS < rows ? 1u : 0u) << s;
+  }
+
+  __device__ __forceinline__ void load(float (*dst)[T_PAD], const float* src, int64_t k,
+                                       int64_t d) const {
+    const int r = (int)threadIdx.x / T_BK;
+    const bool k_in = k + col < d;
+    const float* p = base + k;
+#pragma unroll
+    for (int s = 0; s < NS; ++s) {
+      const bool valid = k_in && (rows_in >> s & 1u);
+      cp_async4(&dst[r + s * RS][col], valid ? p : src, valid);
+      p += step;
+    }
+  }
+};
+
+// The gemm path's tile order: tile t of the (mt, nt) grid of G_TILE x G_TILE
+// tiles, in groups of G_GROUP_M tile rows walked down each column of the
+// group, so that consecutive tiles (the blocks in flight) share the x rows
+// of G_GROUP_M tiles and the y rows of a few dozen in L2. Returns the
+// tile's first row of x (c0) and of y (r0).
+__device__ __forceinline__ void gemm_tile(int64_t t, int64_t mt, int64_t nt, int64_t& c0,
+                                          int64_t& r0) {
+  const int64_t per_group = (int64_t)G_GROUP_M * nt;
+  const int64_t g = t / per_group;
+  const int64_t first = g * G_GROUP_M;
+  const int64_t rows = mt - first < G_GROUP_M ? mt - first : G_GROUP_M;
+  const int64_t in = t - g * per_group;
+  c0 = (first + in % rows) * G_TILE;
+  r0 = (in / rows) * G_TILE;
+}
+
+// Gemm path (Op::kGemm: the fp32 Gram). Block b owns tiles b, b + grid, ...
+// of the gemm_tile order, each over all of d, as one stream of (tile, slab)
+// steps through a ring of G_STAGES slabs: the next tile's first slabs load
+// while this tile's last ones are summed and its epilogue runs. TMA (VW 4:
+// 16-byte aligned rows, d % 4 == 0, d > 0): thread 0 copies each operand's
+// 128 x 32 slab with one tensor copy (the maps mx, my), which zero-fills rows
+// past C or R and columns past d and swizzles each 128-byte row by 16-byte
+// chunks (chunk ^ row % 8), so that a float4 at one column of 8 consecutive
+// rows falls in distinct banks; an mbarrier a stage says when it has landed.
+// VW 1: every thread issues 4-byte cp.async copies (GemmSlabLoader) into
+// rows padded to T_PAD floats. Either way a block barrier a slab frees the
+// stage that the next copy refills.
+// Thread (warp w, lane l) sums rows tr + 16 i and columns tc + 16 j of the
+// tile (i, j < 8; tr = 4 (w / 2) + l / 8, tc = 8 (w % 2) + l % 8): per 4 d
+// columns it reads one float4 of each of its 8 x rows and 8 y rows for 256
+// FFMAs, and a warp's reads of one float4 fall on 4 or 8 consecutive rows,
+// in distinct banks. Each sum of a group of at most 256 columns
+// (T_GROUP_SLABS slabs) joins the thread's totals in d order.
+// Epilogue: the tile of the (C, R) block, or with CEN the finish of each
+// complete sum, weighted and summed over the thread's 8 columns in column
+// order, over the 8 lanes of the warp that share its rows (a shuffle tree,
+// lanes 1, 2, then 4 apart), then over the two warps that share them (warp
+// 2 m, then warp 2 m + 1), into row r-tile of `partial`, which a second pass
+// sums over the r-tiles.
+template <class Op, bool CEN, int VW>
+__global__ void __launch_bounds__(G_THREADS, 1)
+gemm_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap my,
+            const float* __restrict__ x, const float* __restrict__ y, Sink sink, int64_t C,
+            int64_t R, int64_t d) {
+  constexpr bool TMA = VW == 4;
+  constexpr int ROW = TMA ? T_BK : T_PAD;   // a slab row's floats in shared memory
+  constexpr int SLAB = G_TILE * ROW;
+  extern __shared__ __align__(16) unsigned char raw[];   // G_SMEM bytes
+  // the swizzle needs 1024-byte aligned slabs; an offset into the array (not
+  // a cast of its address) keeps the reads shared-memory loads
+  float* xs =
+      reinterpret_cast<float*>(raw + (TMA ? (1024u - (smem_u32(raw) & 1023u)) & 1023u : 0u));
+  float* ys = xs + G_STAGES * SLAB;
+  __shared__ uint64_t full[G_STAGES];   // TMA: stage s has landed
+  __shared__ float red[2][G_TILE];      // CEN: the row sums of either warp's columns
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tr = (warp >> 1) * 4 + (lane >> 3);
+  const int tc = (warp & 1) * 8 + (lane & 7);
+  const int64_t mt = (C + G_TILE - 1) / G_TILE;
+  const int64_t nt = (R + G_TILE - 1) / G_TILE;
+  const int64_t tiles = mt * nt;
+  // d == 0 runs one slab of zeros, which writes zeros
+  const int nsl = d > 0 ? (int)((d + T_BK - 1) / T_BK) : 1;
+  const int64_t mine =
+      (int64_t)blockIdx.x < tiles ? (tiles - 1 - (int64_t)blockIdx.x) / gridDim.x + 1 : 0;
+  if (TMA && threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < G_STAGES; ++s) mbar_init(&full[s], 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // the producer's next slab: slab lk of this block's tile lq, into stage lst
+  int64_t lq = 0, lc0 = 0, lr0 = 0;
+  int lk = 0, lst = 0;
+  GemmSlabLoader lx, ly;   // VW 1
+  auto load_tile = [&](int64_t t) {
+    gemm_tile(t, mt, nt, lc0, lr0);
+    if constexpr (!TMA) {
+      lx.at(x, lc0, C, d);
+      ly.at(y, lr0, R, d);
+    }
+  };
+  if (mine > 0) load_tile(blockIdx.x);
+  auto issue = [&]() {   // TMA: thread 0 alone
+    if (lq < mine) {
+      if constexpr (TMA) {
+        mbar_expect_tx(&full[lst], 2 * SLAB * (unsigned)sizeof(float));
+        tma_load_2d(xs + lst * SLAB, &mx, &full[lst], lk * T_BK, (int)lc0);
+        tma_load_2d(ys + lst * SLAB, &my, &full[lst], lk * T_BK, (int)lr0);
+      } else {
+        const int64_t k = (int64_t)lk * T_BK;
+        lx.load(reinterpret_cast<float (*)[T_PAD]>(xs + lst * SLAB), x, k, d);
+        ly.load(reinterpret_cast<float (*)[T_PAD]>(ys + lst * SLAB), y, k, d);
+      }
+      lst = lst + 1 == G_STAGES ? 0 : lst + 1;
+      if (++lk == nsl) {
+        lk = 0;
+        if (++lq < mine) load_tile(blockIdx.x + lq * gridDim.x);
+      }
+    }
+    if constexpr (!TMA) cp_async_commit();
+  };
+  if (!TMA || threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < G_STAGES - 1; ++s) issue();
+  }
+
+  float acc[G_MICRO][G_MICRO], tot[G_MICRO][G_MICRO];
+#pragma unroll
+  for (int i = 0; i < G_MICRO; ++i)
+#pragma unroll
+    for (int j = 0; j < G_MICRO; ++j) acc[i][j] = tot[i][j] = 0.f;
+  int64_t q = 0, c0 = 0, r0 = 0;
+  int kk = 0, st = 0;
+  unsigned phase = 0;   // TMA: bit s, the parity stage s waits for next
+  if (mine > 0) gemm_tile(blockIdx.x, mt, nt, c0, r0);
+  // TMA: the 16-byte chunk of column 4 k4 in this thread's rows is k4 ^ row % 8
+  const int sx = TMA ? tr & 7 : 0;
+  const int sy = TMA ? tc & 7 : 0;
+  const int64_t steps = mine * nsl;
+  for (int64_t s = 0; s < steps; ++s) {
+    if constexpr (TMA) {
+      mbar_wait(&full[st], phase >> st & 1u);   // slab s has landed
+      phase ^= 1u << st;
+    } else {
+      cp_async_wait<G_STAGES - 2>();   // slab s has landed for this thread
+    }
+    __syncthreads();   // ... for all; slab s - 1 is consumed
+    if (!TMA || threadIdx.x == 0) issue();
+    const float* xa = xs + st * SLAB + tr * ROW;
+    const float* yb = ys + st * SLAB + tc * ROW;
+#pragma unroll
+    for (int k4 = 0; k4 < T_BK / 4; ++k4) {
+      float4 b[G_MICRO];
+#pragma unroll
+      for (int j = 0; j < G_MICRO; ++j)
+        b[j] = *reinterpret_cast<const float4*>(yb + 16 * j * ROW + ((k4 ^ sy) << 2));
+#pragma unroll
+      for (int i = 0; i < G_MICRO; ++i) {
+        const float4 a = *reinterpret_cast<const float4*>(xa + 16 * i * ROW + ((k4 ^ sx) << 2));
+#pragma unroll
+        for (int j = 0; j < G_MICRO; ++j) acc[i][j] = pair_vec<Op>(acc[i][j], a, b[j]);
+      }
+    }
+    st = st + 1 == G_STAGES ? 0 : st + 1;
+    const bool last = kk == nsl - 1;
+    if (last || kk % T_GROUP_SLABS == T_GROUP_SLABS - 1) {
+#pragma unroll
+      for (int i = 0; i < G_MICRO; ++i)
+#pragma unroll
+        for (int j = 0; j < G_MICRO; ++j) {
+          tot[i][j] += acc[i][j];
+          acc[i][j] = 0.f;
+        }
+    }
+    if (!last) {
+      ++kk;
+      continue;
+    }
+    if constexpr (!CEN) {
+#pragma unroll
+      for (int i = 0; i < G_MICRO; ++i) {
+        const int64_t c = c0 + tr + 16 * i;
+        if (c >= C) continue;
+#pragma unroll
+        for (int j = 0; j < G_MICRO; ++j) {
+          const int64_t r = r0 + tc + 16 * j;
+          if (r < R) sink.out[c * R + r] = tot[i][j];
+        }
+      }
+    } else {
+      float ya[G_MICRO], wr[G_MICRO];   // this thread's columns' inputs, read once
+#pragma unroll
+      for (int j = 0; j < G_MICRO; ++j) {
+        const int64_t r = r0 + tc + 16 * j;
+        ya[j] = r < R ? aux(sink.yaux, r) : 0.f;
+        wr[j] = r < R ? weight(sink.w, r) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < G_MICRO; ++i) {
+        const int64_t c = c0 + tr + 16 * i;
+        const float xa = c < C ? aux(sink.xaux, c) : 0.f;
+        float v = 0.f;
+#pragma unroll
+        for (int j = 0; j < G_MICRO; ++j)
+          if (r0 + tc + 16 * j < R) v += Op::finish(tot[i][j], xa, ya[j]) * wr[j];
+#pragma unroll
+        for (int off = 1; off < 8; off *= 2) v += __shfl_xor_sync(0xffffffffu, v, off);
+        if ((lane & 7) == 0) red[warp & 1][tr + 16 * i] = v;
+      }
+      __syncthreads();   // red is read before the next step's barrier
+      if (threadIdx.x < G_TILE && c0 + threadIdx.x < C)
+        sink.partial[(r0 / G_TILE) * C + c0 + threadIdx.x] =
+            red[0][threadIdx.x] + red[1][threadIdx.x];
+    }
+#pragma unroll
+    for (int i = 0; i < G_MICRO; ++i)
+#pragma unroll
+      for (int j = 0; j < G_MICRO; ++j) tot[i][j] = 0.f;
+    kk = 0;
+    if (++q < mine) gemm_tile(blockIdx.x + q * gridDim.x, mt, nt, c0, r0);
+  }
+  if constexpr (!TMA) cp_async_wait<0>();
+}
+
 template <class Op, bool CEN, int MS, int L, int VW>
 inline cudaError_t launch_stream_kernel(const float* x, const float* y, const Sink& sink,
                                         int64_t C, int64_t R, int64_t d, int64_t slab, int grid,
@@ -695,6 +1012,37 @@ inline int64_t stream_slab(int64_t M, int64_t d, int splits) {
   return slab;
 }
 
+// The TMA map of a (rows, d) fp32 matrix at p (16-byte aligned, d % 4 == 0,
+// d > 0) for the gemm path: boxes of 32 columns by G_TILE rows, 128-byte
+// swizzle, zeros past the matrix. The driver's encoder is reached through the
+// runtime, so the libraries need no link to the driver.
+typedef CUresult (*TensorMapEncoder)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                     const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                     const cuuint32_t*, CUtensorMapInterleave,
+                                     CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                     CUtensorMapFloatOOBfill);
+
+inline cudaError_t gemm_tensor_map(CUtensorMap* map, const float* p, int64_t rows, int64_t d) {
+  static TensorMapEncoder encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult found;
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled",
+                                                    reinterpret_cast<void**>(&encode),
+                                                    cudaEnableDefault, &found);
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess) return cudaErrorNotSupported;
+  }
+  const cuuint64_t dims[2] = {(cuuint64_t)d, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)d * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)T_BK, (cuuint32_t)G_TILE};
+  const cuuint32_t steps[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(p), dims,
+                            strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
 // One launch of either path's first pass for C, R >= 1, with the checks of
 // `launch` below; returns the launch's error code.
 template <class Op, bool CEN>
@@ -709,6 +1057,34 @@ inline cudaError_t launch_path(const float* x, const float* y, const Sink& sink,
     const int64_t slab = stream_slab(M, d, splits);
     if (slab == 0) return cudaErrorInvalidValue;
     return launch_stream<Op, CEN>(x, y, sink, C, R, d, slab, grid, vec, stream);
+  }
+  if (path == PATH_GEMM) {
+    if constexpr (Op::kGemm) {
+      const int64_t tiles = ((C + G_TILE - 1) / G_TILE) * ((R + G_TILE - 1) / G_TILE);
+      if (splits != 1 || (int64_t)grid > tiles) return cudaErrorInvalidValue;
+      const bool tma = vec && d > 0;
+      CUtensorMap mx = {}, my = {};
+      if (tma) {
+        const cudaError_t e = gemm_tensor_map(&mx, x, C, d);
+        if (e != cudaSuccess) return e;
+        const cudaError_t f = gemm_tensor_map(&my, y, R, d);
+        if (f != cudaSuccess) return f;
+      }
+      // the ring's dynamic shared memory, opted into once per kernel
+      static const cudaError_t e4 = cudaFuncSetAttribute(
+          gemm_kernel<Op, CEN, 4>, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+      static const cudaError_t e1 = cudaFuncSetAttribute(
+          gemm_kernel<Op, CEN, 1>, cudaFuncAttributeMaxDynamicSharedMemorySize, G_SMEM);
+      const cudaError_t err = tma ? e4 : e1;
+      if (err != cudaSuccess) return err;
+      if (tma)
+        gemm_kernel<Op, CEN, 4><<<grid, G_THREADS, G_SMEM, stream>>>(mx, my, x, y, sink, C, R, d);
+      else
+        gemm_kernel<Op, CEN, 1><<<grid, G_THREADS, G_SMEM, stream>>>(mx, my, x, y, sink, C, R, d);
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;   // no gemm path for this Op
+    }
   }
   if (path != PATH_TILE || splits > T_MAX_CLUSTER) return cudaErrorInvalidValue;
   const int64_t n_rtiles = (R + T_TILE - 1) / T_TILE;
@@ -747,7 +1123,8 @@ inline cudaError_t launch_path(const float* x, const float* y, const Sink& sink,
 // Launches one path on `stream` for C, R >= 1 and returns the launch's
 // error code as an int. path, grid and splits come from pairwise_plan:
 // stream path, `grid` blocks and `splits` d slabs; tile path, `grid` =
-// tiles * splits blocks in clusters of `splits` along d.
+// tiles * splits blocks in clusters of `splits` along d; gemm path (Op::kGemm
+// only), a persistent `grid` of at most one block a 128 x 128 tile, splits 1.
 template <class Op>
 inline int launch(const float* x, const float* y, float* out, int64_t C, int64_t R,
                   int64_t d, int path, int grid, int splits, cudaStream_t stream) {
@@ -781,14 +1158,16 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partial, float* __r
 
 // The rows of partial one centrality launch writes for its second pass, or
 // 1 when the first pass writes out directly: the grid of a C-short stream
-// launch, the r-tiles of a tile launch.
+// launch, the r-tiles of a tile or gemm launch.
 inline int64_t centrality_rows(int64_t C, int64_t R, int path, int grid) {
   if (path == PATH_STREAM) return C <= R ? grid : 1;
-  return (R + T_TILE - 1) / T_TILE;
+  const int64_t tile = path == PATH_GEMM ? G_TILE : T_TILE;
+  return (R + tile - 1) / tile;
 }
 
-// Fused centrality on the two paths: S[c] = sum_r w[r] * Op::finish(D[c, r],
-// xaux[c], yaux[r]) for C, R >= 1 (Op: a Pair above plus a finish). path, grid and splits as for `launch` (centrality_plan in
+// Fused centrality on the three paths: S[c] = sum_r w[r] *
+// Op::finish(D[c, r], xaux[c], yaux[r]) for C, R >= 1 (Op: a Pair above plus
+// a finish). path, grid and splits as for `launch` (centrality_plan in
 // pairwise_distance.py). `scratch` holds C * R floats where the stream path
 // takes several d slabs, `partial` centrality_rows * C floats where that
 // exceeds 1; either may be null otherwise. Launches the first pass and, with

@@ -8,8 +8,8 @@ Wrapper, the TPU kernel it replaces in that file, and its CUDA source in
 * ``dot_centrality``: ``dot_centrality`` / ``_dot_centrality_kernel``,
   ``dot_centrality.cu``;
 * ``l1_centrality``: ``l1_centrality`` / ``_l1_centrality_kernel``,
-  ``l1_centrality.cu`` (both centrality kernels take one of the two paths
-  of ``pairwise_tile.cuh`` with a centrality epilogue, chosen by
+  ``l1_centrality.cu`` (both centrality kernels take one of the paths of
+  ``pairwise_tile.cuh`` with a centrality epilogue, chosen by
   :func:`centrality_plan`);
 * ``topk_smallest``: ``topk_smallest`` / ``_topk_rank_kernel`` and
   ``_topk_select_kernel`` in one launch, ``topk_smallest.cu`` (a tiled
@@ -18,14 +18,16 @@ Wrapper, the TPU kernel it replaces in that file, and its CUDA source in
   output;
 * ``dot_pairwise``: ``dot_pairwise`` / ``_dot_kernel``, ``dot_pairwise.cu``;
 * ``l1_pairwise``: ``l1_pairwise`` / ``_l1_pairwise_kernel``,
-  ``l1_pairwise.cu`` (both pairwise kernels take one of two paths of
-  ``pairwise_tile.cuh``, chosen by :func:`pairwise_plan`).
+  ``l1_pairwise.cu`` (both pairwise kernels take one of the paths of
+  ``pairwise_tile.cuh``, chosen by :func:`pairwise_plan`; the Gram kernels
+  in fp32 have a third, the gemm path, for large squares).
 
 A wrapper checks device, dtype, shape and contiguity, then:
 
 * on a CUDA tensor it launches its kernel on the current stream (building
   the libraries at first use, see :mod:`repro_torch.kernels.build`) and adds
-  one to ``LAUNCHES[name]``; a failed build or launch raises;
+  one to ``LAUNCHES[name]`` (a kernel with paths also to
+  ``PATH_LAUNCHES[(name, path)]``); a failed build or launch raises;
 * on a CPU tensor it returns its plain version — the CPU has no kernel;
 * on any other device it raises.
 
@@ -55,6 +57,9 @@ from repro_torch.kernels import build
 # Launches per wrapper since the last reset_launches(); only a launch of the
 # CUDA kernel counts, never a call that took the plain version.
 LAUNCHES: Counter = Counter()
+# The launches of the kernels with paths (pairwise_plan, centrality_plan) by
+# (name in LAUNCHES, path), counted beside LAUNCHES.
+PATH_LAUNCHES: Counter = Counter()
 
 _MAX_BLOCKS = 2 ** 31 - 1      # a one-dimensional grid
 _PLAIN_BLOCK = 1 << 24         # elements of l1_pairwise_plain's broadcast
@@ -64,6 +69,7 @@ COMPUTE_DTYPES = {"float32": 0, "bfloat16": 1}
 
 def reset_launches() -> None:
     LAUNCHES.clear()
+    PATH_LAUNCHES.clear()
 
 
 def _on_cuda(name: str, *tensors: Optional[torch.Tensor]) -> bool:
@@ -152,7 +158,8 @@ def dot_centrality(x: torch.Tensor, y: torch.Tensor,
 
     Replaces ``dot_centrality`` (``src/repro/kernels/pairwise_distance.py``).
     Bound: the long operand's bytes on the skinny rounds (stream path),
-    latency on the middle and masked refinement rounds (tile path); see
+    latency on the middle and masked refinement rounds (tile path), the
+    flops on the live corpora's exact squares (gemm path); see
     ``csrc/dot_centrality.cu``.
     """
     if metric not in DOT_METRICS:
@@ -178,7 +185,8 @@ def dot_centrality(x: torch.Tensor, y: torch.Tensor,
         return torch.zeros(c, dtype=torch.float32, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = centrality_plan(c, r, d, sms,
-                           crossover=dot_crossover(compute_dtype))
+                           crossover=dot_crossover(compute_dtype),
+                           gemm=dot_gemm(compute_dtype))
     return launch_dot_centrality(x, y, xn2, yn2, w, plan, metric,
                                  compute_dtype)
 
@@ -391,14 +399,26 @@ def l1_pairwise_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     return out
 
 
-# The pairwise kernels' two paths (csrc/pairwise_tile.cuh). PAIRWISE_S is
-# the crossover: the stream path takes every shape whose short side has at
-# most PAIRWISE_S rows, the tile path the rest. On an H100 the stream path
-# is faster up to 20 short rows and the tile path from 24 (chip_smoke.py
-# times both at 8-24, PERF.md).
+# The pairwise kernels' paths (csrc/pairwise_tile.cuh). PAIRWISE_S is the
+# crossover: the stream path takes every shape whose short side has at most
+# PAIRWISE_S rows, the tile path the rest. On an H100 the stream path is
+# faster up to 20 short rows and the tile path from 24 (chip_smoke.py times
+# both at 8-24, PERF.md). The Gram kernels in fp32 (dot_pairwise,
+# dot_centrality) have a third path, gemm (dot_gemm). Past the stream
+# crossover both the tile and the gemm path are bound by their FFMAs, so
+# each takes a time proportional to d and to the outputs it computes: the
+# tile path C x R rounded up to its 32-row tiles, the gemm path a whole
+# 128 x 128 tile on every SM for each wave of its persistent grid, ~2.3x
+# faster an output. So the gemm path is faster where the tile path's outputs
+# fill more than GEMM_FILL of the gemm launch's: on an H100 the tile path
+# wins at fills of 0.30-0.37 ((896, 896), (192, 4096), (160, 4096)) and the
+# gemm path at 0.48 and more ((1024, 1024), (256, 4096), (128, 8192),
+# (1536, 1536)), at d = 784 and 2048 (chip_smoke.py times both around it,
+# PERF.md). No round of a halving reaches it: their 20k-50k pairs fill a
+# few tiles.
 PAIRWISE_S = 20
-STREAM, TILE = "stream", "tile"
-_PATH_CODE = {STREAM: 0, TILE: 1}
+STREAM, TILE, GEMM = "stream", "tile", "gemm"
+_PATH_CODE = {STREAM: 0, TILE: 1, GEMM: 2}
 _STREAM_WARPS = 8              # S_WARPS
 _STREAM_ROWS = 2               # long rows a warp takes a pass, at least
 _STREAM_BLOCKS_PER_SM = 2      # S_SMEM allows two blocks a SM
@@ -408,10 +428,41 @@ _STREAM_MAX_SHORT = 32         # S_MAX_SHORT
 _PAIR_TILE = 32                # T_TILE
 _PAIR_BK = 32                  # T_BK
 _MAX_CLUSTER = 8               # T_MAX_CLUSTER
+_GEMM_TILE = 128               # G_TILE
+_GEMM_BLOCKS_PER_SM = 1        # G_SMEM and the registers allow one
+GEMM_FILL = 0.42
+
+
+def dot_gemm(compute_dtype: str) -> bool:
+    """Whether the Gram kernels have the gemm path in ``compute_dtype``:
+    in fp32, not in the bf16 mode."""
+    _check_dtype("dot_pairwise", compute_dtype)
+    return compute_dtype == "float32"
+
+
+def gemm_fill(c: int, r: int, sms: int) -> float:
+    """The tile path's outputs at (c, r), C and R rounded up to its 32-row
+    tiles, over the gemm path's: a 128 x 128 tile on each of its blocks for
+    every wave of :func:`gemm_plan`'s grid."""
+    tiles = -(-c // _GEMM_TILE) * -(-r // _GEMM_TILE)
+    slots = _GEMM_BLOCKS_PER_SM * sms
+    waves = -(-tiles // slots)
+    padded = -(-c // _PAIR_TILE) * -(-r // _PAIR_TILE) * _PAIR_TILE ** 2
+    return padded / (waves * slots * _GEMM_TILE ** 2)
+
+
+def gemm_plan(c: int, r: int, sms: int) -> tuple[str, int, int]:
+    """``(path, grid, splits)`` of a gemm launch for ``c, r >= 1`` on a card
+    with ``sms`` multiprocessors: a persistent grid of one block an SM, at
+    most one a 128 x 128 output tile, no d split. :func:`pairwise_plan`
+    picks it; ``chip_smoke.py`` and the tests force it."""
+    tiles = -(-c // _GEMM_TILE) * -(-r // _GEMM_TILE)
+    return GEMM, min(tiles, _GEMM_BLOCKS_PER_SM * sms), 1
 
 
 def pairwise_plan(c: int, r: int, d: int, sms: int, *,
-                  crossover: int = PAIRWISE_S) -> tuple[str, int, int]:
+                  crossover: int = PAIRWISE_S,
+                  gemm: bool = False) -> tuple[str, int, int]:
     """``(path, grid, splits)`` of one pairwise launch on a card with ``sms``
     multiprocessors, for ``c, r >= 1``.
 
@@ -419,6 +470,9 @@ def pairwise_plan(c: int, r: int, d: int, sms: int, *,
       warps that stream the long operand's rows, ``splits`` d slabs of the
       short rows in shared memory (one unless they exceed the block's
       budget);
+    * ``"gemm"`` otherwise, when the kernel has a gemm path (``gemm``, from
+      :func:`dot_gemm`) and :func:`gemm_fill` is at least ``GEMM_FILL``:
+      :func:`gemm_plan`;
     * ``"tile"`` otherwise: ``grid = tiles * splits`` blocks, 32 x 32
       output tiles, each summed over d by a cluster of ``splits`` blocks
       (at most 8), enough to put about one block on every SM, each block
@@ -435,6 +489,8 @@ def pairwise_plan(c: int, r: int, d: int, sms: int, *,
             return STREAM, grid, 1
         units = _STREAM_SMEM // (m * 4 * _STREAM_SLAB_ALIGN)
         return STREAM, grid, -(-d // (units * _STREAM_SLAB_ALIGN))
+    if gemm and gemm_fill(c, r, sms) >= GEMM_FILL:
+        return gemm_plan(c, r, sms)
     tiles = -(-c // _PAIR_TILE) * -(-r // _PAIR_TILE)
     slabs = max(1, -(-d // _PAIR_BK))
     splits = max(1, min(_MAX_CLUSTER, -(-sms // tiles), slabs))
@@ -475,15 +531,18 @@ def dot_crossover(compute_dtype: str) -> int:
 
 
 def centrality_plan(c: int, r: int, d: int, sms: int, *,
-                    crossover: int = CENTRALITY_S) -> tuple[str, int, int]:
+                    crossover: int = CENTRALITY_S,
+                    gemm: bool = False) -> tuple[str, int, int]:
     """``(path, grid, splits)`` of one ``dot_centrality`` or
     ``l1_centrality`` launch for ``c, r >= 1``: the launch geometry of
     :func:`pairwise_plan` with the kernel's centrality crossover
-    (:func:`dot_crossover` for ``dot_centrality``). The stream path's
+    (:func:`dot_crossover` for ``dot_centrality``) and its gemm path
+    (:func:`dot_gemm`; none for ``l1_centrality``). The stream path's
     epilogue writes S directly when R is short and a ``(grid, C)`` partial
-    when C is short; the tile path's an ``(r-tiles, C)`` partial (see
+    when C is short; the tile and gemm paths' an
+    ``(r-tiles, C)`` partial of their 32- or 128-row r-tiles (see
     :func:`centrality_scratch`)."""
-    return pairwise_plan(c, r, d, sms, crossover=crossover)
+    return pairwise_plan(c, r, d, sms, crossover=crossover, gemm=gemm)
 
 
 def centrality_scratch(c: int, r: int, d: int,
@@ -496,7 +555,7 @@ def centrality_scratch(c: int, r: int, d: int,
     if path == STREAM:
         scratch = c * r if _stream_slab(d, splits) < d else 0
         return scratch, (grid if c <= r else 1)
-    return 0, -(-r // _PAIR_TILE)
+    return 0, -(-r // (_GEMM_TILE if path == GEMM else _PAIR_TILE))
 
 
 def _centrality_buffers(name: str, x: torch.Tensor, r: int,
@@ -525,7 +584,7 @@ def launch_l1_centrality(x: torch.Tensor, y: torch.Tensor,
     w (R,) or None with ``plan``, a ``centrality_plan`` result for
     (C, R, d), C and R >= 1: the wrapper passes the default one,
     ``chip_smoke.py`` forces either path to time both on each side of the
-    crossover. Counts in ``LAUNCHES``."""
+    crossover. Counts in ``LAUNCHES`` and ``PATH_LAUNCHES``."""
     c, d = x.shape
     r = y.shape[0]
     kind, grid, splits = plan
@@ -538,6 +597,7 @@ def launch_l1_centrality(x: torch.Tensor, y: torch.Tensor,
                   grid, splits, stream)
     build.check("l1_centrality_launch", code)
     LAUNCHES["l1_centrality"] += 1
+    PATH_LAUNCHES[("l1_centrality", kind)] += 1
     return out
 
 
@@ -552,8 +612,9 @@ def launch_dot_centrality(x: torch.Tensor, y: torch.Tensor,
     CUDA tensors x (C, d), y (R, d), xn2 (C,) and yn2 (R,) or None
     (cosine), w (R,) or None with ``plan``, a ``centrality_plan`` result for
     (C, R, d), C and R >= 1: the wrapper passes the one at
-    ``dot_crossover(compute_dtype)``, ``chip_smoke.py`` forces either path
-    to time both on each side of the crossover. Counts in ``LAUNCHES`` under
+    ``dot_crossover(compute_dtype)`` and ``dot_gemm(compute_dtype)``,
+    ``chip_smoke.py`` forces each path to time them on each side of the
+    crossovers. Counts in ``LAUNCHES`` and ``PATH_LAUNCHES`` under
     ``"dot_centrality"`` or ``"dot_centrality_bf16"``."""
     _check_dtype("dot_centrality", compute_dtype)
     c, d = x.shape
@@ -568,7 +629,9 @@ def launch_dot_centrality(x: torch.Tensor, y: torch.Tensor,
                   DOT_METRICS[metric], COMPUTE_DTYPES[compute_dtype],
                   _PATH_CODE[kind], grid, splits, stream)
     build.check("dot_centrality_launch", code)
-    LAUNCHES[_launch_name("dot_centrality", compute_dtype)] += 1
+    name = _launch_name("dot_centrality", compute_dtype)
+    LAUNCHES[name] += 1
+    PATH_LAUNCHES[(name, kind)] += 1
     return out
 
 
@@ -577,10 +640,11 @@ def launch_pairwise(name: str, x: torch.Tensor, y: torch.Tensor,
                     compute_dtype: str = "float32") -> torch.Tensor:
     """One launch of the pairwise kernel ``name`` on CUDA tensors x (C, d),
     y (R, d) with ``plan``, a ``pairwise_plan`` result for (C, R, d): the
-    wrappers pass the default one, ``chip_smoke.py`` forces either path to
-    time both on each side of the crossover. ``compute_dtype`` is
-    ``dot_pairwise``'s alone. Counts in ``LAUNCHES`` (the bf16 mode under
-    ``"dot_pairwise_bf16"``)."""
+    wrappers pass the default one (``dot_pairwise`` with
+    ``dot_gemm(compute_dtype)``), ``chip_smoke.py`` forces each path to
+    time them on each side of the crossovers. ``compute_dtype`` is
+    ``dot_pairwise``'s alone. Counts in ``LAUNCHES`` and ``PATH_LAUNCHES``
+    (the bf16 mode under ``"dot_pairwise_bf16"``)."""
     _check_dtype(name, compute_dtype)
     if name != "dot_pairwise" and compute_dtype != "float32":
         raise ValueError(f"{name} takes no compute_dtype")
@@ -599,12 +663,15 @@ def launch_pairwise(name: str, x: torch.Tensor, y: torch.Tensor,
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(*args, _PATH_CODE[kind], grid, splits, stream)
     build.check(f"{name}_launch", code)
-    LAUNCHES[_launch_name(name, compute_dtype)] += 1
+    name = _launch_name(name, compute_dtype)
+    LAUNCHES[name] += 1
+    PATH_LAUNCHES[(name, kind)] += 1
     return out
 
 
 def _pairwise(name: str, x: torch.Tensor, y: torch.Tensor, plain,
-              compute_dtype: str = "float32") -> torch.Tensor:
+              compute_dtype: str = "float32",
+              gemm: bool = False) -> torch.Tensor:
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"{name}: bad shapes {tuple(x.shape)}, "
                          f"{tuple(y.shape)}")
@@ -617,7 +684,8 @@ def _pairwise(name: str, x: torch.Tensor, y: torch.Tensor, plain,
     if c == 0 or r == 0:
         return torch.empty((c, r), dtype=torch.float32, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return launch_pairwise(name, x, y, pairwise_plan(c, r, d, sms),
+    return launch_pairwise(name, x, y,
+                           pairwise_plan(c, r, d, sms, gemm=gemm),
                            compute_dtype)
 
 
@@ -629,12 +697,13 @@ def dot_pairwise(x: torch.Tensor, y: torch.Tensor, *,
 
     Replaces ``dot_pairwise`` (``src/repro/kernels/pairwise_distance.py``).
     Bound: the long operand's bytes on the skinny k-medoids shapes (stream
-    path), launch latency on the middle halving rounds (tile path); see
+    path), launch latency on the middle halving rounds (tile path), the
+    flops on the live corpora's bootstrap squares (gemm path); see
     ``csrc/dot_pairwise.cu``."""
-    _check_dtype("dot_pairwise", compute_dtype)
     return _pairwise("dot_pairwise", x, y,
                      lambda a, b: dot_pairwise_plain(
-                         a, b, compute_dtype=compute_dtype), compute_dtype)
+                         a, b, compute_dtype=compute_dtype), compute_dtype,
+                     dot_gemm(compute_dtype))
 
 
 def l1_pairwise(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:

@@ -272,15 +272,127 @@ def test_stream_slabs_finish_once(metric, c, r):
         assert bool(((wrong - want).abs() > 0.1 * want.abs()).all())
 
 
+# ----------------------------------------------- dot_centrality's gemm path
+GEMM_TILE = 128                 # G_TILE
+
+
+def _dot_plan(c, r, d, compute_dtype="float32"):
+    """dot_centrality's plan, as its wrapper makes it."""
+    return pk.centrality_plan(c, r, d, SMS,
+                              crossover=pk.dot_crossover(compute_dtype),
+                              gemm=pk.dot_gemm(compute_dtype))
+
+
+@pytest.mark.parametrize("c, r, d", ((32768, 32768, 784),
+                                     (32768, 32768, 2048),
+                                     (2048, 2048, 92544),
+                                     (49152, 49152, 16)))
+def test_gram_squares_take_the_gemm_path(c, r, d):
+    """The live corpus's masked exact re-run (32768^2 at d = 784) and a
+    cosine square at d = 2048 plan "gemm" for dot_centrality in fp32, with
+    an (r-tiles, C) partial of 128-row r-tiles and no scratch, a persistent
+    grid within the launch limits; l1_centrality and the bf16 mode keep the
+    tile path at the same shapes."""
+    plan = _dot_plan(c, r, d)
+    assert plan == (pk.GEMM, SMS, 1)
+    assert pk.centrality_scratch(c, r, d, plan) == (0, -(-r // GEMM_TILE))
+    rows = pk.centrality_scratch(c, r, d, plan)[1]
+    assert rows * c < 2 ** 31 <= MAX_GRID + 1 and plan[1] <= MAX_GRID
+    for plan in (pk.centrality_plan(c, r, d, SMS), _dot_plan(c, r, d,
+                                                             "bfloat16")):
+        assert plan[0] == pk.TILE
+        _check_limits(c, r, d, plan)
+
+
+def _every_main_path_shape():
+    """(c, r, d) of every round the existing tests enumerate: find_medoid,
+    the k-medoids BUILD and the refinement buckets at each width, the dot
+    cells, the bf16 cells' widened rounds and the vocabulary-wide embedding
+    rounds."""
+    out = {(c, r, d) for c, r in SHAPES for d in WIDTHS}
+    out |= {(c, r, d) for metric, d, n in DOT_CELLS for c, r in _rounds(n, 30)}
+    out |= {(c, r, d) for d in (784, 2048) for c, r in _widened_rounds(N, 30)}
+    out |= {(c, r, d) for d in VOCAB_WIDTHS for c, r in EMBED_SHAPES}
+    return sorted(out)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_round_shapes_keep_their_path(dtype):
+    """No round the tests enumerate reaches the gemm path (their 20k-50k
+    pairs fill a few 128 x 128 tiles): dot_centrality's plan equals the
+    plan without a gemm path at each of them."""
+    shapes = _every_main_path_shape()
+    assert len(shapes) > 500
+    for c, r, d in shapes:
+        assert _dot_plan(c, r, d, dtype) == pk.centrality_plan(
+            c, r, d, SMS, crossover=pk.dot_crossover(dtype)), (c, r, d)
+
+
+def _emulate_gemm(x, y, xn2, yn2, w, metric):
+    """The gemm path's order of sums, in torch: the Gram in groups of 256
+    columns added to the totals in d order, the finish, the weights; per
+    128-row r-tile, each thread's 8 columns (tc + 16 j) in j order, a
+    shuffle tree over the 8 lanes of each half (1, 2, then 4 apart), then
+    half 0 + half 1; then ``reduce_rows_kernel`` over the r-tiles: lane l
+    sums r-tiles l, l + 32, ..., then a tree 16, 8, 4, 2, 1 apart."""
+    c, d = x.shape
+    r = y.shape[0]
+    g = torch.zeros(c, r)
+    for j0 in range(0, d, 256):
+        g = g + x[:, j0:j0 + 256] @ y[:, j0:j0 + 256].T
+    v = _finish(metric, g, xn2, yn2) * w[None, :]
+    nt = -(-r // GEMM_TILE)
+    cols = torch.zeros(c, nt * GEMM_TILE)
+    cols[:, :r] = v
+    cols = cols.view(c, nt, 8, 16)            # column r0 + tc + 16 j
+    s = torch.zeros(c, nt, 16)
+    for j in range(8):
+        s = s + cols[:, :, j, :]
+    half = s.view(c, nt, 2, 8)
+    for off in (1, 2, 4):
+        half = half + half[..., torch.arange(8) ^ off]
+    part = half[..., 0, 0] + half[..., 1, 0]  # (C, r-tiles)
+    lanes = torch.zeros(c, 32)
+    for k in range(nt):
+        lanes[:, k % 32] = lanes[:, k % 32] + part[:, k]
+    for off in (16, 8, 4, 2, 1):
+        lanes = lanes + lanes[:, torch.arange(32) ^ off]
+    return lanes[:, 0]
+
+
+@pytest.mark.parametrize("c, r, d", ((50, 300, 600), (37, 4500, 784)))
+@pytest.mark.parametrize("metric", ("l2", "sql2", "cosine"))
+def test_gemm_order_matches_plain(metric, c, r, d):
+    """The gemm path's summation order (several 256-column groups, ragged
+    128-row r-tiles, 3 and 36 of them) gives ``dot_centrality_plain``
+    within the card tests' tolerance: rtol 1e-5 with a floor of 1e-5 of
+    the largest sum (no self-pairs, so l2 needs no allowance)."""
+    rng = np.random.default_rng(c * r + d)
+    x = torch.from_numpy(rng.random((c, d), dtype=np.float32))
+    y = torch.from_numpy(rng.random((r, d), dtype=np.float32))
+    w = torch.from_numpy((rng.random(r) > 0.3).astype(np.float32))
+    if metric == "cosine":
+        x, y = ops._unit_rows(x), ops._unit_rows(y)
+        xn2 = yn2 = None
+    else:
+        xn2, yn2 = ops._norms_sq(x), ops._norms_sq(y)
+    want = pk.dot_centrality_plain(x, y, xn2, yn2, w, metric=metric)
+    got = _emulate_gemm(x, y, xn2, yn2, w, metric)
+    tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
+    assert bool(((got - want).abs() <= tol).all())
+
+
 def test_cpu_tensors_take_the_plain_version():
     x = torch.rand(7, 5)
     y = torch.rand(9, 5)
     w = (torch.rand(9) > 0.5).float()
     before = pk.LAUNCHES["l1_centrality"]
+    paths = pk.PATH_LAUNCHES.copy()
     got = pk.l1_centrality(x, y, w)
     want = (x[:, None] - y[None]).abs().sum(-1) @ w
     torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
     assert pk.LAUNCHES["l1_centrality"] == before
+    assert pk.PATH_LAUNCHES == paths
 
 
 # ------------------------------------------------------------ topk_rank

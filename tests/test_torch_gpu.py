@@ -7,6 +7,8 @@ tests/test_torch_gpu.py`` (this file needs no JAX, which ``conftest.py``
 imports). ``chip_smoke.py`` holds the kernels at the main path's full
 shapes; these are the small cases.
 """
+from collections import Counter
+
 import numpy as np
 import pytest
 import torch
@@ -38,12 +40,14 @@ SC = pk.CENTRALITY_S
                                    (SC, 3000, 1024), (3000, SC + 1, 1024),
                                    (SC + 1, 3000, 1024), (3000, SC, 1024),
                                    (157, 135, 784), (2000, 3, 783),
-                                   (3, 2000, 1023), (40, 37, 257)))
+                                   (3, 2000, 1023), (40, 37, 257),
+                                   (1029, 1031, 783)))
 def test_centrality_kernels_match_plain(cuda, metric, shape):
     """With and without a random 0/1 reference mask, and on x as a
     contiguous view 4 bytes past a 16-byte boundary (``buf[1:].view(c,
     d)``, read 4 bytes at a time); two launches on the same input must be
-    bit-equal."""
+    bit-equal. (1029, 1031, 783) takes dot_centrality's gemm path: ragged
+    128-row tiles, d % 4 != 0."""
     c, r, d = shape
     g = torch.Generator(device=cuda).manual_seed(c * r + d)
     x = torch.rand(c, d, device=cuda, generator=g)
@@ -92,20 +96,25 @@ def _centrality_launch(metric, x, y, plan):
 
 @pytest.mark.parametrize("metric", ("l1", "l2", "sql2", "cosine"))
 def test_centrality_both_paths_and_empty_sums(cuda, metric):
-    """Both forced paths agree with the plain version on each side of the
-    kernel's crossover and at d = 2048 with 16 and 20 short rows (two d
-    slabs on the stream path, running sums in the C x R scratch; no
-    self-pairs, so l2 needs no allowance), two launches are bit-equal, and
-    C = 0, R = 0 and d = 0 give what the plain version gives."""
+    """Each forced path (stream, tile and, for the Gram metrics, gemm)
+    agrees with the plain version on each side of the kernel's crossover,
+    at d = 2048 with 16 and 20 short rows (two d slabs on the stream path,
+    running sums in the C x R scratch) and at d = 4096 (16 groups of 256
+    columns on the gemm path); no self-pairs, so l2 needs no allowance; two
+    launches are bit-equal, and C = 0, R = 0 and d = 0 give what the plain
+    version gives."""
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     g = torch.Generator(device=cuda).manual_seed(5)
     s = SC if metric == "l1" else pk.DOT_CENTRALITY_S
     for c, r, d in ((s, 3000, 1024), (3000, s + 1, 1024), (12, 12, 64),
-                    (20, 2000, 2048), (2500, 16, 2048)):
+                    (20, 2000, 2048), (2500, 16, 2048), (130, 300, 4096)):
         x = torch.rand(c, d, device=cuda, generator=g)
         y = torch.rand(r, d, device=cuda, generator=g)
-        for forced in (32, 0):
-            plan = pk.centrality_plan(c, r, d, sms, crossover=forced)
+        plans = [pk.centrality_plan(c, r, d, sms, crossover=forced)
+                 for forced in (32, 0)]
+        if metric != "l1":   # the Gram's gemm path, forced
+            plans.append(pk.gemm_plan(c, r, sms))
+        for plan in plans:
             got, want = _centrality_launch(metric, x, y, plan)
             again, _ = _centrality_launch(metric, x, y, plan)
             assert torch.equal(got, again), plan
@@ -251,12 +260,15 @@ DB = pk.DOT_CENTRALITY_BF16_S
                                    (3000, 1, 784), (2000, 10, 257),
                                    (S, 20000, 784), (S + 1, 5000, 784),
                                    (157, 135, 784), (1250, 17, 784),
-                                   (17, 1250, 784), (3000, 3, 257)))
+                                   (17, 1250, 784), (3000, 3, 257),
+                                   (1029, 1031, 783), (1100, 1030, 4096)))
 @pytest.mark.parametrize("offset", (0, 1))
 def test_pairwise_kernels_match_plain(cuda, shape, offset):
     """offset 1: x is a contiguous view 4 bytes past a 16-byte boundary,
     ``buf[1:].view(c, d)``, which the kernels must read 4 bytes at a time.
-    Two launches on the same input must be bit-equal."""
+    Two launches on the same input must be bit-equal. The last two shapes
+    take dot_pairwise's gemm path (ragged tiles, d % 4 != 0, 16 groups of
+    256 columns)."""
     c, r, d = shape
     g = torch.Generator(device=cuda).manual_seed(c + r + d)
     x = torch.randn(c * d + offset, device=cuda, generator=g)[offset:]
@@ -276,6 +288,60 @@ def test_pairwise_kernels_match_plain(cuda, shape, offset):
         # rtol 1e-5 with a floor of 1e-5 of the largest magnitude
         tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
         assert bool(((got - want).abs() <= tol).all()), name
+
+
+@pytest.mark.parametrize("shape", ((300, 257, 784), (1, 1, 1), (129, 130, 4096),
+                                   (1000, 1000, 783), (5, 200, 0)))
+@pytest.mark.parametrize("offset", (0, 1))
+def test_gemm_path_matches_plain(cuda, shape, offset):
+    """dot_pairwise's and dot_centrality's gemm path, forced at any shape:
+    ragged tiles, d % 4 != 0, a view 4 bytes past a 16-byte boundary, 16
+    groups of 256 columns and d = 0 (zeros); l2, sql2 and cosine with and
+    without weights; two launches bit-equal; within the tolerances of
+    chip_smoke.py's ``_tolerance`` (rtol 1e-5 with a floor of 1e-5 of the
+    largest value, and the l2 self-pair allowance: y's first rows are x's)."""
+    c, r, d = shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    plan = pk.gemm_plan(c, r, sms)
+    g = torch.Generator(device=cuda).manual_seed(c + r + d)
+    x = torch.randn(c * d + offset, device=cuda, generator=g)[offset:]
+    x = x.view(c, d)
+    y = torch.randn(r, d, device=cuda, generator=g)
+    y[:3] = x[:3]
+    before = pk.LAUNCHES.copy()
+    paths = pk.PATH_LAUNCHES.copy()
+    got = pk.launch_pairwise("dot_pairwise", x, y, plan)
+    assert torch.equal(got, pk.launch_pairwise("dot_pairwise", x, y, plan))
+    want = pk.dot_pairwise_plain(x, y)
+    assert bool(((got - want).abs()
+                 <= 1e-5 * want.abs() + 1e-5 * want.abs().max()).all())
+    w = (torch.rand(r, device=cuda, generator=g) > 0.3).float()
+    for metric in ("l2", "sql2", "cosine"):
+        if metric == "cosine":
+            xk, yk, xn2, yn2 = ops._unit_rows(x), ops._unit_rows(y), None, \
+                None
+        else:
+            xk, yk, xn2, yn2 = x, y, ops._norms_sq(x), ops._norms_sq(y)
+        for mask in (None, w):
+            got = pk.launch_dot_centrality(xk, yk, xn2, yn2, mask, plan,
+                                           metric)
+            again = pk.launch_dot_centrality(xk, yk, xn2, yn2, mask, plan,
+                                             metric)
+            want = pk.dot_centrality_plain(xk, yk, xn2, yn2, mask,
+                                           metric=metric)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (metric, mask is None)
+            tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
+            if metric == "l2":
+                refs = r if mask is None else float(mask.sum())
+                tol = tol + 1e-3 * float(
+                    torch.cat([x, y]).norm(dim=1).max()) * refs
+            assert bool(((got - want).abs() <= tol).all()), \
+                (metric, mask is None)
+    assert pk.LAUNCHES["dot_pairwise"] == before["dot_pairwise"] + 2
+    assert pk.LAUNCHES["dot_centrality"] == before["dot_centrality"] + 12
+    assert pk.PATH_LAUNCHES - paths == Counter({
+        ("dot_pairwise", pk.GEMM): 2, ("dot_centrality", pk.GEMM): 12})
 
 
 def test_kmedoids_on_card_matches_cpu(cuda):
@@ -501,16 +567,22 @@ def _block_close(got, want, what, rows=4096):
             f"{what}: rows {r0}.."
 
 
-@pytest.mark.parametrize("cap", (4096, 32768))
+@pytest.mark.parametrize("cap", (3000, 4096, 32768))
 @pytest.mark.parametrize("rows", ("square", "row"))
 def test_corpus_pairwise_shapes_match_plain(cuda, cap, rows):
     """dot_pairwise (with its l2 and cosine epilogues) at d = 784 and
     l1_pairwise at d = 64 on the bootstrap square and on a mutation row;
-    two launches bit-equal."""
+    two launches bit-equal. dot_pairwise takes the gemm path on the squares
+    (3000: ragged 128-row tiles), the stream path on the rows."""
     g = torch.Generator(device=cuda).manual_seed(cap)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     for name, d in (("dot_pairwise", 784), ("l1_pairwise", 64)):
         y = torch.rand(cap, d, device=cuda, generator=g)
         x = y if rows == "square" else y[cap // 3:cap // 3 + 1]
+        if name == "dot_pairwise":
+            path = pk.pairwise_plan(x.shape[0], cap, d, sms,
+                                    gemm=pk.dot_gemm("float32"))[0]
+            assert path == (pk.GEMM if rows == "square" else pk.STREAM)
         kern = pk.dot_pairwise if name == "dot_pairwise" else pk.l1_pairwise
         plain = (pk.dot_pairwise_plain if name == "dot_pairwise"
                  else pk.l1_pairwise_plain)

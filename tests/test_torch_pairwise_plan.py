@@ -100,3 +100,79 @@ def test_wide_short_rows_take_several_slabs():
     path, grid, splits = pk.pairwise_plan(16, 5000, 28000, SMS)
     assert path == pk.STREAM and splits > 1
     assert 16 * _stream_slab(16, 28000, splits) * 4 <= STREAM_SMEM
+
+
+# ------------------------------------------------------------- gemm path
+GEMM_TILE = 128                 # G_TILE
+LIVE = (32768, 32768, 784)      # a live corpus's bootstrap square
+GRAM_GEMM = pk.dot_gemm("float32")
+
+
+def _gemm_limits(c, r, plan):
+    path, grid, splits = plan
+    tiles = -(-c // GEMM_TILE) * -(-r // GEMM_TILE)
+    assert path == pk.GEMM and splits == 1
+    assert 1 <= grid <= min(tiles, SMS) <= MAX_GRID   # persistent, no idle block
+
+
+def test_dot_gemm_by_mode():
+    """The fp32 Gram has a gemm path, the bf16 mode none; the fill that
+    decides it is the tile path's 32-row-padded outputs over the gemm
+    launch's 128 x 128 tile on each SM for each wave."""
+    assert GRAM_GEMM is True
+    assert pk.dot_gemm("bfloat16") is False
+    with pytest.raises(ValueError, match="compute_dtype"):
+        pk.dot_gemm("float16")
+    assert pk.gemm_fill(1024, 1024, SMS) == 1024 ** 2 / (SMS * 128 ** 2)
+    assert pk.gemm_fill(1000, 1000, SMS) == pk.gemm_fill(1024, 1024, SMS)
+    # (256, 16384): 256 tiles, two waves of 132 slots
+    assert pk.gemm_fill(256, 16384, SMS) == 256 * 16384 / (2 * SMS * 128 ** 2)
+
+
+@pytest.mark.parametrize("c, r, d", (LIVE, (32768, 32768, 2048),
+                                     (20000, 32768, 784), (2048, 2048, 92544),
+                                     (49152, 49152, 16)))
+def test_gram_squares_take_the_gemm_path(c, r, d):
+    """The live corpus square (and a cosine square at d = 2048, a corpus
+    before its first doubling, the embedding rows' 2048 x 92544 block and
+    the 2^31-element block) plans "gemm" for dot_pairwise in fp32: one block
+    an SM walking 128 x 128 tiles over all of d; l1_pairwise and the bf16
+    mode keep the tile path. The block's offsets need 64 bits where C * R
+    passes 2^31."""
+    plan = pk.pairwise_plan(c, r, d, SMS, gemm=GRAM_GEMM)
+    _gemm_limits(c, r, plan)
+    assert plan == (pk.GEMM, SMS, 1)
+    for gemm in (False, pk.dot_gemm("bfloat16")):   # l1, bf16 mode
+        plan = pk.pairwise_plan(c, r, d, SMS, gemm=gemm)
+        assert plan[0] == pk.TILE
+        _check_limits(c, r, d, *plan)
+    assert (c * r > 2 ** 31) == ((c, r) == (49152, 49152))
+
+
+@pytest.mark.parametrize("c, r, want", (
+        (512, 512, pk.TILE), (896, 896, pk.TILE), (1024, 1024, pk.GEMM),
+        (1536, 1536, pk.GEMM), (2048, 2048, pk.GEMM), (4096, 512, pk.GEMM),
+        (512, 4096, pk.GEMM), (160, 4096, pk.TILE), (192, 4096, pk.TILE),
+        (256, 4096, pk.GEMM), (256, 3968, pk.GEMM), (64, 8192, pk.TILE),
+        (128, 8192, pk.GEMM), (48, 16384, pk.GEMM), (24, 65536, pk.TILE),
+        (255, 100000, pk.GEMM), (128, 128, pk.TILE)))
+def test_gemm_crossover(c, r, want):
+    """The gemm path where the tile path's padded outputs fill at least
+    GEMM_FILL of the gemm launch's (0.36-0.37 at (896, 896) and (192,
+    4096): tile; 0.48 at (1024, 1024), (256, 4096), (128, 8192) and (48,
+    16384), whose 48 rows the tile path pads to 64: gemm); ``gemm_plan``,
+    which forces the path, fits the launch limits at each."""
+    plan = pk.pairwise_plan(c, r, 784, SMS, gemm=GRAM_GEMM)
+    assert plan[0] == want
+    if want == pk.TILE:
+        _check_limits(c, r, 784, *plan)
+    _gemm_limits(c, r, pk.gemm_plan(c, r, SMS))
+
+
+@pytest.mark.parametrize("c, r", SHAPES)
+def test_round_shapes_keep_their_path(c, r):
+    """No k-medoids or find_medoid round, cache or row takes the gemm
+    path: dot_pairwise's plan at every width equals the plan without one."""
+    for d in WIDTHS:
+        assert pk.pairwise_plan(c, r, d, SMS, gemm=GRAM_GEMM) == \
+            pk.pairwise_plan(c, r, d, SMS)
