@@ -6,8 +6,10 @@
 Phases, one or more lines each; any failure raises and the script exits
 nonzero:
 
-1. the card (``nvidia-smi`` name and power limit, torch's device name) and
-   the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``;
+1. the card (``nvidia-smi`` name and power limit, torch's device name),
+   the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``,
+   and the l1 tile loop's fp32 instructions a column in ``cuobjdump -sass``
+   of the built kernels, which set the l1 bound (``l1_ops_from_sass``);
 2. every kernel against its plain PyTorch version on the card, at the
    shapes the main path gives it (each round of each cell below) plus ragged
    shapes, random reference masks and, for the survivor ordering, ties,
@@ -266,6 +268,13 @@ RTOL = 1e-5
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12          # fp32 outside the tensor cores
 BF16_TC_OPS_PER_S = 989e12      # bf16 on the tensor cores, dense
+# fp32 operations a (c, r, k) element, counted as FP32_OPS_PER_S counts them
+# (an FFMA is 2, one instruction a lane a cycle): the Gram's FFMA is 2; l1's
+# is counted by phase 1 in cuobjdump -sass of the built tile kernels
+# (l1_ops_from_sass), whose slab is 2 x 2 outputs by 32 columns a thread
+GRAM_OPS = 2
+FP32_OPS_PER_INSTR = 2
+L1_SLAB = 128
 # threefry.cu's chain: one threefry2x32 hash a step on one thread, about two
 # dependent integer instructions a round over its 20 rounds plus the key
 # injections (45, counted from the source), at an assumed 4 cycles each at
@@ -275,6 +284,15 @@ INT_LATENCY_CYCLES = 4
 SM_CLOCK_HZ = 1.98e9
 HASH_S = HASH_DEPENDENT_INSTR * INT_LATENCY_CYCLES / SM_CLOCK_HZ
 PALLAS = "src/repro/kernels/pairwise_distance.py"
+# topk_smallest: the keeps every checked C is also held at (the select
+# path's edge cases; SELECT_KEEP_LIMIT, the plan's largest, beside them),
+# the largest C held
+# against the plain version (O(C^2) comparisons), and the crossover grid of
+# phase 4 (both paths timed at each keep <= C of each C)
+TOPK_KEEPS = (1, 63, 64, 65)
+TOPK_PLAIN_MAX = 65536
+TOPK_CROSS_C = (512, 1024, 2048, 4096, 6424, 20000, 65536, 2 ** 20)
+TOPK_CROSS_KEEP = (1, 64, 128, 256, 512, 1024)
 # Phase 6 (serving): the server's traffic, the live corpora's streams, the
 # size above which a launch is checked on BIG_ROWS rows of the plain version
 SRV_REQUESTS = 32
@@ -504,6 +522,61 @@ def _device_op(name: str) -> str:
     return f"{m.group(1)} {tags[-1]}" if tags else m.group(1)
 
 
+def l1_sass_counts(sass: str) -> list:
+    """The fp32 arithmetic of each l1 tile kernel in ``cuobjdump -sass``
+    output: (kernel, FADD a - b, FADD with a |x| operand, other FADD,
+    FFMA, LDS). The tile loop's slab is 2 x 2 outputs by 32 columns a
+    thread, 128 (c, r, k) elements."""
+    rows = []
+    for blk in sass.split("Function : ")[1:]:
+        name = blk.split("\n", 1)[0].strip()
+        if "tile_kernel" not in name:
+            continue
+        ops = re.findall(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9._]*)"
+                         r"([^;]*);", blk)
+        fadd = [a for op, a in ops if op == "FADD"]
+        absf = sum("|" in a for a in fadd)
+        sub = sum("|" not in a and "-" in a for a in fadd)
+        vw = re.search(r"ELi(\d+)EEEv", name)
+        rows.append((f"tile_kernel VW={vw.group(1) if vw else '?'}", sub, absf,
+                     len(fadd) - absf - sub,
+                     sum(op == "FFMA" for op, _ in ops),
+                     sum(op.startswith("LDS") for op, _ in ops)))
+    return rows
+
+
+def l1_ops_from_sass(bdir) -> float:
+    """fp32 operations a (c, r, k) element of the l1 tile loop, as
+    FP32_OPS_PER_S counts them: FP32_OPS_PER_INSTR for each FADD a - b and
+    FADD acc + |t| of a tile kernel's L1_SLAB-element slab, read from
+    ``cuobjdump -sass`` of the built ``l1_pairwise`` and ``l1_centrality``
+    in ``bdir``. Prints the counts, and fails unless cuobjdump ran and
+    every tile kernel issues exactly one of each a column: a separate
+    FABS or another form of the sum would leave the count untrue."""
+    from repro_torch.kernels import build
+
+    cuobjdump = Path(build._nvcc()).parent / "cuobjdump"
+    per_elem = []
+    for src in ("l1_pairwise", "l1_centrality"):
+        got = subprocess.run(
+            [str(cuobjdump), "-sass", str(Path(bdir) / f"lib{src}.so")],
+            capture_output=True, text=True, timeout=300)
+        _require(got.returncode == 0, f"phase1 sass {src}: cuobjdump -sass "
+                 f"failed: {got.stderr.strip()[:200]}")
+        rows = l1_sass_counts(got.stdout)
+        print(f"phase1 sass {src} (cuobjdump -sass; a slab is {L1_SLAB} "
+              f"elements a thread): " + "; ".join(
+                  f"{k}: {sub} FADD a - b, {absf} FADD acc + |t|, {rest} "
+                  f"other FADD, {ffma} FFMA, {lds} LDS"
+                  for k, sub, absf, rest, ffma, lds in rows), flush=True)
+        _require(bool(rows) and all(sub == absf == L1_SLAB
+                                    for _, sub, absf, *_ in rows),
+                 f"phase1 sass {src}: the tile loop is not one FADD a - b "
+                 f"and one FADD acc + |t| a column: {rows}")
+        per_elem += [(sub + absf) / L1_SLAB for _, sub, absf, *_ in rows]
+    return FP32_OPS_PER_INSTR * max(per_elem)
+
+
 def _ops_s(nops: float, tensor_cores: bool = False) -> float:
     """The least time for ``nops`` operations at the rate of the units that
     do them: bf16 tensor-core products or fp32 outside the tensor cores."""
@@ -638,6 +711,51 @@ def phase10a_prefill(dev) -> None:
                  "phase10a xlstm-1.3b")
 
 
+def phase7_meddit(dev, steps: int = 25600, reps: int = 3) -> None:
+    """Phase 7's two Med-dit cells alone, on the chunk graph: µs a step of
+    ``reps`` runs of ``steps`` steps (after one run that builds the kernels
+    and captures the graph), then device activities and busy µs a step of
+    MEDDIT_PROFILED_CHUNKS chunks profiled. With ``PYTHONPATH`` at another
+    checkout's ``src`` it measures that tree the same way (parent against
+    change in one call)."""
+    import torch
+
+    import repro_torch
+    from repro_torch.convert import data_from_numpy
+    from repro_torch.core.meddit import CHUNK, meddit_medoid
+    from repro_torch.data.medoid_datasets import DATASETS
+    from repro_torch.engine import rng
+
+    tree = os.path.relpath(Path(repro_torch.__file__).resolve().parents[2],
+                           ROOT)
+    prof = MEDDIT_PROFILED_CHUNKS * CHUNK
+    for ds, n, d, metric in P7_CELLS:
+        x = data_from_numpy(DATASETS[ds][1](SEED, n, d), dev)
+        key = rng.fold_in(rng.key(SEED, dev), 1)
+
+        def run(k):
+            out = meddit_medoid(x, key, metric=metric,
+                                max_pulls=n + MEDDIT_BATCH * k)
+            torch.cuda.synchronize()
+            return out
+
+        res = run(steps)
+        us = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            res = run(steps)
+            us.append((time.perf_counter() - t0) / steps * 1e6)
+        run(prof)
+        busy = profiled(lambda: run(prof))
+        note = ("device activities: not measured" if busy is None else
+                f"{busy[0] / prof:.2f} device activities a step, "
+                f"{busy[1] * 1e3 / prof:.2f} us busy a step")
+        print(f"phase7 meddit alone ({tree}) {ds} n={n}: {steps} steps, us "
+              f"a step {' / '.join(f'{u:.1f}' for u in us)}; "
+              f"{MEDDIT_PROFILED_CHUNKS} chunks profiled: {note}; medoid "
+              f"{int(res.medoid)} pulls {int(res.pulls)}", flush=True)
+
+
 def lm_close(what, got, want, tol):
     """|got - want| <= tol + tol |want| everywhere (numpy's allclose
     rule, rtol = atol = tol; ``tol`` None: only finite); returns the
@@ -662,15 +780,19 @@ def executed_rounds(n: int, budget: int) -> list:
 
 
 def halving_plan(rounds, score_kern: str, topk: bool,
-                 masked: bool = False) -> list:
+                 masked: bool = False, half: bool = False) -> list:
     """The launches of one run_halving, as (kernel, C, R, masked): the score
     kernel at each round's (s_r, t_r) and, on the topk backend, one
-    topk_smallest launch at each round before the output round."""
+    topk_smallest launch at each round before the output round, as
+    (kernel, C, keep, False): keep = C (the ordering of the survivors), or
+    with ``half`` ceil(C / 2) (the distributed engines' selection)."""
     plan = []
     for i, rd in enumerate(rounds):
         plan.append((score_kern, rd.survivors, rd.num_refs, masked))
         if topk and i < len(rounds) - 1:
-            plan.append(("topk_smallest", rd.survivors, 0, False))
+            s = rd.survivors
+            plan.append(("topk_smallest", s, -(-s // 2) if half else s,
+                         False))
     return plan
 
 
@@ -1915,6 +2037,9 @@ def main() -> int:
         spills = any(" 0 bytes spill stores" not in ln
                      for ln in lines if "spill stores" in ln)
         print(f"phase1 ptxas {src}: {' | '.join(regs)}; spills={spills}")
+    # the l1 bound's operations a column, from the built tile loop
+    l1_ops = l1_ops_from_sass(bdir)
+    print(f"phase1 l1 bound: {l1_ops:g} fp32 operations a column", flush=True)
 
     # ------------------------------------------------------------- data
     t0 = time.perf_counter()
@@ -2028,7 +2153,7 @@ def main() -> int:
             nbytes += 4 * (c + r)
         if w is not None:
             nbytes += 4 * r
-        ops_s = _ops_s((3 if metric == "l1" else 2) * c * r * d,
+        ops_s = _ops_s((l1_ops if metric == "l1" else GRAM_OPS) * c * r * d,
                        dtype == "bfloat16" and plan[0] == pk.TILE)
         if reps == 0:
             return err, 0.0, 0.0, nbytes, ops_s, None
@@ -2198,29 +2323,77 @@ def main() -> int:
                 got_d = ops.pairwise_kernel(metric)(x, y)
                 _agree(got_d, plain_d, tol, f"{metric} from {what}")
         nbytes = 4 * (c * d + r * d + c * r)
-        ops_s = _ops_s((2 if name == "dot_pairwise" else 3) * c * r * d)
+        ops_s = _ops_s((GRAM_OPS if name == "dot_pairwise" else l1_ops)
+                       * c * r * d)
         if reps == 0:
             return err, 0.0, 0.0, nbytes, ops_s, None
         return (err, timed(lambda: kern(x, y), reps),
                 timed(lambda: plain(x, y), max(1, reps // 4)), nbytes, ops_s,
                 timed(library, reps))
 
-    def check_topk(keys):
-        """topk_smallest (one launch) against its plain version and
-        argsort(stable=True)[:keep] for keep in {1, C // 2, C}, and the
-        rank-only mode against topk_rank_plain; bit-equal."""
+    def check_topk(keys, theta=None):
+        """topk_smallest against argsort(stable=True)[:keep] for keep in
+        {1, C // 2, C}, TOPK_KEEPS and SELECT_KEEP_LIMIT, by the wrapper (on
+        its plan's path) and by one launch on each path forced (the select
+        where keep <= SELECT_KEEP_LIMIT, by the plan's cluster and by one
+        block); where C <= TOPK_PLAIN_MAX also
+        against the plain version, and the rank-only mode against
+        topk_rank_plain. With ``theta``, the float estimates ``keys`` were
+        made from, the fp32 mode equals the int32 launch on every path and
+        through ops.kernel_topk_smallest. All bit-equal."""
         c = keys.shape[0]
-        _require(torch.equal(pk.topk_rank(keys), pk.topk_rank_plain(keys)),
-                 f"topk_rank disagrees at C={c}")
         lib = torch.argsort(keys, stable=True)
-        for keep in sorted({1, max(1, c // 2), c}):
+        rank = pk.topk_rank_plain(keys) if c <= TOPK_PLAIN_MAX else None
+        if rank is not None:
+            _require(torch.equal(pk.topk_rank(keys), rank),
+                     f"topk_rank disagrees at C={c}")
+        sort = (pk.SORT,) + pk.topk_rank_plan(c, sms)
+        for keep in sorted({1, max(1, c // 2), c}
+                           | {min(k, c) for k in TOPK_KEEPS
+                              + (pk.SELECT_KEEP_LIMIT,)}):
+            what = f"topk_smallest at C={c} keep={keep}"
             got = pk.topk_smallest(keys, keep)
-            _require(torch.equal(got, pk.topk_smallest_plain(keys, keep)),
-                     f"topk_smallest disagrees at C={c} keep={keep}")
             _require(torch.equal(got, lib[:keep]),
-                     f"topk_smallest differs from a stable argsort at C={c} "
-                     f"keep={keep}")
+                     f"{what} differs from a stable argsort")
+            if rank is not None:
+                _require(torch.equal(got, pk.topk_select_plain(rank, keep)),
+                         f"{what} disagrees with its plain version")
+            if theta is not None:
+                _require(torch.equal(ops.kernel_topk_smallest(
+                    theta, keep=keep), got), f"{what}: the fp32 mode differs")
+            selects = [pk.select_plan(c), pk.select_plan(c, cluster=1)]
+            for plan in [sort] + (selects if keep <= pk.SELECT_KEEP_LIMIT
+                                  else []):
+                out = pk.launch_topk(keys, keep, plan)[0]
+                _require(torch.equal(out, lib[:keep]),
+                         f"{what} on {plan} differs from a stable argsort")
+                if theta is not None:
+                    _require(torch.equal(pk.launch_topk(theta, keep, plan)[0],
+                                         out),
+                             f"{what} on {plan}: the fp32 mode differs")
         return keys
+
+    def select_time(c, keep):
+        """topk_smallest's select path at (C, keep), as the main path
+        launches it (ops.kernel_topk_smallest, the fp32 mode), checked on
+        random and tie-heavy estimates, timed beside its plain version
+        (totalorder_keys, then topk_smallest_plain) and a stable argsort of
+        the keys: (err, ms, plain_ms, bytes, ops_s, library_ms)."""
+        ck = ("select", c, keep)
+        if ck not in cache:
+            for theta in (tie_heavy(c),
+                          torch.rand(c, device=dev, generator=gen)):
+                keys = check_topk(ops.totalorder_keys(theta), theta)
+            _require(pk.topk_plan(c, keep, sms)[0] == pk.SELECT,
+                     f"C={c} keep={keep} does not take the select path")
+            cache[ck] = (
+                0.0, timed(lambda: ops.kernel_topk_smallest(theta, keep=keep),
+                           10),
+                timed(lambda: pk.topk_smallest_plain(
+                    ops.totalorder_keys(theta), keep), 3),
+                4 * c + 8 * keep, 0,
+                timed(lambda: torch.argsort(keys, stable=True), 10))
+        return cache[ck]
 
     def tie_heavy(c):
         """Estimates with ties, -0.0/+0.0, +-inf and NaNs of both signs."""
@@ -2297,7 +2470,7 @@ def main() -> int:
             pms = event_ms(plain_all)
             torch.cuda.empty_cache()
             return (err, ms, pms, 4 * (c * d + r * d + c * r),
-                    _ops_s((2 if dot else 3) * c * r * d), lib)
+                    _ops_s((GRAM_OPS if dot else l1_ops) * c * r * d), lib)
         w = (torch.rand(r, device=dev, generator=gen) > 0.3).float() \
             if masked else None
         xk, yk, xn2, yn2 = centrality_inputs(metric, x, y)
@@ -2336,27 +2509,35 @@ def main() -> int:
         if masked:
             nbytes += 4 * r
         return (err, ms, pms, nbytes,
-                _ops_s((3 if metric == "l1" else 2) * c * r * d), None)
+                _ops_s((l1_ops if metric == "l1" else GRAM_OPS) * c * r * d),
+                None)
 
     def shape_time(kern, ds, c, r=0, metric="", masked=False):
         """Check and time ``kern`` once per shape on rows of dataset ``ds``
         (random rows at the main path's shape; a random 0/1 reference mask
         where the main path masks): the cached (err, ms, plain_ms, bytes,
-        ops_s, library_ms). topk_smallest is keyed by C alone, at the main
-        path's keep = C; its cache entry also holds the rank-only mode's
-        time and the launch floor."""
+        ops_s, library_ms). topk_smallest (r its keep) on the select path
+        is select_time's; on the sort path it is keyed by C alone, timed at
+        the halving's keep = C in the fp32 mode the main path launches, and
+        its cache entry also holds the rank-only mode's time and the launch
+        floor."""
         if kern == "topk_smallest":
+            if pk.topk_plan(c, r, sms)[0] == pk.SELECT:
+                return select_time(c, r)
             ck = ("topk", c)
             if ck not in cache:
-                check_topk(ops.totalorder_keys(tie_heavy(c)))
-                keys = check_topk(ops.totalorder_keys(
-                    torch.rand(c, device=dev, generator=gen)))
+                th = tie_heavy(c)
+                check_topk(ops.totalorder_keys(th), th)
+                theta = torch.rand(c, device=dev, generator=gen)
+                keys = check_topk(ops.totalorder_keys(theta), theta)
                 one = torch.empty(1, device=dev)
                 # the bound: its 4 C + 8 keep bytes (keys in, indices out)
                 cache[ck] = {
                     "topk_smallest": (
-                        0.0, timed(lambda: pk.topk_smallest(keys, c), 10),
-                        timed(lambda: pk.topk_smallest_plain(keys, c), 3),
+                        0.0, timed(lambda: ops.kernel_topk_smallest(
+                            theta, keep=c), 10),
+                        timed(lambda: pk.topk_smallest_plain(
+                            ops.totalorder_keys(theta), c), 3),
                         12 * c, 0,
                         timed(lambda: torch.argsort(keys, stable=True), 10)),
                     "rank_only_ms": timed(lambda: pk.topk_rank(keys), 10),
@@ -2490,6 +2671,8 @@ def main() -> int:
             return pk.pairwise_plan(c, r, d, sms)[0]
         if kern == "l1_centrality":
             return pk.centrality_plan(c, r, d, sms)[0]
+        if kern == "topk_smallest":     # r is keep
+            return pk.topk_plan(c, r, sms)[0]
         return None
 
     def path_counts(plan, d):
@@ -2687,15 +2870,23 @@ def main() -> int:
           flush=True)
 
     rt = pk.RANK_TILE
-    for c in (1, 2, 3, 129, 1000, 4097, 20000, rt - 1, rt, rt + 1,
-              2 * rt + 1):
-        check_topk(ops.totalorder_keys(tie_heavy(c)))
+    t0 = time.perf_counter()
+    topk_cs = sorted({1, 2, 3, 64, 129, 513, 1000, 4097, 6424, 20000,
+                      rt - 1, rt, rt + 1, 2 * rt + 1, 2 ** 20})
+    for c in topk_cs:
+        th = tie_heavy(c)
+        check_topk(ops.totalorder_keys(th), th)
         check_topk(torch.full((c,), 7, dtype=torch.int32, device=dev))
         check_topk(torch.where(torch.rand(c, device=dev, generator=gen)
                                < 0.5, -2 ** 31, 2 ** 31 - 1).int())
-    print("phase2 topk_smallest (keep 1, C // 2, C) and its rank-only mode "
-          "on ties, -0.0/+0.0, +-inf, +-nan, all-equal and int32 extreme "
-          "keys: bit-equal to argsort(stable=True)", flush=True)
+    print(f"phase2 topk_smallest at C = {topk_cs} (keep 1, C // 2, C and "
+          f"{TOPK_KEEPS + (pk.SELECT_KEEP_LIMIT,)}; the wrapper, the sort and "
+          f"the select path forced, "
+          f"the fp32 mode on each) and its rank-only mode on ties, "
+          f"-0.0/+0.0, +-inf, +-nan, all-equal and int32 extreme keys: "
+          f"bit-equal to argsort(stable=True) and, to C = {TOPK_PLAIN_MAX}, "
+          f"the plain version ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
     # the tile of the one topk launch: each candidate tile at the large C of
     # the main path (one block below the tile, clusters of tiles above it),
     # at the main path's keep = C
@@ -2709,6 +2900,7 @@ def main() -> int:
         plans += [(t, 8) for t, cl in plans if c > t and cl < 8]
         for plan in plans:
             tile = plan[0]
+            plan = (pk.SORT,) + plan
             _require(torch.equal(pk.launch_topk(keys, c, plan)[0], want),
                      f"topk_smallest {plan} disagrees at C={c}")
             us.append(f"{tile} {plan} "
@@ -3061,6 +3253,7 @@ def main() -> int:
     # beside its rank-only mode and the launch floor: a one-element zero_()
     # under the same graph replay
     slower = []
+    one_elem = torch.empty(1, device=dev)
     sums = [0.0, 0.0]   # the main path's launches: fused, rank-only mode
     for c, launches in sorted(rank_cs.items(), reverse=True):
         entry = cache[("topk", c)]
@@ -3076,10 +3269,78 @@ def main() -> int:
               f"{us / arg_us:.2f}, bound "
               f"{1e6 * 12 * c / HBM_BYTES_PER_S:.4f} us (bytes), launch floor "
               f"(zero_ of one element) {1e3 * entry['floor_ms']:.2f} us, plan "
-              f"{pk.topk_rank_plan(c, sms)}", flush=True)
+              f"{pk.topk_plan(c, c, sms)}", flush=True)
     print(f"phase4 topk_smallest: {len(rank_cs)} distinct C over "
           f"{sum(rank_cs.values())} launches, {sums[0]:.3f} ms (rank-only "
           f"mode {sums[1]:.3f} ms); slower than argsort at C = {slower}",
+          flush=True)
+    # Med-dit's selections (keep 64 of C = n, the select path) against the
+    # sort path, a stable argsort and torch.topk (not tie-stable: it may
+    # order equal keys otherwise), then both paths over TOPK_CROSS_C x
+    # TOPK_CROSS_KEEP: the crossover topk_plan's SELECT_MIN_C and
+    # SELECT_KEEP_SQ_PER_C stand on
+    t0 = time.perf_counter()
+    floor_us = 1e3 * timed(lambda: one_elem.zero_(), 10)
+    for c in sorted({n for _, n, _, _ in P7_CELLS}):
+        e = select_time(c, MEDDIT_BATCH)
+        theta = torch.rand(c, device=dev, generator=gen)
+        keys = ops.totalorder_keys(theta)
+        srt = (pk.SORT,) + pk.topk_rank_plan(c, sms)
+        sel = pk.topk_plan(c, MEDDIT_BATCH, sms)
+        us = {
+            "select (fp32 mode)": 1e3 * e[1],
+            "select (int32 keys)": 1e3 * timed(
+                lambda: pk.launch_topk(keys, MEDDIT_BATCH, sel), 10),
+            "sort (fp32 mode)": 1e3 * timed(
+                lambda: pk.launch_topk(theta, MEDDIT_BATCH, srt), 10),
+            "totalorder_keys (the 4 launches the fp32 mode saves)": 1e3 * timed(
+                lambda: ops.totalorder_keys(theta), 10),
+            "argsort(stable=True)": 1e3 * e[5],
+            "torch.topk(largest=False), not tie-stable": 1e3 * timed(
+                lambda: torch.topk(keys, MEDDIT_BATCH, largest=False), 10)}
+        _require(us["select (fp32 mode)"] < us["sort (fp32 mode)"],
+                 f"topk_smallest at C={c} keep={MEDDIT_BATCH}: the select "
+                 f"path is not faster than the sort")
+        print(f"phase4 topk_smallest C={c} keep={MEDDIT_BATCH} (Med-dit), plan "
+              f"{sel}: " + ", ".join(f"{k} {v:.2f} us" for k, v in us.items())
+              + f"; bound {1e6 * e[3] / HBM_BYTES_PER_S:.4f} us (bytes), "
+              f"launch floor (zero_ of one element) {floor_us:.2f} us, plain "
+              f"{1e3 * e[2]:.1f} us", flush=True)
+    cross, right = [], 0
+    for c in TOPK_CROSS_C:
+        theta = torch.rand(c, device=dev, generator=gen)
+        srt = (pk.SORT,) + pk.topk_rank_plan(c, sms)
+        reps = 10 if c <= 65536 else 3
+        want = torch.argsort(ops.totalorder_keys(theta), stable=True)
+        for keep in TOPK_CROSS_KEEP:
+            if keep > c:
+                continue
+            sel_us = sort_us = 0.0
+            for plan in (pk.select_plan(c), srt):
+                _require(torch.equal(pk.launch_topk(theta, keep, plan)[0],
+                                     want[:keep]),
+                         f"topk_smallest {plan} at C={c} keep={keep}")
+                t = 1e3 * timed(lambda p=plan: pk.launch_topk(theta, keep, p),
+                                reps)
+                if plan[0] == pk.SELECT:
+                    sel_us = t
+                else:
+                    sort_us = t
+            picked = pk.topk_plan(c, keep, sms)[0]
+            right += (picked == pk.SELECT) == (sel_us < sort_us)
+            one = ""
+            if keep == MEDDIT_BATCH and pk.select_plan(c)[2] > 1:
+                plan = pk.select_plan(c, cluster=1)
+                t1 = 1e3 * timed(lambda: pk.launch_topk(theta, keep, plan),
+                                 reps)
+                one = f" (one block {plan[1:]} {t1:.2f})"
+            cross.append(f"({c}, {keep}) select {pk.select_plan(c)[1:]} "
+                         f"{sel_us:.2f}{one} / sort {sort_us:.2f} us, plan "
+                         f"{picked}")
+    print(f"phase4 topk_smallest select vs sort (fp32 mode; SELECT_MIN_C = "
+          f"{pk.SELECT_MIN_C}, keep^2 <= {pk.SELECT_KEEP_SQ_PER_C} C; "
+          f"{time.perf_counter() - t0:.1f} s): " + "; ".join(cross)
+          + f"; the plan picks the faster path at {right} of {len(cross)}",
           flush=True)
 
     t0 = time.perf_counter()
@@ -3672,27 +3933,6 @@ def main() -> int:
                 (CHUNK + 2) * HASH_S, None)
         return cache[ck]
 
-    def select_time(c, keep):
-        """topk_smallest at Med-dit's (C = n, keep = 64), bit-equal to a
-        stable argsort's prefix on random and tie-heavy keys, timed beside
-        its plain version and that argsort."""
-        ck = ("select", c, keep)
-        if ck not in cache:
-            for theta in (tie_heavy(c),
-                          torch.rand(c, device=dev, generator=gen)):
-                keys = ops.totalorder_keys(theta)
-                got = pk.topk_smallest(keys, keep)
-                _require(torch.equal(got, torch.argsort(
-                    keys, stable=True)[:keep]) and torch.equal(
-                    got, pk.topk_smallest_plain(keys, keep)),
-                    f"topk_smallest at C={c} keep={keep} disagrees")
-            cache[ck] = (
-                0.0, timed(lambda: pk.topk_smallest(keys, keep), 10),
-                timed(lambda: pk.topk_smallest_plain(keys, keep), 3),
-                4 * c + 8 * keep, 0,
-                timed(lambda: torch.argsort(keys, stable=True), 10))
-        return cache[ck]
-
     def ledger_many(kern, entry, launches):
         err, ms, pms, nbytes, ops_s, lib = entry
         for _ in range(launches):
@@ -3775,7 +4015,8 @@ def main() -> int:
                  f"{MEDDIT_BATCH} a step within the cap {cap}")
         check_launches(f"phase7 {ds} meddit", counts,
                        [("threefry",)] * chunks
-                       + [("topk_smallest",)] * (chunks * CHUNK), d)
+                       + [("topk_smallest", n, MEDDIT_BATCH, False)]
+                       * (chunks * CHUNK), d)
         ledger_many("threefry", threefry_time(n), chunks)
         ledger_many("topk_smallest", select_time(n, MEDDIT_BATCH),
                     chunks * CHUNK)
@@ -3786,11 +4027,14 @@ def main() -> int:
         torch.cuda.synchronize()
         prof_s = time.perf_counter() - t0
         busy = profiled(lambda: meddit_medoid(x, key, **prof_kw))
+        per_step = ("not measured" if busy is None else
+                    f"{busy[0] / (MEDDIT_PROFILED_CHUNKS * CHUNK):.2f}")
         lines["meddit"] = (res, wall, counts, mem, (
             f", {steps} steps ({'at the cap' if res.pulls >= cap else 'stopped'}"
             f" of {cap} pulls), {chunks} chunks of {CHUNK}, "
-            f"{wall / max(steps, 1) * 1e6:.1f} us a step; a run of "
-            f"{MEDDIT_PROFILED_CHUNKS} chunks {prof_s * 1e3:.1f} ms, "
+            f"{wall / max(steps, 1) * 1e6:.1f} us a step, selections by path "
+            f"{dict(counts.paths)}; a run of {MEDDIT_PROFILED_CHUNKS} chunks "
+            f"{prof_s * 1e3:.1f} ms, {per_step} device activities a step, "
             f"{busy_note(busy, prof_s)}"))
         for algo, (res, wall, counts, mem, extra) in lines.items():
             print(f"phase7 {ds} n={n} d={d} {metric} {algo}: medoid "
@@ -3824,7 +4068,7 @@ def main() -> int:
             truth = 0 if ds == "planted" else exact7[ds]
             cen = "l1_centrality" if metric == "l1" else "dot_centrality"
             plan = halving_plan(executed_rounds(n, BUDGET_PER_ARM * n), cen,
-                                True)
+                                True, half=True)
             for impl in ("v1", "v2"):
                 res, wall, counts, mem = main_path(lambda: find_medoid(
                     x, key, mesh=mesh, distributed_impl=impl, metric=metric,

@@ -176,7 +176,8 @@ def _init_state(data: torch.Tensor, key: rng.Key, metric: str, sigma: float,
 class _ChunkGraph:
     """One chunk of ``chunk`` masked steps captured as a CUDA graph on
     static buffers, with the loop's condition after the chunk in ``flag``.
-    ``per_replay`` holds the kernel launches one replay makes."""
+    ``per_replay`` holds the kernel launches one replay makes, and
+    ``per_replay_paths`` those of them by path (``PATH_LAUNCHES``)."""
 
     def __init__(self, n: int, d: int, metric: str, batch: int, chunk: int,
                  dev: torch.device):
@@ -193,6 +194,7 @@ class _ChunkGraph:
                                 device=dev)
         build.function("topk_smallest_launch")    # load it before capture
         before = pk.LAUNCHES.copy()
+        before_paths = pk.PATH_LAUNCHES.copy()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
             for k in range(chunk):
@@ -200,8 +202,11 @@ class _ChunkGraph:
             self.flag = _active(self.st)
         # capture enqueued nothing: a replay launches what it recorded
         self.per_replay = pk.LAUNCHES - before
+        self.per_replay_paths = pk.PATH_LAUNCHES - before_paths
         pk.LAUNCHES.clear()
         pk.LAUNCHES.update(before)
+        pk.PATH_LAUNCHES.clear()
+        pk.PATH_LAUNCHES.update(before_paths)
 
     def load(self, st: _State) -> None:
         for name in ("data", "means", "counts", "lcb", "ucb", "pulls",
@@ -214,6 +219,7 @@ class _ChunkGraph:
         self.refs.copy_(refs)
         self.graph.replay()
         pk.LAUNCHES.update(self.per_replay)
+        pk.PATH_LAUNCHES.update(self.per_replay_paths)
         return bool(self.flag)
 
 

@@ -3,11 +3,14 @@
 // Replaces the TPU kernel l1_centrality / _l1_centrality_kernel in
 // src/repro/kernels/pairwise_distance.py. l1 has no matmul form, so this is
 // CUDA-core work: one subtract, one absolute value and one add per (c, r, k)
-// element, with the reference weight multiplied in before the row sum. The
-// (C, R) block never reaches device memory.
+// element, which nvcc issues as two FADDs (a - b, then acc + |t|: the
+// absolute value is an operand modifier; cuobjdump -sass of the tile path),
+// with the reference weight multiplied in before the row sum. The (C, R)
+// block never reaches device memory.
 //
-// Bound on an H100: each round moves (C + R) * d * 4 bytes and does
-// 3 * C * R * d operations. One correlated-SH run goes from (n, 2) to (2, n)
+// Bound on an H100: each round moves (C + R) * d * 4 bytes and issues
+// 2 * C * R * d fp32 instructions, 4 * C * R * d operations at the fp32 rate
+// that counts an FFMA as 2. One correlated-SH run goes from (n, 2) to (2, n)
 // with ~20k-40k pairs a round, so the bytes of the long operand bound the
 // skinny rounds at either end (328 MB, 98 us, for a (20000, 2) round at
 // d = 4096), which hold most of a run's bound, and latency the middle ones.

@@ -4,10 +4,12 @@
 // Replaces the TPU kernel l1_pairwise / _l1_pairwise_kernel in
 // src/repro/kernels/pairwise_distance.py. l1 has no matmul form: one
 // subtract, one absolute value and one add per (c, r, k) element on the CUDA
-// cores.
+// cores, which nvcc issues as two FADDs (a - b, then acc + |t|: the absolute
+// value is an operand modifier), as cuobjdump -sass of the tile path shows.
 //
-// Bound on an H100: the call moves 4 * (C d + R d + C R) bytes and does
-// 3 C R d operations. The k-medoids shapes are skinny, and the bytes or the
+// Bound on an H100: the call moves 4 * (C d + R d + C R) bytes and issues
+// 2 C R d fp32 instructions, 4 C R d operations at the fp32 rate that
+// counts an FFMA as 2. The k-medoids shapes are skinny, and the bytes or the
 // launch latency bound each class:
 //  * (n, k <= 10) caches, (1, n) rows and the outer halving rounds: the
 //    bytes of the long operand (81.9 MB, 24.5 us, for a (1, 20000) row at

@@ -114,22 +114,19 @@ def kernel_l1_centrality(x: torch.Tensor, y: torch.Tensor,
     return sums / torch.clamp_min(ref_mask.reshape(-1).float().sum(), 1.0)
 
 
-def totalorder_keys(theta: torch.Tensor) -> torch.Tensor:
-    """float32 -> int32 IEEE-totalorder keys (sign-flip bitcast): integer
-    comparison then orders floats like ``lax.top_k`` and the JAX topk
-    kernels, -0.0 < +0.0 included, which float comparison would merge."""
-    b = theta.float().contiguous().view(torch.int32)
-    return torch.where(b >= 0, b, torch.bitwise_not(b) ^ -(2 ** 31))
+totalorder_keys = pk.totalorder_keys
 
 
 def kernel_topk_smallest(theta: torch.Tensor, *, keep: int) -> torch.Tensor:
     """Indices (int64) of the ``keep`` smallest entries of ``theta (C,)``,
-    ascending, ties toward the smaller index — the stable argsort prefix,
-    bit for bit, by one ``topk_smallest`` launch."""
+    ascending, ties toward the smaller index — the stable argsort prefix of
+    :func:`totalorder_keys`, bit for bit, by one ``topk_smallest`` launch
+    in its fp32 mode (the keys made in registers, no launch of their
+    own)."""
     c = theta.shape[0]
     if not 0 < keep <= c:
         raise ValueError(f"keep must be in [1, {c}], got {keep}")
-    return pk.topk_smallest(totalorder_keys(theta), keep)
+    return pk.topk_smallest_f32(theta.float().contiguous(), keep)
 
 
 def centrality_kernel(metric: str):

@@ -12,10 +12,14 @@ Wrapper, the TPU kernel it replaces in that file, and its CUDA source in
   ``pairwise_tile.cuh`` with a centrality epilogue, chosen by
   :func:`centrality_plan`);
 * ``topk_smallest``: ``topk_smallest`` / ``_topk_rank_kernel`` and
-  ``_topk_select_kernel`` in one launch, ``topk_smallest.cu`` (a tiled
-  sort, planned by :func:`topk_rank_plan`, that writes the select where it
-  has the rank); ``topk_rank`` is the same launch with the ranks as its
-  output;
+  ``_topk_select_kernel`` in one launch, ``topk_smallest.cu``, by one of
+  two paths that :func:`topk_plan` picks: a tiled sort (tiles from
+  :func:`topk_rank_plan`) that writes the select where it has the rank, or,
+  for a small keep against a long C, a radix select by one block or a
+  thread-block cluster (:func:`select_plan`);
+  ``topk_smallest_f32`` is the same launch on float32 estimates (the sign
+  flip of :func:`totalorder_keys` made in registers), and ``topk_rank`` the
+  sort path with the ranks as its output;
 * ``dot_pairwise``: ``dot_pairwise`` / ``_dot_kernel``, ``dot_pairwise.cu``;
 * ``l1_pairwise``: ``l1_pairwise`` / ``_l1_pairwise_kernel``,
   ``l1_pairwise.cu`` (both pairwise kernels take one of the paths of
@@ -230,6 +234,14 @@ def l1_centrality(x: torch.Tensor, y: torch.Tensor,
 
 # ------------------------------- topk_smallest ------------------------------
 
+def totalorder_keys(theta: torch.Tensor) -> torch.Tensor:
+    """float32 -> int32 IEEE-totalorder keys (sign-flip bitcast): integer
+    comparison then orders floats like ``lax.top_k`` and the JAX topk
+    kernels, -0.0 < +0.0 included, which float comparison would merge."""
+    b = theta.float().contiguous().view(torch.int32)
+    return torch.where(b >= 0, b, torch.bitwise_not(b) ^ -(2 ** 31))
+
+
 def topk_rank_plain(keys: torch.Tensor) -> torch.Tensor:
     """``rank[i] = #{j : v[j] < v[i] or (v[j] == v[i] and j < i)}`` (int32),
     a block of rows of the comparison matrix at a time."""
@@ -277,19 +289,82 @@ def topk_rank_plan(n: int, sms: int, *,
     return tile, max(1, min(_RANK_MAX_CLUSTER, per_sm * sms // tiles))
 
 
-def launch_topk(keys: torch.Tensor, keep: int, plan: tuple[int, int], *,
-                with_rank: bool = False
+# topk_smallest's two paths (csrc/topk_smallest.cu). The sort ranks every
+# key whatever keep is; the select (a radix select by a cluster of up to
+# SELECT_MAX_CLUSTER blocks of SELECT_THREADS threads over the keys held in
+# registers) finds the first keep keys and orders only them: it counts
+# each of up to keep + 255 keys against the others, a cost that grows as
+# keep^2 where the sort's grows with C. topk_plan takes the select where C
+# is at least SELECT_MIN_C and keep^2 at most SELECT_KEEP_SQ_PER_C keys a
+# C (keep <= 4 sqrt(C)), so the halving's keep = C and the distributed
+# engines' keep = ceil(C / 2) always sort. One block takes up to
+# SELECT_BLOCK_ITEMS keys a thread, a cluster the rest. chip_smoke.py
+# times both paths on either side of these limits, and one block beside
+# the cluster (PERF.md).
+SORT = "sort"
+SELECT = "select"
+_TOPK_PATH_CODE = {SORT: 0, SELECT: 1}
+SELECT_THREADS = 1024          # SEL_THREADS
+SELECT_ITEMS = (1, 2, 3, 4, 6, 8, 12, 16)   # keys a thread holds, as built
+SELECT_MAX_CLUSTER = 8         # SEL_MAX_CLUSTER
+SELECT_KEEP_LIMIT = 1024       # SEL_MAX_KEEP, the kernel's largest keep
+SELECT_MIN_C = 1024
+SELECT_KEEP_SQ_PER_C = 16
+SELECT_BLOCK_ITEMS = 4
+
+
+def select_plan(n: int, *,
+                cluster: int = SELECT_MAX_CLUSTER) -> tuple[str, int, int]:
+    """``(SELECT, items, blocks)``: the select path over ``n >= 1`` keys, a
+    cluster of ``blocks`` blocks whose threads hold ``items`` keys each in
+    registers: one block where ``SELECT_BLOCK_ITEMS`` keys a thread hold
+    them all, else the fewest items that need at most ``cluster`` blocks;
+    past ``16 * SELECT_THREADS * cluster`` keys ``(SELECT, 0, cluster)``,
+    where each block reads its share from device memory every pass."""
+    if not 1 <= cluster <= SELECT_MAX_CLUSTER:
+        raise ValueError(f"select_plan: cluster {cluster} is not in [1, "
+                         f"{SELECT_MAX_CLUSTER}]")
+    for items in SELECT_ITEMS:
+        blocks = -(-n // (items * SELECT_THREADS))
+        if blocks == 1 and items <= SELECT_BLOCK_ITEMS:
+            return SELECT, items, 1
+    for items in SELECT_ITEMS:
+        blocks = -(-n // (items * SELECT_THREADS))
+        if blocks <= cluster:
+            return SELECT, items, blocks
+    return SELECT, 0, cluster
+
+
+def topk_plan(n: int, keep: int, sms: int) -> tuple[str, int, int]:
+    """``(path, tile, cluster)`` of the ``topk_smallest`` launch that takes
+    the first ``keep`` of ``n >= 1`` keys on a card with ``sms``
+    multiprocessors: :func:`select_plan` where ``n >= SELECT_MIN_C``, ``1
+    <= keep <= SELECT_KEEP_LIMIT`` and ``keep^2 <= SELECT_KEEP_SQ_PER_C *
+    n``, else the sort of :func:`topk_rank_plan`."""
+    if (n >= SELECT_MIN_C and 0 < keep <= SELECT_KEEP_LIMIT
+            and keep * keep <= SELECT_KEEP_SQ_PER_C * n):
+        return select_plan(n)
+    return (SORT,) + topk_rank_plan(n, sms)
+
+
+def launch_topk(keys: torch.Tensor, keep: int, plan: tuple[str, int, int],
+                *, with_rank: bool = False
                 ) -> tuple[torch.Tensor, Optional[torch.Tensor]]:
     """One ``topk_smallest.cu`` launch on CUDA keys (n >= 1) with ``plan``, a
-    ``topk_rank_plan`` result: the wrappers pass the default one,
-    ``chip_smoke.py`` forces other tiles to time them. Returns the first
+    ``topk_plan`` result: the wrappers pass the default one,
+    ``chip_smoke.py`` and the card tests force others. ``keys`` are int32
+    totalorder keys or float32 estimates (the fp32 mode). Returns the first
     ``keep`` indices of the stable order, (keep,) int64, and with
-    ``with_rank`` the (n,) int32 ranks too (else None). Counts in
-    ``LAUNCHES`` under ``"topk_smallest"``, or ``"topk_rank"`` where
-    ``keep`` is 0 and the ranks are the only output."""
+    ``with_rank`` (the sort path only) the (n,) int32 ranks too (else None).
+    Counts in ``LAUNCHES`` under ``"topk_smallest"``, and in
+    ``PATH_LAUNCHES`` under ``("topk_smallest", path)``, or under
+    ``"topk_rank"`` where ``keep`` is 0 and the ranks are the only
+    output."""
     n = keys.shape[0]
-    tile, cluster = plan
-    if -(-n // tile) * cluster > _MAX_BLOCKS:
+    path, tile, cluster = plan
+    if path not in _TOPK_PATH_CODE:
+        raise ValueError(f"topk_smallest: unknown path {path!r}")
+    if path == SORT and -(-n // tile) * cluster > _MAX_BLOCKS:
         raise ValueError(f"topk_smallest: {n} keys need more than "
                          f"{_MAX_BLOCKS} blocks")
     if not 0 <= keep <= n:
@@ -297,6 +372,12 @@ def launch_topk(keys: torch.Tensor, keep: int, plan: tuple[int, int], *,
                          f"{keep}")
     if not (keep or with_rank):
         raise ValueError("topk_smallest: keep 0 and no rank output")
+    if path == SELECT and (with_rank or keep > SELECT_KEEP_LIMIT):
+        raise ValueError(f"topk_smallest: the select path takes 1 <= keep "
+                         f"<= {SELECT_KEEP_LIMIT} and gives no ranks")
+    if keys.dtype not in (torch.int32, torch.float32):
+        raise TypeError(f"topk_smallest: int32 keys or float32 estimates, "
+                        f"got {keys.dtype}")
     out = torch.empty(keep, dtype=torch.int64, device=keys.device)
     rank = torch.empty(n, dtype=torch.int32, device=keys.device) \
         if with_rank else None
@@ -304,18 +385,24 @@ def launch_topk(keys: torch.Tensor, keep: int, plan: tuple[int, int], *,
     with torch.cuda.device(keys.device):
         stream = torch.cuda.current_stream(keys.device).cuda_stream
         code = fn(keys.data_ptr(), _ptr(rank), _ptr(out) if keep else None,
-                  n, keep, tile, cluster, stream)
+                  n, keep, _TOPK_PATH_CODE[path], tile, cluster,
+                  int(keys.dtype == torch.float32), stream)
     build.check("topk_smallest_launch", code)
-    LAUNCHES["topk_smallest" if keep else "topk_rank"] += 1
+    if keep:
+        LAUNCHES["topk_smallest"] += 1
+        PATH_LAUNCHES[("topk_smallest", path)] += 1
+    else:
+        LAUNCHES["topk_rank"] += 1
     return out, rank
 
 
-def _check_keys(name: str, keys: torch.Tensor) -> int:
+def _check_keys(name: str, keys: torch.Tensor,
+                dtype: torch.dtype = torch.int32) -> int:
     if keys.ndim != 1:
         raise ValueError(f"{name}: expected 1-D keys, got "
                          f"{tuple(keys.shape)}")
     n = keys.shape[0]
-    _check(name, keys, torch.int32, (n,))
+    _check(name, keys, dtype, (n,))
     if n > 2 ** 31 - 1:
         raise ValueError(f"{name}: {n} keys exceed the int32 index range")
     return n
@@ -336,7 +423,8 @@ def topk_rank(keys: torch.Tensor) -> torch.Tensor:
     if n == 0:
         return torch.empty(0, dtype=torch.int32, device=keys.device)
     sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
-    return launch_topk(keys, 0, topk_rank_plan(n, sms), with_rank=True)[1]
+    return launch_topk(keys, 0, (SORT,) + topk_rank_plan(n, sms),
+                       with_rank=True)[1]
 
 
 def topk_select_plain(rank: torch.Tensor, keep: int) -> torch.Tensor:
@@ -359,23 +447,36 @@ def topk_smallest_plain(keys: torch.Tensor, keep: int) -> torch.Tensor:
 def topk_smallest(keys: torch.Tensor, keep: int) -> torch.Tensor:
     """The first ``keep`` indices of the stable ascending order of int32
     keys, ``argsort(keys, stable=True)[:keep]``: (n,) int32 -> (keep,)
-    int64, one launch.
+    int64, one launch on the path of :func:`topk_plan`.
 
     Replaces ``topk_smallest``'s ``_topk_rank_kernel`` and
     ``_topk_select_kernel`` together
     (``src/repro/kernels/pairwise_distance.py``). Bound: launch latency; its
     ``4 n + 8 keep`` bytes take under a microsecond
     (``csrc/topk_smallest.cu``)."""
-    n = _check_keys("topk_smallest", keys)
+    return _topk_smallest("topk_smallest", keys, keep, torch.int32)
+
+
+def topk_smallest_f32(theta: torch.Tensor, keep: int) -> torch.Tensor:
+    """:func:`topk_smallest` of ``totalorder_keys(theta)`` for float32
+    estimates ``theta (n,)``, by the same launch in its fp32 mode, which
+    makes the keys in registers (the plain version makes them first)."""
+    return _topk_smallest("topk_smallest_f32", theta, keep, torch.float32)
+
+
+def _topk_smallest(name: str, keys: torch.Tensor, keep: int,
+                   dtype: torch.dtype) -> torch.Tensor:
+    n = _check_keys(name, keys, dtype)
     if not 0 <= keep <= n:
-        raise ValueError(f"topk_smallest: keep must be in [0, {n}], got "
-                         f"{keep}")
-    if not _on_cuda("topk_smallest", keys):
+        raise ValueError(f"{name}: keep must be in [0, {n}], got {keep}")
+    if not _on_cuda(name, keys):
+        if dtype == torch.float32:
+            keys = totalorder_keys(keys)
         return topk_smallest_plain(keys, keep)
     if keep == 0:
         return torch.empty(0, dtype=torch.int64, device=keys.device)
     sms = torch.cuda.get_device_properties(keys.device).multi_processor_count
-    return launch_topk(keys, keep, topk_rank_plan(n, sms))[0]
+    return launch_topk(keys, keep, topk_plan(n, keep, sms))[0]
 
 
 # ---------------------------- dot_pairwise / l1_pairwise ---------------------
@@ -513,7 +614,9 @@ def _stream_slab(d: int, splits: int) -> int:
 # (dot_centrality) or DOT_CENTRALITY_BF16_S rows (dot_centrality's bf16
 # mode). On an H100 l1's stream path wins every timed case up to 20 short
 # rows and none at 24; dot's, whose FFMA is one instruction a column to
-# l1's three, wins most cases at 24 and few at 28. In the bf16 mode the tile
+# l1's two (FADD a - b, then FADD acc + |t|, the absolute value an operand
+# modifier, in cuobjdump -sass of the tile path), wins most cases at 24
+# and few at 28. In the bf16 mode the tile
 # path multiplies on the tensor cores and the stream path keeps FFMA, so
 # the stream path wins every case up to 8 short rows, 4 of 6 at 12 and 1 of
 # 6 at 16 (chip_smoke.py times both paths of each kernel and mode around

@@ -204,6 +204,7 @@ def test_topk_smallest_one_launch(cuda, c):
     g = torch.Generator(device=cuda).manual_seed(c + 3)
     plans = {pk.topk_rank_plan(c, sms, tile=t) for t in RANK_TILES}
     plans |= {(t, 8) for t, cl in plans if c > t and cl < 8}
+    plans = {(pk.SORT,) + plan for plan in plans}
     for kind in ("floats", "equal", "extremes"):
         keys, _ = _rank_keys(c, kind, g, cuda)
         order = torch.argsort(keys.cpu(), stable=True)
@@ -234,7 +235,69 @@ def test_topk_smallest_one_launch(cuda, c):
         assert pk.LAUNCHES["topk_smallest"] == before + 1
     assert pk.topk_smallest(keys, 0).shape == (0,)     # no launch
     with pytest.raises(ValueError):
-        pk.launch_topk(keys, 0, pk.topk_rank_plan(c, sms))   # no output
+        pk.launch_topk(keys, 0, (pk.SORT,) + pk.topk_rank_plan(c, sms))
+
+
+SELECT_CS = (1, 2, 64, 513, 6424, 20000, 2 ** 20)
+
+
+@pytest.mark.parametrize("c", SELECT_CS)
+def test_topk_select_path_bit_equal(cuda, c):
+    """The select path, forced at every C (the plan's cluster and a single
+    block, which past 16384 keys reads them from device memory each pass),
+    against ``argsort(stable=True)[:keep]`` and the sort path for keep in
+    {1, 63, 64, 65, 256, SELECT_KEEP_LIMIT} (those <= C):
+    floats with ties, -0.0/+0.0,
+    +-inf and NaNs of both signs, all-equal keys and the int32 extremes;
+    the fp32 mode (float estimates in, the keys made in registers) equal to
+    the int32 launch on ``totalorder_keys`` on both paths; two launches
+    bit-equal; one launch each, counted by path."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(device=cuda).manual_seed(c + 11)
+    plans = [pk.select_plan(c), pk.select_plan(c, cluster=1),
+             (pk.SORT,) + pk.topk_rank_plan(c, sms)]
+    keeps = sorted({min(k, c) for k in (1, 63, 64, 65, 256,
+                                        pk.SELECT_KEEP_LIMIT)})
+    for kind in ("floats", "equal", "extremes"):
+        keys, theta = _rank_keys(c, kind, g, cuda)
+        order = torch.argsort(keys, stable=True).cpu()
+        for keep in keeps:
+            for plan in plans:
+                before = pk.PATH_LAUNCHES.copy()
+                out, rank = pk.launch_topk(keys, keep, plan)
+                again, _ = pk.launch_topk(keys, keep, plan)
+                torch.cuda.synchronize()
+                assert rank is None
+                assert pk.PATH_LAUNCHES[("topk_smallest", plan[0])] == \
+                    before[("topk_smallest", plan[0])] + 2
+                np.testing.assert_array_equal(
+                    out.cpu().numpy(), order[:keep].numpy(),
+                    err_msg=f"{kind} {plan} keep={keep}")
+                assert torch.equal(out, again)
+                if theta is not None:
+                    f32, _ = pk.launch_topk(theta, keep, plan)
+                    assert torch.equal(f32, out), (kind, plan, keep)
+
+
+def test_topk_wrappers_count_by_path(cuda):
+    """``topk_smallest`` and ``kernel_topk_smallest`` (the fp32 mode) launch
+    once each on the plan's path: the select at Med-dit's keep 64 of C = n,
+    the sort at the halving's keep = C."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for c, keep in ((6424, 64), (20000, 64), (20000, 20000), (313, 313)):
+        theta = torch.randn(c, device=cuda, generator=g)
+        keys = ops.totalorder_keys(theta)
+        path = pk.topk_plan(c, keep, sms)[0]
+        assert path == (pk.SELECT if keep == 64 else pk.SORT)
+        want = torch.argsort(keys, stable=True)[:keep]
+        pk.reset_launches()
+        got = pk.topk_smallest(keys, keep)
+        got32 = ops.kernel_topk_smallest(theta, keep=keep)
+        torch.cuda.synchronize()
+        assert pk.LAUNCHES == {"topk_smallest": 2}
+        assert pk.PATH_LAUNCHES == {("topk_smallest", path): 2}
+        assert torch.equal(got, want) and torch.equal(got32, want)
 
 
 def test_find_medoid_on_card_matches_cpu(cuda):
@@ -701,6 +764,7 @@ def test_meddit_graph_matches_eager_and_cpu(cuda, metric):
         -3, 4, (3000, 24)).astype(np.float32))
     kw = dict(metric=metric, max_pulls=3000 + 64 * 300, chunk=64)
     before = pk.LAUNCHES.copy()
+    before_paths = pk.PATH_LAUNCHES.copy()
     g = meddit_medoid(x.to(cuda), rng.key(2, cuda), graph=True, **kw)
     torch.cuda.synchronize()
     steps = (int(g.pulls) - 3000) // 64
@@ -709,6 +773,10 @@ def test_meddit_graph_matches_eager_and_cpu(cuda, metric):
     assert pk.LAUNCHES["threefry"] == before["threefry"] + chunks
     assert pk.LAUNCHES["topk_smallest"] == before["topk_smallest"] \
         + 64 * chunks
+    # every selection (keep 64 of C = 3000) took the select path
+    assert pk.topk_plan(3000, 64, 132)[0] == pk.SELECT
+    assert pk.PATH_LAUNCHES[("topk_smallest", pk.SELECT)] == \
+        before_paths[("topk_smallest", pk.SELECT)] + 64 * chunks
     e = meddit_medoid(x.to(cuda), rng.key(2, cuda), graph=False, **kw)
     c = meddit_medoid(x, rng.key(2), **kw)
     for other in (e, c):
