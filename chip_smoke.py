@@ -27,7 +27,12 @@ nonzero:
    (``dot_pairwise`` and ``dot_centrality`` in fp32) is checked the same
    way (l2, sql2 and cosine, masks, d = 4096) and timed beside the tile
    path, the plain versions and ``x @ y.T`` on both sides of its crossover
-   (``GEMM_FILL``); so are both paths of the two
+   (``GEMM_FILL``); the Gram kernels' d split (fp32) on the embedding
+   rounds of phases 8d and 10e at d = 92544 and 32000, at d = 92543 and on
+   a misaligned view (l2, sql2 and cosine, masks, two launches bit-equal),
+   and at each of those rounds both plans timed twice, the wrapper's plan
+   required on the faster side wherever they differ by more than the
+   noise; so are both paths of the two
    centrality kernels on either side of their crossovers (``l1_centrality``
    at d = 1024 and 4096 around ``CENTRALITY_S``, ``dot_centrality`` for l2
    at d = 784 and cosine at d = 2048 around ``DOT_CENTRALITY_S``; every
@@ -203,11 +208,12 @@ nonzero:
    version and timed (row 1h);
 11. training on the card (``phase11``; plain PyTorch, no kernel launched
    over the phase): (a) ``repro_torch.launch.train.train`` on
-   internlm2-1.8b's full config (24 layers, d 2048, bf16 weights, f32 AdamW
-   moments) on the data pipeline at ``SHAPES["train_4k"]``'s length of
-   4096, the batch of 256 cut to TRAIN_BATCH sequences in TRAIN_MICRO
-   microbatches, remat, TRAIN_STEPS steps with step TRAIN_PROFILED_STEP
-   profiled; then the same run to TRAIN_CKPT_EVERY steps with a checkpoint
+   internlm2-1.8b at full width (d 2048, V 92544, bf16 weights, f32 AdamW
+   moments), its 24 layers cut to TRAIN_LAYERS, on the data pipeline at
+   ``SHAPES["train_4k"]``'s length of 4096, the batch of 256 cut to
+   TRAIN_BATCH sequences in TRAIN_MICRO microbatches, remat, TRAIN_STEPS
+   steps with step TRAIN_PROFILED_STEP profiled; then the same run to
+   TRAIN_CKPT_EVERY steps with a checkpoint
    under ``build/chip_smoke/train/`` and resumed from it to TRAIN_STEPS
    (a second checkpoint): its losses bit-equal to the first run's under
    ``torch.use_deterministic_algorithms``, and the last loss below the
@@ -307,6 +313,10 @@ SERVICE_ARRIVALS = 2000
 PROFILE_MUTATIONS = 10
 BIG_ELEMS = 1 << 34
 BIG_ROWS = 512
+# Phase 2's d split: the wrapper's plan may be slower than the unsplit one
+# by the two repeats' spread, or by this share of the faster time where
+# that is larger (the noise two plans within it are not told apart by)
+SPLIT_NOISE = 0.03
 
 # name, dataset, n, d, metric, backend
 CELLS = (
@@ -419,14 +429,17 @@ XLSTM_CARD_CPU_TOL = {
     "slstm.c": 6e-3, "slstm.n": 3e-2, "slstm.h": 6e-4, "slstm.m": 3e-3}
 
 # Phase 11, training on the card: 11a runs repro_torch.launch.train on
-# internlm2-1.8b at full width and depth on SHAPES["train_4k"]'s length,
-# its batch of 256 cut to TRAIN_BATCH sequences (TRAIN_MICRO microbatches;
+# internlm2-1.8b at full width on SHAPES["train_4k"]'s length, its 24
+# layers cut to TRAIN_LAYERS (at 24 the phase took 192 s of a 939 s script
+# on an H100 80GB HBM3: twelve 6.2 s steps and two 21 GiB checkpoints), its
+# batch of 256 cut to TRAIN_BATCH sequences (TRAIN_MICRO microbatches;
 # with 4 sequences a step took 5.6 s and the script 1027 s on an H100 80GB
 # HBM3 machine with a slower host, so the batch was cut to 2), TRAIN_STEPS
 # steps, then again with a checkpoint at TRAIN_CKPT_EVERY and resumed
 # there (two checkpoints, one fewer than a run that writes both); 11b's cut
 # and sequence (several q and KV blocks), 11c's flash shapes and 11d's
 # batch (seq_len, batch)
+TRAIN_LAYERS = 8
 TRAIN_BATCH = 2
 TRAIN_MICRO = 2
 TRAIN_STEPS = 6
@@ -537,7 +550,7 @@ def l1_sass_counts(sass: str) -> list:
         fadd = [a for op, a in ops if op == "FADD"]
         absf = sum("|" in a for a in fadd)
         sub = sum("|" not in a and "-" in a for a in fadd)
-        vw = re.search(r"ELi(\d+)EEEv", name)
+        vw = re.search(r"ELi(\d+)E(?:Lb[01]E)?EEv", name)
         rows.append((f"tile_kernel VW={vw.group(1) if vw else '?'}", sub, absf,
                      len(fadd) - absf - sub,
                      sum(op == "FFMA" for op, _ in ops),
@@ -777,6 +790,23 @@ def executed_rounds(n: int, budget: int) -> list:
 
     rounds = round_schedule(n, budget)
     return rounds[: stop_round(rounds) + 1]
+
+
+def embed_round_shapes() -> list:
+    """The (C, R) of every Gram launch of phases 8d and 10e on the
+    EMB_SEQS embedding rows: find_medoid's rounds, k-medoids' BUILD and SWAP
+    rounds, its (n, k) cache and (1, n) row, the refinement's buckets and
+    the shards' server buckets (powers of two)."""
+    n = EMB_SEQS
+    shapes = {(s.survivors, s.num_refs)
+              for rd in (executed_rounds(n, EMB_BUDGET * n),
+                         executed_rounds(n, KM_BUILD * n)) for s in rd}
+    shapes |= {(n, EMB_K), (1, n)}
+    for nb in (2 ** k for k in range(3, 12)):
+        shapes |= {(s.survivors, s.num_refs)
+                   for budget in (KM_REFINE, SRV_BUDGET)
+                   for s in executed_rounds(nb, budget * nb)}
+    return sorted(shapes)
 
 
 def halving_plan(rounds, score_kern: str, topk: bool,
@@ -1445,8 +1475,8 @@ def _cpu_copy(cfg, params):
 
 
 def phase11a(dev) -> None:
-    """11a: ``repro_torch.launch.train`` on internlm2-1.8b at full width
-    and depth, then the resume (the module docstring's item 11)."""
+    """11a: ``repro_torch.launch.train`` on internlm2-1.8b at full width,
+    TRAIN_LAYERS deep, then the resume (the module docstring's item 11)."""
     import math
     import shutil
 
@@ -1459,7 +1489,7 @@ def phase11a(dev) -> None:
     from repro_torch.models.model import weights_init
     from repro_torch.train.train_step import TrainCfg
 
-    cfg = get_config(LM_ARCH)
+    cfg = get_config(LM_ARCH).scaled(num_layers=TRAIN_LAYERS)
     S = SHAPES["train_4k"].seq_len
     ckdir = ROOT / "build" / "chip_smoke" / "train"
     shutil.rmtree(ckdir, ignore_errors=True)
@@ -1476,7 +1506,7 @@ def phase11a(dev) -> None:
     draw_s = time.perf_counter() - t0
 
     # the first run's step TRAIN_PROFILED_STEP runs under the profiler
-    make = tl.make_train_step
+    make, full = tl.make_train_step, tl.get_config
     busy = []
 
     def profiling(model, tcfg_):
@@ -1492,6 +1522,8 @@ def phase11a(dev) -> None:
 
     torch.use_deterministic_algorithms(True)
     try:
+        tl.get_config = lambda arch: full(arch).scaled(
+            num_layers=TRAIN_LAYERS)
         tl.make_train_step = profiling
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
@@ -1513,7 +1545,7 @@ def phase11a(dev) -> None:
                                                 TRAIN_STEPS],
                  f"phase11a checkpoints {ckpt.all_steps(str(ckdir))}")
     finally:
-        tl.make_train_step = make
+        tl.make_train_step, tl.get_config = make, full
         torch.use_deterministic_algorithms(False)
     shutil.rmtree(ckdir, ignore_errors=True)
 
@@ -1543,7 +1575,8 @@ def phase11a(dev) -> None:
     bytes_s, ops_s = _bound_s(nbytes, _ops_s(bf16, True) + _ops_s(f32))
     bound_s = max(bytes_s, ops_s)
     print(f"phase11a {LM_ARCH} training at full width ({cfg.num_layers} "
-          f"layers, d {cfg.d_model}, {cfg.num_heads}/{cfg.num_kv_heads} "
+          f"of {full(LM_ARCH).num_layers} layers, d {cfg.d_model}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} "
           f"heads, d_ff {cfg.d_ff}, V {cfg.vocab_size}; {nparams / 1e9:.3f} "
           f"B params in bf16, AdamW moments f32), batch {TRAIN_BATCH} x "
           f"{S} tokens (train_4k's 256 cut to {TRAIN_BATCH}) in "
@@ -2020,6 +2053,15 @@ def main() -> int:
     from repro_torch.kernels import pairwise_distance as pk
 
     script_t0 = time.perf_counter()
+    phase_s = {}                   # phase -> seconds, printed at the end
+    clock = [script_t0, "1"]
+
+    def phase(name):
+        """Stop the running phase's clock and start phase ``name``'s."""
+        now = time.perf_counter()
+        phase_s[clock[1]] = now - clock[0]
+        clock[:] = [now, name]
+
     dev = torch.device("cuda:0")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2660,13 +2702,13 @@ def main() -> int:
         """The path the wrapper of kernel ``kern`` (a ``LAUNCHES`` name)
         takes at (c, r, d), or None for a kernel without paths."""
         dtype = "bfloat16" if kern.endswith("_bf16") else "float32"
+        fp32 = pk.dot_gemm(dtype)
         if kern.startswith("dot_pairwise"):
-            return pk.pairwise_plan(c, r, d, sms,
-                                    gemm=pk.dot_gemm(dtype))[0]
+            return pk.pairwise_plan(c, r, d, sms, fp32_gram=fp32)[0]
         if kern.startswith("dot_centrality"):
             return pk.centrality_plan(c, r, d, sms,
                                       crossover=pk.dot_crossover(dtype),
-                                      gemm=pk.dot_gemm(dtype))[0]
+                                      fp32_gram=fp32)[0]
         if kern == "l1_pairwise":
             return pk.pairwise_plan(c, r, d, sms)[0]
         if kern == "l1_centrality":
@@ -2718,6 +2760,7 @@ def main() -> int:
             budget_per_arm=BUDGET_PER_ARM, precision=precision))
 
     # ------------------------------------------------ phase 2: kernels
+    phase("2")
     # ragged shapes (no tile multiple) and random reference masks
     for (c, r, d) in ((1, 1, 1), (77, 131, 300), (130, 65, 257),
                       (333, 1234, 784), (333, 1234, 2048), (97, 1234, 4096),
@@ -2854,7 +2897,7 @@ def main() -> int:
         plain_c = 1e3 * timed(lambda: pk.dot_centrality_plain(
             x, y, xn2, yn2, w, metric="l2"), 3)
         lib = 1e3 * timed(lambda: x @ y.T, 10)
-        pick = pk.pairwise_plan(c, r, d, sms, gemm=True)[0]
+        pick = pk.pairwise_plan(c, r, d, sms, fp32_gram=True)[0]
         cross.append(
             f"({c}, {r}, {d}) fill {pk.gemm_fill(c, r, sms):.3f} plan "
             f"{pick}: dot_pairwise gemm {us[0]:.2f} / "
@@ -2868,6 +2911,96 @@ def main() -> int:
           f"4096, two launches bit-equal; both paths checked and timed "
           f"({time.perf_counter() - t0:.1f} s): " + "; ".join(cross),
           flush=True)
+
+    # the Gram kernels' d split (fp32): checked against the plain versions
+    # through the wrappers at the embedding rounds of phases 8d (d = V of
+    # internlm2) and 10e (zamba2's), at d = 92543 and on a view 4 bytes past
+    # a 16-byte boundary; then, at each round of both widths, the unsplit
+    # plan and the wrapper's (dot_pairwise, and dot_centrality's l2 with a
+    # mask) timed twice in turns, and the wrapper's plan held on the faster
+    # side where the two differ by more than the noise: the larger of the
+    # two repeats' spread and SPLIT_NOISE of the faster time.
+    t0 = time.perf_counter()
+    wide = (92544, 32000)                # internlm2-1.8b's V, zamba2-2.7b's
+    split_shapes = embed_round_shapes()
+    big = torch.rand(max(c for c, _ in split_shapes), max(wide),
+                     device=dev, generator=gen)
+    for d in wide + (wide[0] - 1,):
+        for c, r in split_shapes:
+            x = big[:c, :d].contiguous()
+            y = torch.rand(r, d, device=dev, generator=gen)
+            led.note_err("dot_pairwise", check_pairwise("dot_pairwise", x,
+                                                        y)[0])
+            for masked in (False, True):
+                w = (torch.rand(r, device=dev, generator=gen) > 0.3).float() \
+                    if masked else None
+                for metric in ("l2", "sql2", "cosine"):
+                    led.note_err("dot_centrality",
+                                 check_centrality(metric, x, y, w)[0])
+    for c, r in ((256, 14), (32, 116), (2048, EMB_K), (4, 930)):
+        buf = torch.rand(c * wide[0] + 1, device=dev, generator=gen)
+        x = buf[1:].view(c, wide[0])
+        _require(x.data_ptr() % 16 != 0, "the view is 16-byte aligned")
+        y = torch.rand(r, wide[0], device=dev, generator=gen)
+        for a, b in ((x, y), (y, x)):
+            led.note_err("dot_pairwise", check_pairwise("dot_pairwise", a,
+                                                        b)[0])
+            for metric in ("l2", "sql2", "cosine"):
+                led.note_err("dot_centrality", check_centrality(
+                    metric, a, b, (torch.rand(b.shape[0], device=dev,
+                                              generator=gen) > 0.3).float()
+                )[0])
+    checked_s = time.perf_counter() - t0
+    cross, split_paths = [], Counter()
+    for d in wide:
+        for c, r in split_shapes:
+            x = big[:c, :d].contiguous()
+            y = torch.rand(r, d, device=dev, generator=gen)
+            w = (torch.rand(r, device=dev, generator=gen) > 0.3).float()
+            xn2, yn2 = ops._norms_sq(x), ops._norms_sq(y)
+            want_c = pk.dot_centrality_plain(x, y, xn2, yn2, w, metric="l2")
+            for kern, plan_of, launch in (
+                    ("dot_pairwise", pk.pairwise_plan,
+                     lambda p: pk.launch_pairwise("dot_pairwise", x, y, p)),
+                    ("dot_centrality",
+                     lambda *a, **k: pk.centrality_plan(
+                         *a, crossover=pk.DOT_CENTRALITY_S, **k),
+                     lambda p: pk.launch_dot_centrality(x, y, xn2, yn2, w, p,
+                                                        "l2"))):
+                unsplit = plan_of(c, r, d, sms)
+                plan = plan_of(c, r, d, sms, fp32_gram=True)
+                split_paths[(kern, plan[0])] += 1
+                if kern == "dot_centrality":
+                    _agree(launch(unsplit), want_c,
+                           _tolerance(want_c, "l2", x, y, w),
+                           f"l2 centrality {unsplit} at ({c}, {r}, {d})")
+                if plan == unsplit:
+                    continue
+                us = {}
+                for p in (unsplit, plan, plan, unsplit):
+                    us.setdefault(p, []).append(
+                        1e3 * timed(lambda p=p: launch(p), 10))
+                t_un, t_pl = (sum(us[unsplit]) / 2, sum(us[plan]) / 2)
+                noise = max(max(v) - min(v) for v in us.values())
+                noise = max(noise, SPLIT_NOISE * min(t_un, t_pl))
+                _require(t_pl <= t_un + noise,
+                         f"{kern} at ({c}, {r}, {d}): the plan {plan} "
+                         f"({us[plan]} us) is slower than {unsplit} "
+                         f"({us[unsplit]} us) beyond the noise {noise:.2f}")
+                cross.append(f"{'pw' if kern == 'dot_pairwise' else 'cen'} "
+                             f"({c}, {r}, {d}) {unsplit[0]} "
+                             f"{t_un:.1f} / {plan[0]} x{plan[2]} {t_pl:.1f} "
+                             f"us")
+    print(f"phase2 d split (SPLIT_MIN_D = {pk.SPLIT_MIN_D}): dot_pairwise "
+          f"(and sql2/l2 from it) and dot_centrality (l2, sql2, cosine; "
+          f"masks) agree through the wrappers at the {len(split_shapes)} "
+          f"embedding round shapes at d = {wide} and {wide[0] - 1} and on a "
+          f"misaligned view, two launches bit-equal ({checked_s:.1f} s); "
+          f"the plans {dict(split_paths)}; the plan on the faster side "
+          f"everywhere (unsplit / plan; {time.perf_counter() - t0:.1f} s): "
+          + "; ".join(cross),
+          flush=True)
+    del big
 
     rt = pk.RANK_TILE
     t0 = time.perf_counter()
@@ -3015,6 +3148,7 @@ def main() -> int:
               f"max_abs_err {tot[5]:.3g}{extra}", flush=True)
 
     # ---------------------------------------------- phase 3: main path
+    phase("3")
     for name, ds, n, d, metric, backend in CELLS:
         x = data[ds]
         key = rng.fold_in(rng.key(SEED, dev), 1)
@@ -3125,6 +3259,7 @@ def main() -> int:
           f"over {b_hard[0]} activities", flush=True)
 
     # ------------------------------------------- phase 4: k-medoids
+    phase("4")
     for name, ds, n, d, k, metric, backend in KM_CELLS:
         x = data[ds]
         key = rng.fold_in(rng.key(SEED, dev), 1)
@@ -3359,6 +3494,7 @@ def main() -> int:
           f"({time.perf_counter() - t0:.1f} s)", flush=True)
 
     # ------------------------------------- phase 5: the quantized path
+    phase("5")
     from repro_torch.core.distances import centrality_sums
     from repro_torch.quant import backend_for, verify_pulls
 
@@ -3447,6 +3583,7 @@ def main() -> int:
           f"{len(Q_CELLS)} cells", flush=True)
 
     # ------------------------------------ phase 6: serving at full width
+    phase("6")
     from repro_torch.api import maintain_medoid
     from repro_torch.cluster import (ClusterService, ClusterStream,
                                      kmedoids_via_service)
@@ -3897,6 +4034,7 @@ def main() -> int:
           f"timed with the plain versions over their full shapes): "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
     # ------------------- phase 7: the paper's baselines and distributed
+    phase("7")
     import tempfile
 
     import torch.distributed as dist
@@ -4090,6 +4228,7 @@ def main() -> int:
     print(f"phase7: {time.perf_counter() - t7:.1f} s", flush=True)
 
     # ------------------- phase 8: the LM serving path at full width
+    phase("8")
     from repro_torch.configs import get_config
     from repro_torch.core.bucketing import bucket_n
     from repro_torch.launch.serve import Request, Server, prompts
@@ -4382,6 +4521,15 @@ def main() -> int:
           f"(reference backend equal: {same}), cost {res.cost:.6g}, swaps "
           f"{res.swaps}, pulls {res.pulls}, wall {wall:.3f} s, launches "
           f"{counts}, {mem}; {fmt_tot(tot)}", flush=True)
+    # row 5e: the k-medoids dot_pairwise launches against x @ y.T (the
+    # library call) at the same shapes
+    pw = [shape_time(k, "lm_embed", c, r, "l2", m)
+          for k, c, r, m in km_plan if k == "dot_pairwise"]
+    print(f"phase8d 5e ⊂ 5: kmedoids dot_pairwise by shape: "
+          f"{fmt_shapes(km_plan, 'lm_embed', 'l2', ('dot_pairwise',))}; in "
+          f"all {len(pw)} launches, kernel {sum(e[1] for e in pw):.3f} ms, "
+          f"x @ y.T {sum(e[5] for e in pw):.3f} ms (kernel / library "
+          f"{sum(e[1] for e in pw) / sum(e[5] for e in pw):.2f})", flush=True)
 
     shards = emb_ex.shard_bounds(n, EMB_QUERIES)
     (ssrv, rids), wall, counts, mem = main_path(
@@ -4427,9 +4575,11 @@ def main() -> int:
     print(f"phase8: {time.perf_counter() - t8:.1f} s", flush=True)
 
     # ------------- phase 9: the other LM families at full width
+    phase("9")
     phase9(dev)
 
     # ------------- phase 10: the recurrent families at full width
+    phase("10")
     t10 = time.perf_counter()
     zcfg, zparams = phase10(dev)
 
@@ -4498,6 +4648,7 @@ def main() -> int:
 
     # ------------- phase 11: training on the card; 12b's dry runs start
     # now on the host's CPU, beside it
+    phase("11")
     dryruns = phase12_dryruns()
     try:
         phase11(dev)
@@ -4507,12 +4658,15 @@ def main() -> int:
         raise
 
     # ------------- phase 12: the sharded trainer and the dry run
+    phase("12")
     phase12(dev, dryruns)
 
     for kern, row in led.rows.items():
         _require(row["launches"] > 0 or kern in UNCALLED,
                  f"{kern} was never launched on the main path")
-    print(f"chip_smoke: {time.perf_counter() - script_t0:.1f} s in all",
+    phase("end")
+    print(f"chip_smoke: {time.perf_counter() - script_t0:.1f} s in all; by "
+          f"phase " + ", ".join(f"{k} {v:.1f} s" for k, v in phase_s.items()),
           flush=True)
     print(led.line())
     print(_smi())

@@ -47,7 +47,8 @@ SIGNATURES = {
     "topk_smallest_launch": ("topk_smallest",
                              (_P, _P, _P, _LL, _LL, _I, _I, _I, _I, _P)),
     "dot_pairwise_launch": ("dot_pairwise",
-                            (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I, _P)),
+                            (_P, _P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _I,
+                             _P)),
     "l1_pairwise_launch": ("l1_pairwise",
                            (_P, _P, _P, _LL, _LL, _LL, _I, _I, _I, _P)),
     "threefry_draws_launch": ("threefry",

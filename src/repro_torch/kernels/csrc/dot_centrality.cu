@@ -45,13 +45,21 @@
 //    columns, a shuffle tree and a second warp sum each row's 128 columns
 //    in a fixed order into an (r-tiles, C) partial, and the second pass
 //    sums the r-tiles. Bound: the flops at the fp32 rate.
+//  * the d split, dtype 0 only, where the stream or tile plan leaves SMs
+//    idle on rows tens of thousands wide (the LM embeddings' d = 32000-
+//    92544, whose rounds got 3-32 blocks): ranks of blocks along d write
+//    their partial Grams to a (ranks, C, R) scratch; a second launch sums
+//    each pair's partials in rank order, applies f to the complete sum and
+//    sums the weighted rows in a fixed order, a block a row. Bound: the
+//    operands' bytes.
 //
 // The fp32 mode's Gram is plain fp32 FFMA on the CUDA cores on every path,
 // the flop-bound gemm path too: a TF32 Gram keeps about three decimal digits
 // and can flip the halving on near-ties. d is summed in groups of at most
 // 256 columns, no atomics: two launches are bit-equal. The arguments (path,
 // grid, splits) come from centrality_plan; `scratch` (C * R floats) holds
-// the running d sums where the stream path takes several d slabs, `partial`
+// the running d sums where the stream path takes several d slabs (splits *
+// C * R partial Grams with the d split), `partial`
 // the rows of the second pass (pairwise::centrality_rows); either may be
 // null where unused.
 //

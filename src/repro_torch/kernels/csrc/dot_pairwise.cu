@@ -24,6 +24,12 @@
 //    of block (1.3 ms). The gemm path (where the shape fills GEMM_FILL of
 //    its tile slots, pairwise_distance.py) sums 128 x 128 tiles with 8 x 8
 //    FFMA a thread.
+//  * the embedding rows of the LM scaffold, (C, R, d = 32000-92544) at the
+//    k-medoids shapes: bytes, but the unsplit plan gives their rounds 3-32
+//    blocks. The d split of the stream and tile paths (fp32 only, where the
+//    unsplit plan leaves SMs idle) puts ranks of blocks along d, each
+//    writing its partial Gram to a (ranks, C, R) scratch that a second
+//    launch sums in rank order.
 // Full fp32 FFMA on every path: a TF32 Gram keeps about three decimal
 // digits, which the fp32 mode's contract (and the sql2 and l2 epilogues'
 // cancellation at near pairs) does not allow, so even the flop-bound gemm
@@ -36,17 +42,18 @@
 // has no gemm path. No path of the JAX package or of the port calls it.
 #include "pairwise_tile.cuh"
 
+// `scratch`: the d split's (splits, C, R) partial Grams, or null.
 extern "C" int dot_pairwise_launch(const float* x, const float* y, float* out,
-                                   long long C, long long R, long long d,
-                                   int dtype, int path, int grid, int splits,
-                                   cudaStream_t stream) {
+                                   float* scratch, long long C, long long R,
+                                   long long d, int dtype, int path, int grid,
+                                   int splits, cudaStream_t stream) {
   switch (dtype) {
     case 0:
-      return pairwise::launch<pairwise::GramPair>(x, y, out, C, R, d, path, grid, splits,
-                                                  stream);
+      return pairwise::launch<pairwise::GramPair>(x, y, out, scratch, C, R, d, path, grid,
+                                                  splits, stream);
     case 1:
-      return pairwise::launch<pairwise::Bf16GramPair>(x, y, out, C, R, d, path, grid, splits,
-                                                      stream);
+      return pairwise::launch<pairwise::Bf16GramPair>(x, y, out, scratch, C, R, d, path, grid,
+                                                      splits, stream);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -25,6 +25,6 @@ extern "C" int l1_pairwise_launch(const float* x, const float* y, float* out,
                                   long long C, long long R, long long d,
                                   int path, int grid, int splits,
                                   cudaStream_t stream) {
-  return pairwise::launch<pairwise::L1Pair>(x, y, out, C, R, d, path, grid, splits,
-                                              stream);
+  return pairwise::launch<pairwise::L1Pair>(x, y, out, nullptr, C, R, d, path, grid, splits,
+                                            stream);
 }

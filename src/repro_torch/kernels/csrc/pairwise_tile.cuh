@@ -49,6 +49,22 @@
 //    arrive by TMA, one tensor copy an operand a slab (4-byte cp.async
 //    where rows are not 16-byte aligned). Bound: 2 C R d operations at the
 //    fp32 rate (the squares' bytes take a fiftieth of that).
+//  * the d split of the stream and tile paths, GramPair only
+//    (PATH_STREAM_SPLIT, PATH_TILE_SPLIT), for rows so wide that the
+//    unsplit plan leaves most SMs idle: the vocabulary-wide embeddings
+//    (d = 32000-92544), whose rounds give the stream path 3-16 blocks (its
+//    grid follows the long rows) and the tile path a few tiles of at most
+//    8-block clusters. The
+//    grid's y index is a rank q of `ranks` independent blocks along d, each
+//    summing a run of whole SPLIT_GROUP-column groups (the last rank the
+//    rest of d) into its own (C, R) slice of a (ranks, C, R) scratch; a
+//    second launch sums the slices in rank order (split_sum_kernel) or, for
+//    the centrality kernels, sums them per pair, applies the finish and
+//    sums the weighted rows in a fixed order (split_centrality_kernel): the
+//    l2 finish is nonlinear, so the partial Grams meet before it. The stream path's split double-buffers the short
+//    rows' slabs (the next slab's cp.async copies in flight while warps
+//    stream the current one), so a block never waits on a refill but its
+//    first. Bound: the operands' bytes; the scratch is the split's own cost.
 //
 // All paths: full fp32 FFMA on the CUDA cores (no TF32: the fp32 mode keeps
 // the fp32 Gram's precision, which a TF32 product would cut to about three
@@ -73,6 +89,13 @@
 
 #include <type_traits>
 
+// Internal linkage: every library that includes this header keeps its own
+// copy of each function. The launchers' function-local statics (each
+// kernel's one-time shared-memory opt-in) would otherwise be unique
+// symbols shared by every library that instantiates the same launcher, and
+// a library would skip the opt-in of its own kernel after another library
+// had made that of its copy.
+namespace {
 namespace pairwise {
 
 namespace cg = cooperative_groups;
@@ -83,10 +106,12 @@ namespace cg = cooperative_groups;
 // bf16, and the tile path multiplies on the tensor cores. A centrality Op
 // adds finish(s, xa, yb), which maps a complete d sum to the pair's distance
 // given per-row and per-reference inputs (squared norms for the Gram
-// metrics, unused by l1). kGemm: the gemm path takes this Op.
+// metrics, unused by l1). kGemm: the gemm path takes this Op; kSplit: the
+// d split does.
 struct GramPair {
   static constexpr bool kBf16 = false;
   static constexpr bool kGemm = true;
+  static constexpr bool kSplit = true;
   static __device__ __forceinline__ float stage(float a) { return a; }
   static __device__ __forceinline__ float pair(float acc, float a, float b) {
     return fmaf(a, b, acc);
@@ -103,6 +128,7 @@ struct GramPair {
 struct Bf16GramPair : GramPair {
   static constexpr bool kBf16 = true;
   static constexpr bool kGemm = false;
+  static constexpr bool kSplit = false;
   static __device__ __forceinline__ float stage(float a) {
     return __bfloat162float(__float2bfloat16_rn(a));
   }
@@ -111,6 +137,7 @@ struct Bf16GramPair : GramPair {
 struct L1Pair {
   static constexpr bool kBf16 = false;
   static constexpr bool kGemm = false;
+  static constexpr bool kSplit = false;
   static __device__ __forceinline__ float stage(float a) { return a; }
   static __device__ __forceinline__ float pair(float acc, float a, float b) {
     return acc + fabsf(a - b);
@@ -120,6 +147,13 @@ struct L1Pair {
 constexpr int PATH_STREAM = 0;
 constexpr int PATH_TILE = 1;
 constexpr int PATH_GEMM = 2;
+constexpr int PATH_STREAM_SPLIT = 3;
+constexpr int PATH_TILE_SPLIT = 4;
+
+// the d split: a rank's run is whole groups of SPLIT_GROUP columns (no
+// running sum spans more than 256 terms), its ranks are gridDim.y
+constexpr int SPLIT_GROUP = 256;
+constexpr int SPLIT_MAX_RANKS = 65535;
 
 // stream path
 constexpr int S_WARPS = 8;                 // warps per block
@@ -359,13 +393,79 @@ __device__ __forceinline__ float weight(const float* w, int64_t i) { return w !=
 // candidate) lane m adds w[n] * D into a register sum over the warp's long
 // rows (in groups of 256 rows), the block sums its warps in warp order and
 // writes one row of `partial`, which a second pass sums over the grid.
+//
+// stream_totals: one warp's pass over L long rows n0.. of the slab of kv
+// vectors at column k0 against the M short rows in shv: total[l] of lane
+// m < M is the slab's d sum of short row m and long row n0 + l.
+template <class Op, int MS, int L, int VW>
+__device__ __forceinline__ void stream_totals(const float* __restrict__ lp,
+                                              const typename Vec<VW>::T* shv, int M,
+                                              int64_t N, int64_t n0, int64_t d, int64_t k0,
+                                              int kv, int lane, float (&total)[L]) {
+  using V = typename Vec<VW>::T;
+  constexpr int U = S_CHUNK / (32 * VW * L);   // loads per row per lane
+  constexpr int FOLD = 256 / (U * VW);         // chunks per group sum
+  float acc[L][MS];
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    total[l] = 0.f;
+#pragma unroll
+    for (int m = 0; m < MS; ++m) acc[l][m] = 0.f;
+  }
+  for (int j0 = 0, ch = 1; j0 < kv; j0 += 32 * U, ++ch) {
+    V v[L][U];
+#pragma unroll
+    for (int l = 0; l < L; ++l) {
+      const V* row = reinterpret_cast<const V*>(lp + (n0 + l) * d + k0);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int j = j0 + u * 32 + lane;
+        v[l][u] = n0 + l < N && j < kv ? load_stream(row + j) : vzero(V());
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int j = j0 + u * 32 + lane;
+      if (j < kv) {
+        // the long values rounded here, where they are consumed: rounded
+        // right after their loads, ptxas reused each load's registers
+        // for the next load and so issued the L * U loads of a pass one
+        // after another, which cost the bf16 mode a third of the fp32
+        // mode's time at (20000, 2, 784) on an H100
+        V vs[L];
+#pragma unroll
+        for (int l = 0; l < L; ++l) vs[l] = stage_vec<Op>(v[l][u]);
+#pragma unroll
+        for (int m = 0; m < MS; ++m) {
+          if (m >= M) break;   // a uniform branch, not MS - M idle steps
+          const V sv = shv[m * kv + j];
+#pragma unroll
+          for (int l = 0; l < L; ++l) acc[l][m] = pair_vec<Op>(acc[l][m], vs[l], sv);
+        }
+      }
+    }
+    if (ch % FOLD == 0 && j0 + 32 * U < kv) {   // d > 8192: a group is full
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        warp_sums<MS, 16>(acc[l], lane);
+        total[l] += acc[l][0];
+#pragma unroll
+        for (int m = 0; m < MS; ++m) acc[l][m] = 0.f;
+      }
+    }
+  }
+#pragma unroll
+  for (int l = 0; l < L; ++l) {
+    warp_sums<MS, 16>(acc[l], lane);
+    total[l] += acc[l][0];
+  }
+}
+
 template <class Op, bool CEN, int MS, int L, int VW>
 __global__ void __launch_bounds__(S_THREADS, 2)
 stream_kernel(const float* __restrict__ x, const float* __restrict__ y, Sink sink,
               int64_t C, int64_t R, int64_t d, int64_t slab, bool short_x) {
   using V = typename Vec<VW>::T;
-  constexpr int U = S_CHUNK / (32 * VW * L);   // loads per row per lane
-  constexpr int FOLD = 256 / (U * VW);         // chunks per group sum
   extern __shared__ __align__(16) float sh[];
   const float* __restrict__ sp = short_x ? x : y;
   const float* __restrict__ lp = short_x ? y : x;
@@ -408,59 +508,10 @@ stream_kernel(const float* __restrict__ x, const float* __restrict__ y, Sink sin
     const V* shv = reinterpret_cast<const V*>(sh);
 
     for (int64_t n0 = warp0 * L; n0 < N; n0 += nwarps * L) {
-      float acc[L][MS], total[L];
+      float total[L];
+      stream_totals<Op, MS, L, VW>(lp, shv, M, N, n0, d, k0, kv, lane, total);
 #pragma unroll
       for (int l = 0; l < L; ++l) {
-        total[l] = 0.f;
-#pragma unroll
-        for (int m = 0; m < MS; ++m) acc[l][m] = 0.f;
-      }
-      for (int j0 = 0, ch = 1; j0 < kv; j0 += 32 * U, ++ch) {
-        V v[L][U];
-#pragma unroll
-        for (int l = 0; l < L; ++l) {
-          const V* row = reinterpret_cast<const V*>(lp + (n0 + l) * d + k0);
-#pragma unroll
-          for (int u = 0; u < U; ++u) {
-            const int j = j0 + u * 32 + lane;
-            v[l][u] = n0 + l < N && j < kv ? load_stream(row + j) : vzero(V());
-          }
-        }
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const int j = j0 + u * 32 + lane;
-          if (j < kv) {
-            // the long values rounded here, where they are consumed: rounded
-            // right after their loads, ptxas reused each load's registers
-            // for the next load and so issued the L * U loads of a pass one
-            // after another, which cost the bf16 mode a third of the fp32
-            // mode's time at (20000, 2, 784) on an H100
-            V vs[L];
-#pragma unroll
-            for (int l = 0; l < L; ++l) vs[l] = stage_vec<Op>(v[l][u]);
-#pragma unroll
-            for (int m = 0; m < MS; ++m) {
-              if (m >= M) break;   // a uniform branch, not MS - M idle steps
-              const V sv = shv[m * kv + j];
-#pragma unroll
-              for (int l = 0; l < L; ++l) acc[l][m] = pair_vec<Op>(acc[l][m], vs[l], sv);
-            }
-          }
-        }
-        if (ch % FOLD == 0 && j0 + 32 * U < kv) {   // d > 8192: a group is full
-#pragma unroll
-          for (int l = 0; l < L; ++l) {
-            warp_sums<MS, 16>(acc[l], lane);
-            total[l] += acc[l][0];
-#pragma unroll
-            for (int m = 0; m < MS; ++m) acc[l][m] = 0.f;
-          }
-        }
-      }
-#pragma unroll
-      for (int l = 0; l < L; ++l) {
-        warp_sums<MS, 16>(acc[l], lane);
-        total[l] += acc[l][0];
         const int64_t n = n0 + l;
         const int64_t idx = short_x ? (int64_t)lane * N + n : n * M + lane;
         if constexpr (!CEN) {
@@ -499,6 +550,78 @@ stream_kernel(const float* __restrict__ x, const float* __restrict__ y, Sink sin
         sink.partial[(int64_t)blockIdx.x * C + threadIdx.x] = s;
       }
     }
+  }
+}
+
+// The stream path's d split (GramPair): block (b, q) of the (gridDim.x,
+// ranks) grid sums d columns [q run, min(d, (q + 1) run)) of its warps'
+// long rows into slice q of the (ranks, C, R) scratch `part`, as
+// stream_kernel sums a slab (a later slab adds to what the same lane wrote
+// for the earlier ones). The short rows' slabs of `slab` columns alternate
+// between two buffers of shared memory (one where the run is one slab):
+// slab s + 1's copies are issued before slab s is summed, so only the
+// first slab's copies are waited for with nothing to do.
+template <int MS, int L, int VW>
+__global__ void __launch_bounds__(S_THREADS, 2)
+stream_split_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                    float* __restrict__ part, int64_t C, int64_t R, int64_t d, int64_t run,
+                    int64_t slab, bool short_x) {
+  using V = typename Vec<VW>::T;
+  extern __shared__ __align__(16) float sh[];
+  const float* __restrict__ sp = short_x ? x : y;
+  const float* __restrict__ lp = short_x ? y : x;
+  const int M = (int)(short_x ? C : R);
+  const int64_t N = short_x ? R : C;
+  const int lane = threadIdx.x & 31;
+  const int64_t warp0 = (int64_t)blockIdx.x * S_WARPS + (threadIdx.x >> 5);
+  const int64_t nwarps = (int64_t)gridDim.x * S_WARPS;
+  const int64_t kbeg = (int64_t)blockIdx.y * run;
+  const int64_t kend = kbeg + run < d ? kbeg + run : d;
+  const int nsl = (int)((kend - kbeg + slab - 1) / slab);   // >= 1: no empty rank
+  float* __restrict__ out = part + (int64_t)blockIdx.y * C * R;
+  auto width = [&](int s) {   // vectors of slab s
+    const int64_t k0 = kbeg + (int64_t)s * slab;
+    return (int)((kend - k0 < slab ? kend - k0 : slab) / VW);
+  };
+  auto issue = [&](int s) {   // slab s's copies into buffer s % 2
+    const int64_t k0 = kbeg + (int64_t)s * slab;
+    const int kv = width(s);
+    float* buf = sh + (s & 1) * M * slab;
+    for (int e = threadIdx.x; e < M * kv; e += S_THREADS) {
+      const int m = e / kv;
+      const int j = e - m * kv;
+      const float* g = sp + (int64_t)m * d + k0 + (int64_t)j * VW;
+      if (VW == 4)
+        cp_async16(buf + (m * kv + j) * VW, g, true);
+      else
+        cp_async4(buf + (m * kv + j) * VW, g, true);
+    }
+    cp_async_commit();
+  };
+
+  issue(0);
+  for (int s = 0; s < nsl; ++s) {
+    if (s + 1 < nsl) {   // buffer (s + 1) % 2's readers left it at s - 1
+      issue(s + 1);
+      cp_async_wait<1>();   // slab s has landed for this thread
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();   // ... for all
+    const int64_t k0 = kbeg + (int64_t)s * slab;
+    const int kv = width(s);
+    const V* shv = reinterpret_cast<const V*>(sh + (s & 1) * M * slab);
+    for (int64_t n0 = warp0 * L; n0 < N; n0 += nwarps * L) {
+      float total[L];
+      stream_totals<GramPair, MS, L, VW>(lp, shv, M, N, n0, d, k0, kv, lane, total);
+#pragma unroll
+      for (int l = 0; l < L; ++l) {
+        const int64_t n = n0 + l;
+        const int64_t idx = short_x ? (int64_t)lane * N + n : n * M + lane;
+        if (lane < M && n < N) out[idx] = s == 0 ? total[l] : out[idx] + total[l];
+      }
+    }
+    __syncthreads();   // slab s's readers are done before slab s + 2's copies
   }
 }
 
@@ -542,20 +665,30 @@ __device__ __forceinline__ void load_slab(float (*dst)[T_PAD], const float* __re
 // columns (its own two, then a shuffle tree over the 16 lanes of the row)
 // and writes row r-tile of `partial`, which a second pass sums over the
 // r-tiles.
-template <class Op, bool CEN, int VW>
+// SPLIT (the d split, GramPair): no cluster; block (t, q) of the (tiles,
+// ranks) grid sums tile t over rank q's run of d and writes it to slice q
+// of the (ranks, C, R) scratch `sink.scratch`.
+template <class Op, bool CEN, int VW, bool SPLIT = false>
 __global__ void __launch_bounds__(T_THREADS)
 tile_kernel(const float* __restrict__ x, const float* __restrict__ y, Sink sink,
             int64_t C, int64_t R, int64_t d, int64_t n_rtiles, int64_t run) {
+  static_assert(!SPLIT || (Op::kSplit && !CEN), "the d split's first pass is the fp32 Gram");
   extern __shared__ __align__(16) float ring[];   // T_SMEM bytes
   auto xs = reinterpret_cast<float (*)[T_TILE][T_PAD]>(ring);
   auto ys = reinterpret_cast<float (*)[T_TILE][T_PAD]>(ring + T_STAGES * T_TILE * T_PAD);
-  __shared__ float part[T_TILE][T_TILE + 1];
+  __shared__ float part[SPLIT ? 1 : T_TILE][T_TILE + 1];
   constexpr bool MMA = Op::kBf16;
   __shared__ __align__(16) __nv_bfloat16 xb[MMA ? T_TILE : 1][T_BPAD];   // MMA: the slab in bf16
   __shared__ __align__(16) __nv_bfloat16 yb[MMA ? T_TILE : 1][T_BPAD];
-  cg::cluster_group cluster = cg::this_cluster();
-  const unsigned rank = cluster.block_rank();
-  const unsigned splits = cluster.num_blocks();
+  unsigned rank, splits;
+  if constexpr (SPLIT) {
+    rank = blockIdx.y;
+    splits = 1;
+  } else {
+    cg::cluster_group cluster = cg::this_cluster();
+    rank = cluster.block_rank();
+    splits = cluster.num_blocks();
+  }
   const int tx = threadIdx.x % 16;
   const int ty = threadIdx.x / 16;
   const int64_t tile = (int64_t)(blockIdx.x / splits);
@@ -641,7 +774,11 @@ tile_kernel(const float* __restrict__ x, const float* __restrict__ y, Sink sink,
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj) {
       acc[ii][jj] += grp[ii][jj];
-      if constexpr (MMA) {   // fragment value e = 2 ii + jj of warp w
+      if constexpr (SPLIT) {   // this rank's slice of the scratch
+        const int64_t c = c0 + ty + 16 * ii;
+        const int64_t r = r0 + tx + 16 * jj;
+        if (c < C && r < R) sink.scratch[(int64_t)rank * C * R + c * R + r] = acc[ii][jj];
+      } else if constexpr (MMA) {   // fragment value e = 2 ii + jj of warp w
         const int lane = threadIdx.x & 31;
         part[(threadIdx.x >> 5 & 1) * 16 + (lane >> 2) + 8 * ii]
             [(threadIdx.x >> 6) * 8 + (lane & 3) * 2 + jj] = acc[ii][jj];
@@ -649,52 +786,54 @@ tile_kernel(const float* __restrict__ x, const float* __restrict__ y, Sink sink,
         part[ty + 16 * ii][tx + 16 * jj] = acc[ii][jj];
       }
     }
-
-  cluster.sync();   // every rank's partial tile is in its shared memory
-  if (rank == 0) {
-    if constexpr (MMA) {   // this rank's tile in the epilogue's 2 x 2 layout
+  if constexpr (!SPLIT) {   // the cluster's epilogue
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();   // every rank's partial tile is in its shared memory
+    if (rank == 0) {
+      if constexpr (MMA) {   // this rank's tile in the epilogue's 2 x 2 layout
 #pragma unroll
-      for (int ii = 0; ii < 2; ++ii)
+        for (int ii = 0; ii < 2; ++ii)
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj) acc[ii][jj] = part[ty + 16 * ii][tx + 16 * jj];
-    }
-    for (unsigned q = 1; q < splits; ++q) {
-      const float* rp = cluster.map_shared_rank(&part[0][0], q);
+          for (int jj = 0; jj < 2; ++jj) acc[ii][jj] = part[ty + 16 * ii][tx + 16 * jj];
+      }
+      for (unsigned q = 1; q < splits; ++q) {
+        const float* rp = cluster.map_shared_rank(&part[0][0], q);
 #pragma unroll
-      for (int ii = 0; ii < 2; ++ii)
+        for (int ii = 0; ii < 2; ++ii)
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj)
-          acc[ii][jj] += rp[(ty + 16 * ii) * (T_TILE + 1) + tx + 16 * jj];
-    }
-    if constexpr (!CEN) {
+          for (int jj = 0; jj < 2; ++jj)
+            acc[ii][jj] += rp[(ty + 16 * ii) * (T_TILE + 1) + tx + 16 * jj];
+      }
+      if constexpr (!CEN) {
 #pragma unroll
-      for (int ii = 0; ii < 2; ++ii) {
-        const int64_t c = c0 + ty + 16 * ii;
-        if (c >= C) continue;
+        for (int ii = 0; ii < 2; ++ii) {
+          const int64_t c = c0 + ty + 16 * ii;
+          if (c >= C) continue;
 #pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int64_t r = r0 + tx + 16 * jj;
-          if (r < R) sink.out[c * R + r] = acc[ii][jj];
+          for (int jj = 0; jj < 2; ++jj) {
+            const int64_t r = r0 + tx + 16 * jj;
+            if (r < R) sink.out[c * R + r] = acc[ii][jj];
+          }
+        }
+      } else {
+#pragma unroll
+        for (int ii = 0; ii < 2; ++ii) {
+          const int64_t c = c0 + ty + 16 * ii;
+          const float xa = c < C ? aux(sink.xaux, c) : 0.f;
+          float v = 0.f;
+#pragma unroll
+          for (int jj = 0; jj < 2; ++jj) {
+            const int64_t r = r0 + tx + 16 * jj;
+            if (r < R) v += Op::finish(acc[ii][jj], xa, aux(sink.yaux, r)) * weight(sink.w, r);
+          }
+#pragma unroll
+          for (int off = 8; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off, 16);
+          if (tx == 0 && c < C) sink.partial[(r0 / T_TILE) * C + c] = v;
         }
       }
-    } else {
-#pragma unroll
-      for (int ii = 0; ii < 2; ++ii) {
-        const int64_t c = c0 + ty + 16 * ii;
-        const float xa = c < C ? aux(sink.xaux, c) : 0.f;
-        float v = 0.f;
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          const int64_t r = r0 + tx + 16 * jj;
-          if (r < R) v += Op::finish(acc[ii][jj], xa, aux(sink.yaux, r)) * weight(sink.w, r);
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off /= 2) v += __shfl_xor_sync(0xffffffffu, v, off, 16);
-        if (tx == 0 && c < C) sink.partial[(r0 / T_TILE) * C + c] = v;
-      }
     }
+    cluster.sync();   // no block leaves while rank 0 may read its tile
   }
-  cluster.sync();   // no block leaves while rank 0 may read its tile
 }
 
 // The gemm path's 4-byte loads (rows not 16-byte aligned or d % 4 != 0; TMA
@@ -944,54 +1083,79 @@ gemm_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUte
   if constexpr (!TMA) cp_async_wait<0>();
 }
 
-template <class Op, bool CEN, int MS, int L, int VW>
+// One stream-path launch's geometry: `grid` blocks (each rank's, with the d
+// split) holding `slab` columns of the short rows in shared memory at a
+// time; with the split (SPLIT below), `ranks` ranks (gridDim.y) of `run`
+// columns, else ranks 1 and run 0.
+struct StreamGeom {
+  int64_t slab;
+  int64_t run;
+  int grid;
+  int ranks;
+};
+
+// SPLIT: the d split's first pass (GramPair), into sink.scratch.
+template <class Op, bool CEN, int MS, int L, int VW, bool SPLIT>
 inline cudaError_t launch_stream_kernel(const float* x, const float* y, const Sink& sink,
-                                        int64_t C, int64_t R, int64_t d, int64_t slab, int grid,
+                                        int64_t C, int64_t R, int64_t d, const StreamGeom& g,
                                         bool short_x, cudaStream_t stream) {
   const int64_t M = short_x ? C : R;
-  size_t smem = (size_t)(M * (slab < d ? slab : d)) * sizeof(float);
-  if (CEN && short_x && smem < S_THREADS * sizeof(float))
-    smem = S_THREADS * sizeof(float);   // the block's sum over its warps
-  if (smem > 48 * 1024) {
-    // Above 48 KB only after an opt-in, made once per kernel (and so never
-    // inside a CUDA-graph capture that follows an eager first call).
-    static const cudaError_t err = cudaFuncSetAttribute(
-        stream_kernel<Op, CEN, MS, L, VW>, cudaFuncAttributeMaxDynamicSharedMemorySize, S_SMEM);
-    if (err != cudaSuccess) return err;
+  if constexpr (SPLIT) {
+    static_assert(Op::kSplit && !CEN, "the d split's first pass is the fp32 Gram");
+    const size_t smem = (size_t)((g.slab < g.run ? 2 : 1) * M * g.slab) * sizeof(float);
+    if (smem > 48 * 1024) {
+      static const cudaError_t err = cudaFuncSetAttribute(
+          stream_split_kernel<MS, L, VW>, cudaFuncAttributeMaxDynamicSharedMemorySize, S_SMEM);
+      if (err != cudaSuccess) return err;
+    }
+    stream_split_kernel<MS, L, VW><<<dim3((unsigned)g.grid, (unsigned)g.ranks), S_THREADS, smem,
+                                     stream>>>(x, y, sink.scratch, C, R, d, g.run, g.slab,
+                                               short_x);
+  } else {
+    size_t smem = (size_t)(M * (g.slab < d ? g.slab : d)) * sizeof(float);
+    if (CEN && short_x && smem < S_THREADS * sizeof(float))
+      smem = S_THREADS * sizeof(float);   // the block's sum over its warps
+    if (smem > 48 * 1024) {
+      // Above 48 KB only after an opt-in, made once per kernel (and so never
+      // inside a CUDA-graph capture that follows an eager first call).
+      static const cudaError_t err = cudaFuncSetAttribute(
+          stream_kernel<Op, CEN, MS, L, VW>, cudaFuncAttributeMaxDynamicSharedMemorySize, S_SMEM);
+      if (err != cudaSuccess) return err;
+    }
+    stream_kernel<Op, CEN, MS, L, VW><<<g.grid, S_THREADS, smem, stream>>>(x, y, sink, C, R, d,
+                                                                           g.slab, short_x);
   }
-  stream_kernel<Op, CEN, MS, L, VW><<<grid, S_THREADS, smem, stream>>>(x, y, sink, C, R, d,
-                                                                       slab, short_x);
   return cudaGetLastError();
 }
 
 // 4 long rows a pass for MS 8 and 16 with 16-byte loads, where the long
-// side gives every warp of the grid at least one such pass; else 2.
-template <class Op, bool CEN, int MS>
+// side gives every warp of the grid (of a rank) at least one such pass;
+// else 2.
+template <class Op, bool CEN, int MS, bool SPLIT>
 inline cudaError_t launch_stream_ms(const float* x, const float* y, const Sink& sink, int64_t C,
-                                    int64_t R, int64_t d, int64_t slab, int grid, bool vec,
+                                    int64_t R, int64_t d, const StreamGeom& g, bool vec,
                                     bool short_x, cudaStream_t stream) {
   if (!vec)
-    return launch_stream_kernel<Op, CEN, MS, 2, 1>(x, y, sink, C, R, d, slab, grid, short_x,
-                                                   stream);
+    return launch_stream_kernel<Op, CEN, MS, 2, 1, SPLIT>(x, y, sink, C, R, d, g, short_x,
+                                                          stream);
   if constexpr (MS == 8 || MS == 16) {
     const int64_t N = short_x ? R : C;
-    if (N >= (int64_t)S_ROWS_WIDE * S_WARPS * grid)
-      return launch_stream_kernel<Op, CEN, MS, S_ROWS_WIDE, 4>(x, y, sink, C, R, d, slab, grid,
-                                                               short_x, stream);
+    if (N >= (int64_t)S_ROWS_WIDE * S_WARPS * g.grid)
+      return launch_stream_kernel<Op, CEN, MS, S_ROWS_WIDE, 4, SPLIT>(x, y, sink, C, R, d, g,
+                                                                      short_x, stream);
   }
-  return launch_stream_kernel<Op, CEN, MS, 2, 4>(x, y, sink, C, R, d, slab, grid, short_x,
-                                                 stream);
+  return launch_stream_kernel<Op, CEN, MS, 2, 4, SPLIT>(x, y, sink, C, R, d, g, short_x, stream);
 }
 
-template <class Op, bool CEN>
+template <class Op, bool CEN, bool SPLIT = false>
 inline cudaError_t launch_stream(const float* x, const float* y, const Sink& sink, int64_t C,
-                                 int64_t R, int64_t d, int64_t slab, int grid, bool vec,
+                                 int64_t R, int64_t d, const StreamGeom& g, bool vec,
                                  cudaStream_t stream) {
   const bool short_x = C <= R;
   const int64_t M = short_x ? C : R;
   auto go = [&](auto ms) {   // MS = the short row count's power of two
-    return launch_stream_ms<Op, CEN, decltype(ms)::value>(x, y, sink, C, R, d, slab, grid, vec,
-                                                          short_x, stream);
+    return launch_stream_ms<Op, CEN, decltype(ms)::value, SPLIT>(x, y, sink, C, R, d, g, vec,
+                                                                 short_x, stream);
   };
   if (M <= 1) return go(std::integral_constant<int, 1>{});
   if (M <= 2) return go(std::integral_constant<int, 2>{});
@@ -1011,6 +1175,23 @@ inline int64_t stream_slab(int64_t M, int64_t d, int splits) {
   if (M * (slab < d ? slab : d) * (int64_t)sizeof(float) > S_SMEM) return 0;
   return slab;
 }
+
+// The d split's run: ceil(d / ranks) in whole SPLIT_GROUP-column groups;
+// rank q sums columns [q run, min(d, (q + 1) run)).
+inline int64_t split_run(int64_t d, int ranks) {
+  const int64_t groups = (d + SPLIT_GROUP - 1) / SPLIT_GROUP;
+  return (groups + ranks - 1) / ranks * SPLIT_GROUP;
+}
+
+// The stream split's slab: a rank's whole run where its short rows fit
+// S_SMEM (one buffer), else the most whole lane passes of 4 columns that
+// each of two buffers of S_SMEM / 2 holds.
+inline int64_t split_slab(int64_t M, int64_t run) {
+  if (M * run * (int64_t)sizeof(float) <= S_SMEM) return run;
+  return S_SMEM / 2 / (M * (int64_t)sizeof(float) * S_SLAB_ALIGN) * S_SLAB_ALIGN;
+}
+
+inline bool is_split(int path) { return path == PATH_STREAM_SPLIT || path == PATH_TILE_SPLIT; }
 
 // The TMA map of a (rows, d) fp32 matrix at p (16-byte aligned, d % 4 == 0,
 // d > 0) for the gemm path: boxes of 32 columns by G_TILE rows, 128-byte
@@ -1043,6 +1224,48 @@ inline cudaError_t gemm_tensor_map(CUtensorMap* map, const float* p, int64_t row
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// The d split's first pass (the fp32 Gram) for C, R, d >= 1: `splits` ranks
+// of the stream path's blocks (`grid` / splits a rank) or of the tiles
+// (`grid` = tiles * splits), rank q's partial Gram into slice q of the
+// (splits, C, R) scratch `part`. Pair: GramPair (a template, so that only
+// the sources that launch it build its kernels).
+template <class Pair>
+inline cudaError_t launch_split_pass(const float* x, const float* y, float* part, int64_t C,
+                                     int64_t R, int64_t d, int path, int grid, int splits,
+                                     bool vec, cudaStream_t stream) {
+  static_assert(Pair::kSplit && !Pair::kBf16, "the d split's first pass is the fp32 Gram");
+  if (d < 1 || splits < 2 || splits > SPLIT_MAX_RANKS || part == nullptr)
+    return cudaErrorInvalidValue;
+  const int64_t run = split_run(d, splits);
+  if ((int64_t)(splits - 1) * run >= d) return cudaErrorInvalidValue;   // an empty rank
+  const Sink sink = {nullptr, part, nullptr, nullptr, nullptr, nullptr};
+  if (path == PATH_STREAM_SPLIT) {
+    const int64_t M = C <= R ? C : R;
+    if (M > S_MAX_SHORT || grid % splits != 0) return cudaErrorInvalidValue;
+    return launch_stream<Pair, false, true>(
+        x, y, sink, C, R, d, StreamGeom{split_slab(M, run), run, grid / splits, splits}, vec,
+        stream);
+  }
+  const int64_t n_rtiles = (R + T_TILE - 1) / T_TILE;
+  const int64_t tiles = ((C + T_TILE - 1) / T_TILE) * n_rtiles;
+  if (tiles * splits != (int64_t)grid) return cudaErrorInvalidValue;
+  // the ring's dynamic shared memory, opted into once per kernel
+  static const cudaError_t e4 = cudaFuncSetAttribute(
+      tile_kernel<Pair, false, 4, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
+  static const cudaError_t e1 = cudaFuncSetAttribute(
+      tile_kernel<Pair, false, 1, true>, cudaFuncAttributeMaxDynamicSharedMemorySize, T_SMEM);
+  const cudaError_t err = vec ? e4 : e1;
+  if (err != cudaSuccess) return err;
+  const dim3 blocks((unsigned)tiles, (unsigned)splits);
+  if (vec)
+    tile_kernel<Pair, false, 4, true><<<blocks, T_THREADS, T_SMEM, stream>>>(
+        x, y, sink, C, R, d, n_rtiles, run);
+  else
+    tile_kernel<Pair, false, 1, true><<<blocks, T_THREADS, T_SMEM, stream>>>(
+        x, y, sink, C, R, d, n_rtiles, run);
+  return cudaGetLastError();
+}
+
 // One launch of either path's first pass for C, R >= 1, with the checks of
 // `launch` below; returns the launch's error code.
 template <class Op, bool CEN>
@@ -1056,7 +1279,15 @@ inline cudaError_t launch_path(const float* x, const float* y, const Sink& sink,
     if (M > S_MAX_SHORT) return cudaErrorInvalidValue;
     const int64_t slab = stream_slab(M, d, splits);
     if (slab == 0) return cudaErrorInvalidValue;
-    return launch_stream<Op, CEN>(x, y, sink, C, R, d, slab, grid, vec, stream);
+    return launch_stream<Op, CEN>(x, y, sink, C, R, d, StreamGeom{slab, 0, grid, 1}, vec,
+                                  stream);
+  }
+  if (is_split(path)) {
+    if constexpr (Op::kSplit && !CEN) {
+      return launch_split_pass<Op>(x, y, sink.scratch, C, R, d, path, grid, splits, vec, stream);
+    } else {
+      return cudaErrorInvalidValue;   // no d split for this Op
+    }
   }
   if (path == PATH_GEMM) {
     if constexpr (Op::kGemm) {
@@ -1120,16 +1351,45 @@ inline cudaError_t launch_path(const float* x, const float* y, const Sink& sink,
   return cudaGetLastError();
 }
 
+// The sum over `ranks` ranks of p[q * stride], in rank order (in groups of
+// 256 ranks): the d split's complete d sum of one pair.
+__device__ __forceinline__ float rank_sum(const float* __restrict__ p, int64_t stride, int ranks) {
+  float s = 0.f, g = 0.f;
+  for (int q = 0; q < ranks; ++q) {
+    g += p[(int64_t)q * stride];
+    if ((q & 255) == 255) {
+      s += g;
+      g = 0.f;
+    }
+  }
+  return s + g;
+}
+
+// The pairwise kernels' second pass of the d split: out[i] = the rank sum
+// of the (ranks, C, R) scratch at i < n = C R.
+__global__ void split_sum_kernel(const float* __restrict__ part, float* __restrict__ out,
+                                 int64_t n, int ranks) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) out[i] = rank_sum(part + i, n, ranks);
+}
+
 // Launches one path on `stream` for C, R >= 1 and returns the launch's
 // error code as an int. path, grid and splits come from pairwise_plan:
 // stream path, `grid` blocks and `splits` d slabs; tile path, `grid` =
 // tiles * splits blocks in clusters of `splits` along d; gemm path (Op::kGemm
-// only), a persistent `grid` of at most one block a 128 x 128 tile, splits 1.
+// only), a persistent `grid` of at most one block a 128 x 128 tile, splits 1;
+// the d split (Op::kSplit only), `splits` ranks of the stream path's blocks
+// (`grid` / splits a rank) or of the tiles (`grid` = tiles * splits), into
+// `scratch` (splits * C * R floats; null otherwise), then split_sum_kernel.
 template <class Op>
-inline int launch(const float* x, const float* y, float* out, int64_t C, int64_t R,
-                  int64_t d, int path, int grid, int splits, cudaStream_t stream) {
-  const Sink sink = {out, nullptr, nullptr, nullptr, nullptr, nullptr};
-  return (int)launch_path<Op, false>(x, y, sink, C, R, d, path, grid, splits, stream);
+inline int launch(const float* x, const float* y, float* out, float* scratch, int64_t C,
+                  int64_t R, int64_t d, int path, int grid, int splits, cudaStream_t stream) {
+  const Sink sink = {out, scratch, nullptr, nullptr, nullptr, nullptr};
+  const cudaError_t err = launch_path<Op, false>(x, y, sink, C, R, d, path, grid, splits, stream);
+  if (err != cudaSuccess || !is_split(path)) return (int)err;
+  const int64_t n = C * R;
+  split_sum_kernel<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(scratch, out, n, splits);
+  return (int)cudaGetLastError();
 }
 
 // out[c] = sum over rows k of partial[k, c]: one warp a column, lane l
@@ -1156,6 +1416,50 @@ __global__ void reduce_rows_kernel(const float* __restrict__ partial, float* __r
   if (lane == 0) out[c] = s;
 }
 
+// The centrality kernels' second pass of the d split: S[c] = sum_r w[r] *
+// Op::finish(the rank sum of the (ranks, C, R) scratch at (c, r), xaux[c],
+// yaux[r]), one block of 32-256 threads a row c (split_centrality_threads):
+// thread t takes r = t, t + blockDim.x, ... in groups of 256, then a
+// shuffle tree in each warp and the warps' sums in warp order. A warp a row
+// would leave the C-short rounds' thousands of references to a few warps.
+constexpr int SPLIT_CEN_THREADS = 256;
+
+inline int split_centrality_threads(int64_t R) {
+  const int64_t warps = (R + 31) / 32;
+  return 32 * (int)(warps < SPLIT_CEN_THREADS / 32 ? warps : SPLIT_CEN_THREADS / 32);
+}
+
+template <class Op>
+__global__ void __launch_bounds__(SPLIT_CEN_THREADS)
+split_centrality_kernel(const float* __restrict__ part, const Sink sink, int64_t R, int ranks) {
+  __shared__ float warp_sums[SPLIT_CEN_THREADS / 32];
+  const int64_t c = blockIdx.x;
+  const int64_t CR = (int64_t)gridDim.x * R;
+  const int lane = threadIdx.x & 31;
+  const float xa = aux(sink.xaux, c);
+  float s = 0.f, g = 0.f;
+  int count = 0;
+  for (int64_t r = threadIdx.x; r < R; r += blockDim.x) {
+    const float dsum = rank_sum(part + c * R + r, CR, ranks);
+    g += Op::finish(dsum, xa, aux(sink.yaux, r)) * weight(sink.w, r);
+    if (++count == 256) {
+      s += g;
+      g = 0.f;
+      count = 0;
+    }
+  }
+  s += g;
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (lane == 0) warp_sums[threadIdx.x >> 5] = s;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float t = 0.f;
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) t += warp_sums[w];
+    sink.out[c] = t;
+  }
+}
+
 // The rows of partial one centrality launch writes for its second pass, or
 // 1 when the first pass writes out directly: the grid of a C-short stream
 // launch, the r-tiles of a tile or gemm launch.
@@ -1171,13 +1475,29 @@ inline int64_t centrality_rows(int64_t C, int64_t R, int path, int grid) {
 // pairwise_distance.py). `scratch` holds C * R floats where the stream path
 // takes several d slabs, `partial` centrality_rows * C floats where that
 // exceeds 1; either may be null otherwise. Launches the first pass and, with
-// several rows of partial, reduce_rows_kernel.
+// several rows of partial, reduce_rows_kernel. The d split (Op::kSplit):
+// `scratch` holds splits * C * R floats of partial Grams, summed by
+// split_centrality_kernel; `partial` is unused.
 template <class Op>
 inline int launch_centrality(const float* x, const float* y, const float* xaux,
                              const float* yaux, const float* w, float* scratch, float* partial,
                              float* out, int64_t C, int64_t R, int64_t d, int path, int grid,
                              int splits, cudaStream_t stream) {
   if (C < 1 || R < 1 || d < 0 || grid < 1 || splits < 1) return (int)cudaErrorInvalidValue;
+  if (is_split(path)) {
+    if constexpr (Op::kSplit) {
+      const bool vec = d % 4 == 0 && ((uintptr_t)x % 16) == 0 && ((uintptr_t)y % 16) == 0;
+      const cudaError_t err =
+          launch_split_pass<GramPair>(x, y, scratch, C, R, d, path, grid, splits, vec, stream);
+      if (err != cudaSuccess) return (int)err;
+      const Sink sink = {out, nullptr, nullptr, w, xaux, yaux};
+      split_centrality_kernel<Op><<<(unsigned)C, split_centrality_threads(R), 0, stream>>>(
+          scratch, sink, R, splits);
+      return (int)cudaGetLastError();
+    } else {
+      return (int)cudaErrorInvalidValue;   // no d split for this Op
+    }
+  }
   const int64_t rows = centrality_rows(C, R, path, grid);
   if (rows > 1 && partial == nullptr) return (int)cudaErrorInvalidValue;
   if (path == PATH_STREAM) {
@@ -1193,3 +1513,4 @@ inline int launch_centrality(const float* x, const float* y, const float* xaux,
 }
 
 }  // namespace pairwise
+}  // namespace

@@ -24,7 +24,8 @@ Wrapper, the TPU kernel it replaces in that file, and its CUDA source in
 * ``l1_pairwise``: ``l1_pairwise`` / ``_l1_pairwise_kernel``,
   ``l1_pairwise.cu`` (both pairwise kernels take one of the paths of
   ``pairwise_tile.cuh``, chosen by :func:`pairwise_plan`; the Gram kernels
-  in fp32 have a third, the gemm path, for large squares).
+  in fp32 have a third, the gemm path, for large squares, and a d split of
+  the other two across the grid for very wide rows).
 
 A wrapper checks device, dtype, shape and contiguity, then:
 
@@ -163,7 +164,8 @@ def dot_centrality(x: torch.Tensor, y: torch.Tensor,
     Replaces ``dot_centrality`` (``src/repro/kernels/pairwise_distance.py``).
     Bound: the long operand's bytes on the skinny rounds (stream path),
     latency on the middle and masked refinement rounds (tile path), the
-    flops on the live corpora's exact squares (gemm path); see
+    flops on the live corpora's exact squares (gemm path), the operands'
+    bytes on the embedding rows' rounds (the d split); see
     ``csrc/dot_centrality.cu``.
     """
     if metric not in DOT_METRICS:
@@ -190,7 +192,7 @@ def dot_centrality(x: torch.Tensor, y: torch.Tensor,
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     plan = centrality_plan(c, r, d, sms,
                            crossover=dot_crossover(compute_dtype),
-                           gemm=dot_gemm(compute_dtype))
+                           fp32_gram=dot_gemm(compute_dtype))
     return launch_dot_centrality(x, y, xn2, yn2, w, plan, metric,
                                  compute_dtype)
 
@@ -519,7 +521,9 @@ def l1_pairwise_plain(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 # few tiles.
 PAIRWISE_S = 20
 STREAM, TILE, GEMM = "stream", "tile", "gemm"
-_PATH_CODE = {STREAM: 0, TILE: 1, GEMM: 2}
+STREAM_SPLIT, TILE_SPLIT = "stream_split", "tile_split"
+SPLIT_PATHS = (STREAM_SPLIT, TILE_SPLIT)
+_PATH_CODE = {STREAM: 0, TILE: 1, GEMM: 2, STREAM_SPLIT: 3, TILE_SPLIT: 4}
 _STREAM_WARPS = 8              # S_WARPS
 _STREAM_ROWS = 2               # long rows a warp takes a pass, at least
 _STREAM_BLOCKS_PER_SM = 2      # S_SMEM allows two blocks a SM
@@ -533,10 +537,29 @@ _GEMM_TILE = 128               # G_TILE
 _GEMM_BLOCKS_PER_SM = 1        # G_SMEM and the registers allow one
 GEMM_FILL = 0.42
 
+# The fp32 Gram kernels' d split (fp32_gram, from dot_gemm): where the
+# stream or tile plan puts fewer blocks on the card than it holds in one
+# wave (two a SM on the stream path, one on the tile path), `ranks`
+# independent blocks along d (the grid's y) each sum a run of whole
+# SPLIT_GROUP-column groups into a (ranks, C, R) scratch that a second
+# launch sums in rank order. Ranks fill the card's wave, and every rank but
+# the last keeps at least SPLIT_MIN_D[path] columns: the fastest floors of
+# those tools/split_floor.py times on an H100 (stream 256-4096, tile
+# 256-2048) at the embedding rows' rounds (d = 32000 and 92544). Rows
+# narrower than SPLIT_MIN_WIDTH, the narrowest width it timed where no
+# round ran slower split, are not split: at d = 2048, 4096 and 8192 the
+# second launch made 2-3 of the 12 splittable rounds of find_medoid and
+# k-medoids slower than unsplit, though the 12 together ran 20-41% faster
+# (PERF.md).
+SPLIT_GROUP = 256              # SPLIT_GROUP
+SPLIT_MIN_D = {STREAM_SPLIT: 512, TILE_SPLIT: 256}
+SPLIT_MIN_WIDTH = 32000
+_SPLIT_MAX_RANKS = 65535       # SPLIT_MAX_RANKS, gridDim.y
+
 
 def dot_gemm(compute_dtype: str) -> bool:
-    """Whether the Gram kernels have the gemm path in ``compute_dtype``:
-    in fp32, not in the bf16 mode."""
+    """Whether the Gram kernels have the gemm path and the d split in
+    ``compute_dtype``: in fp32, not in the bf16 mode."""
     _check_dtype("dot_pairwise", compute_dtype)
     return compute_dtype == "float32"
 
@@ -561,9 +584,36 @@ def gemm_plan(c: int, r: int, sms: int) -> tuple[str, int, int]:
     return GEMM, min(tiles, _GEMM_BLOCKS_PER_SM * sms), 1
 
 
+def split_run(d: int, ranks: int) -> int:
+    """The d columns each of ``ranks`` ranks of the d split sums, as
+    ``split_run`` in ``csrc/pairwise_tile.cuh``: ceil(d / ranks) in whole
+    SPLIT_GROUP-column groups (the last rank sums the rest of d)."""
+    groups = -(-d // SPLIT_GROUP)
+    return -(-groups // ranks) * SPLIT_GROUP
+
+
+def split_ranks(d: int, want: int, path: str) -> int:
+    """The d split's ranks on ``path`` for ``want`` wanted: none below
+    ``SPLIT_MIN_WIDTH`` columns, at most one for every ``SPLIT_MIN_D[path]``
+    columns, and no rank without columns (1: no split)."""
+    if d < SPLIT_MIN_WIDTH:
+        return 1
+    ranks = min(want, d // SPLIT_MIN_D[path], _SPLIT_MAX_RANKS)
+    if ranks < 2:
+        return 1
+    return -(-d // split_run(d, ranks))
+
+
+def split_scratch(c: int, r: int, plan: tuple[str, int, int]) -> int:
+    """Floats of the (ranks, C, R) partial Grams a launch with ``plan``
+    writes: ``splits * c * r`` on a d-split path, else 0."""
+    path, _, splits = plan
+    return splits * c * r if path in SPLIT_PATHS else 0
+
+
 def pairwise_plan(c: int, r: int, d: int, sms: int, *,
                   crossover: int = PAIRWISE_S,
-                  gemm: bool = False) -> tuple[str, int, int]:
+                  fp32_gram: bool = False) -> tuple[str, int, int]:
     """``(path, grid, splits)`` of one pairwise launch on a card with ``sms``
     multiprocessors, for ``c, r >= 1``.
 
@@ -571,13 +621,20 @@ def pairwise_plan(c: int, r: int, d: int, sms: int, *,
       warps that stream the long operand's rows, ``splits`` d slabs of the
       short rows in shared memory (one unless they exceed the block's
       budget);
-    * ``"gemm"`` otherwise, when the kernel has a gemm path (``gemm``, from
-      :func:`dot_gemm`) and :func:`gemm_fill` is at least ``GEMM_FILL``:
-      :func:`gemm_plan`;
+    * ``"gemm"`` otherwise, for the Gram kernels in fp32 (``fp32_gram``,
+      from :func:`dot_gemm`), when :func:`gemm_fill` is at least
+      ``GEMM_FILL``: :func:`gemm_plan`;
     * ``"tile"`` otherwise: ``grid = tiles * splits`` blocks, 32 x 32
       output tiles, each summed over d by a cluster of ``splits`` blocks
       (at most 8), enough to put about one block on every SM, each block
       with at least one 32-column slab of d.
+    * ``"stream_split"`` / ``"tile_split"`` in place of ``"stream"`` /
+      ``"tile"`` for the Gram kernels in fp32 (``fp32_gram``) where
+      :func:`split_ranks` gives more blocks than the
+      unsplit plan within the card's wave (``sms`` tile blocks, two stream
+      blocks an SM): ``splits`` ranks along d of the unsplit stream grid
+      (``grid`` = its blocks * splits) or of the tiles (``grid = tiles *
+      splits``, no cluster).
     """
     if not 0 <= crossover <= _STREAM_MAX_SHORT:
         raise ValueError(f"pairwise_plan: crossover {crossover} outside "
@@ -586,16 +643,23 @@ def pairwise_plan(c: int, r: int, d: int, sms: int, *,
         m, n = min(c, r), max(c, r)
         grid = max(1, min(-(-n // (_STREAM_WARPS * _STREAM_ROWS)),
                           _STREAM_BLOCKS_PER_SM * sms))
+        ranks = split_ranks(d, _STREAM_BLOCKS_PER_SM * sms // grid,
+                            STREAM_SPLIT) if fp32_gram else 1
+        if ranks > 1:
+            return STREAM_SPLIT, grid * ranks, ranks
         if m * d * 4 <= _STREAM_SMEM:
             return STREAM, grid, 1
         units = _STREAM_SMEM // (m * 4 * _STREAM_SLAB_ALIGN)
         return STREAM, grid, -(-d // (units * _STREAM_SLAB_ALIGN))
-    if gemm and gemm_fill(c, r, sms) >= GEMM_FILL:
+    if fp32_gram and gemm_fill(c, r, sms) >= GEMM_FILL:
         return gemm_plan(c, r, sms)
     tiles = -(-c // _PAIR_TILE) * -(-r // _PAIR_TILE)
     slabs = max(1, -(-d // _PAIR_BK))
     splits = max(1, min(_MAX_CLUSTER, -(-sms // tiles), slabs))
     splits = -(-slabs // -(-slabs // splits))  # no rank without a slab
+    ranks = split_ranks(d, sms // tiles, TILE_SPLIT) if fp32_gram else 1
+    if ranks > splits:
+        return TILE_SPLIT, tiles * ranks, ranks
     return TILE, tiles * splits, splits
 
 
@@ -635,26 +699,31 @@ def dot_crossover(compute_dtype: str) -> int:
 
 def centrality_plan(c: int, r: int, d: int, sms: int, *,
                     crossover: int = CENTRALITY_S,
-                    gemm: bool = False) -> tuple[str, int, int]:
+                    fp32_gram: bool = False) -> tuple[str, int, int]:
     """``(path, grid, splits)`` of one ``dot_centrality`` or
     ``l1_centrality`` launch for ``c, r >= 1``: the launch geometry of
     :func:`pairwise_plan` with the kernel's centrality crossover
-    (:func:`dot_crossover` for ``dot_centrality``) and its gemm path
-    (:func:`dot_gemm`; none for ``l1_centrality``). The stream path's
-    epilogue writes S directly when R is short and a ``(grid, C)`` partial
-    when C is short; the tile and gemm paths' an
-    ``(r-tiles, C)`` partial of their 32- or 128-row r-tiles (see
+    (:func:`dot_crossover` for ``dot_centrality``), its gemm path and its d
+    split (:func:`dot_gemm`; neither for ``l1_centrality``). The stream
+    path's epilogue writes S directly when R is short and a ``(grid, C)``
+    partial when C is short; the tile and gemm paths' an
+    ``(r-tiles, C)`` partial of their 32- or 128-row r-tiles; the d split's
+    first pass the (splits, C, R) partial Grams (see
     :func:`centrality_scratch`)."""
-    return pairwise_plan(c, r, d, sms, crossover=crossover, gemm=gemm)
+    return pairwise_plan(c, r, d, sms, crossover=crossover,
+                         fp32_gram=fp32_gram)
 
 
 def centrality_scratch(c: int, r: int, d: int,
                        plan: tuple[str, int, int]) -> tuple[int, int]:
     """``(scratch floats, partial rows)`` of one centrality launch with
     ``plan``: C * R running d sums where the stream path takes several d
-    slabs (else 0), and the rows a second pass sums (1: none, the first
-    pass writes S), as ``centrality_rows`` in ``csrc/pairwise_tile.cuh``."""
+    slabs, the d split's :func:`split_scratch` (else 0), and the rows a
+    second pass sums (1: none, the first pass or the d split's second pass
+    writes S), as ``centrality_rows`` in ``csrc/pairwise_tile.cuh``."""
     path, grid, splits = plan
+    if path in SPLIT_PATHS:
+        return split_scratch(c, r, plan), 1
     if path == STREAM:
         scratch = c * r if _stream_slab(d, splits) < d else 0
         return scratch, (grid if c <= r else 1)
@@ -691,6 +760,8 @@ def launch_l1_centrality(x: torch.Tensor, y: torch.Tensor,
     c, d = x.shape
     r = y.shape[0]
     kind, grid, splits = plan
+    if kind in SPLIT_PATHS:
+        raise ValueError("l1_centrality has no d split")
     scratch, partial, out = _centrality_buffers("l1_centrality", x, r, plan)
     fn = build.function("l1_centrality_launch")
     with torch.cuda.device(x.device):
@@ -715,7 +786,8 @@ def launch_dot_centrality(x: torch.Tensor, y: torch.Tensor,
     CUDA tensors x (C, d), y (R, d), xn2 (C,) and yn2 (R,) or None
     (cosine), w (R,) or None with ``plan``, a ``centrality_plan`` result for
     (C, R, d), C and R >= 1: the wrapper passes the one at
-    ``dot_crossover(compute_dtype)`` and ``dot_gemm(compute_dtype)``,
+    ``dot_crossover(compute_dtype)`` with ``dot_gemm(compute_dtype)``'s
+    gemm path and d split,
     ``chip_smoke.py`` forces each path to time them on each side of the
     crossovers. Counts in ``LAUNCHES`` and ``PATH_LAUNCHES`` under
     ``"dot_centrality"`` or ``"dot_centrality_bf16"``."""
@@ -723,6 +795,8 @@ def launch_dot_centrality(x: torch.Tensor, y: torch.Tensor,
     c, d = x.shape
     r = y.shape[0]
     kind, grid, splits = plan
+    if kind in SPLIT_PATHS and not dot_gemm(compute_dtype):
+        raise ValueError(f"dot_centrality in {compute_dtype} has no d split")
     scratch, partial, out = _centrality_buffers("dot_centrality", x, r, plan)
     fn = build.function("dot_centrality_launch")
     with torch.cuda.device(x.device):
@@ -757,11 +831,18 @@ def launch_pairwise(name: str, x: torch.Tensor, y: torch.Tensor,
     if grid > _MAX_BLOCKS:
         raise ValueError(f"{name}: ({c}, {r}) needs {grid} blocks, more "
                          f"than {_MAX_BLOCKS}")
+    if kind in SPLIT_PATHS and not (name == "dot_pairwise"
+                                    and dot_gemm(compute_dtype)):
+        raise ValueError(f"{name} in {compute_dtype} has no d split")
     out = torch.empty((c, r), dtype=torch.float32, device=x.device)
+    scratch = torch.empty(split_scratch(c, r, plan), dtype=torch.float32,
+                          device=x.device) if kind in SPLIT_PATHS else None
     fn = build.function(f"{name}_launch")
-    args = (x.data_ptr(), y.data_ptr(), out.data_ptr(), c, r, d)
+    args = (x.data_ptr(), y.data_ptr(), out.data_ptr())
     if name == "dot_pairwise":
-        args += (COMPUTE_DTYPES[compute_dtype],)
+        args += (_ptr(scratch), c, r, d, COMPUTE_DTYPES[compute_dtype])
+    else:
+        args += (c, r, d)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         code = fn(*args, _PATH_CODE[kind], grid, splits, stream)
@@ -774,7 +855,7 @@ def launch_pairwise(name: str, x: torch.Tensor, y: torch.Tensor,
 
 def _pairwise(name: str, x: torch.Tensor, y: torch.Tensor, plain,
               compute_dtype: str = "float32",
-              gemm: bool = False) -> torch.Tensor:
+              fp32_gram: bool = False) -> torch.Tensor:
     if x.ndim != 2 or y.ndim != 2 or x.shape[1] != y.shape[1]:
         raise ValueError(f"{name}: bad shapes {tuple(x.shape)}, "
                          f"{tuple(y.shape)}")
@@ -788,7 +869,7 @@ def _pairwise(name: str, x: torch.Tensor, y: torch.Tensor, plain,
         return torch.empty((c, r), dtype=torch.float32, device=x.device)
     sms = torch.cuda.get_device_properties(x.device).multi_processor_count
     return launch_pairwise(name, x, y,
-                           pairwise_plan(c, r, d, sms, gemm=gemm),
+                           pairwise_plan(c, r, d, sms, fp32_gram=fp32_gram),
                            compute_dtype)
 
 
@@ -801,7 +882,8 @@ def dot_pairwise(x: torch.Tensor, y: torch.Tensor, *,
     Replaces ``dot_pairwise`` (``src/repro/kernels/pairwise_distance.py``).
     Bound: the long operand's bytes on the skinny k-medoids shapes (stream
     path), launch latency on the middle halving rounds (tile path), the
-    flops on the live corpora's bootstrap squares (gemm path); see
+    flops on the live corpora's bootstrap squares (gemm path), the
+    operands' bytes on the embedding rows' shapes (the d split); see
     ``csrc/dot_pairwise.cu``."""
     return _pairwise("dot_pairwise", x, y,
                      lambda a, b: dot_pairwise_plain(

@@ -274,13 +274,14 @@ def test_stream_slabs_finish_once(metric, c, r):
 
 # ----------------------------------------------- dot_centrality's gemm path
 GEMM_TILE = 128                 # G_TILE
+_UNSPLIT = {pk.STREAM_SPLIT: pk.STREAM, pk.TILE_SPLIT: pk.TILE}
 
 
 def _dot_plan(c, r, d, compute_dtype="float32"):
     """dot_centrality's plan, as its wrapper makes it."""
     return pk.centrality_plan(c, r, d, SMS,
                               crossover=pk.dot_crossover(compute_dtype),
-                              gemm=pk.dot_gemm(compute_dtype))
+                              fp32_gram=pk.dot_gemm(compute_dtype))
 
 
 @pytest.mark.parametrize("c, r, d", ((32768, 32768, 784),
@@ -320,12 +321,15 @@ def _every_main_path_shape():
 def test_round_shapes_keep_their_path(dtype):
     """No round the tests enumerate reaches the gemm path (their 20k-50k
     pairs fill a few 128 x 128 tiles): dot_centrality's plan equals the
-    plan without a gemm path at each of them."""
+    plan without a gemm path at each of them, or that plan's d split."""
     shapes = _every_main_path_shape()
     assert len(shapes) > 500
     for c, r, d in shapes:
-        assert _dot_plan(c, r, d, dtype) == pk.centrality_plan(
-            c, r, d, SMS, crossover=pk.dot_crossover(dtype)), (c, r, d)
+        plan = _dot_plan(c, r, d, dtype)
+        base = pk.centrality_plan(c, r, d, SMS,
+                                  crossover=pk.dot_crossover(dtype))
+        assert plan == base or (plan[0] in pk.SPLIT_PATHS
+                                and _UNSPLIT[plan[0]] == base[0]), (c, r, d)
 
 
 def _emulate_gemm(x, y, xn2, yn2, w, metric):
@@ -558,3 +562,55 @@ def test_vocab_width_pairwise_shapes_fit(d):
             assert -(-d // slab) <= splits
         else:
             assert 1 <= splits <= MAX_CLUSTER
+
+
+# ------------------------------------------- dot_centrality's d split
+@pytest.mark.parametrize("d", (92544, 32000))
+def test_embedding_rounds_take_the_split(d):
+    """Every dot_centrality launch of the embedding medoid at n = 2048
+    (find_medoid's rounds at 20 pulls per arm, the k-medoids BUILD step and
+    refinement buckets, the shard server's buckets at 24) plans the d split
+    in fp32, with a (ranks, C, R) scratch of partial Grams and no partial
+    rows (the second pass writes S); the bf16 mode and l1_centrality keep
+    their unsplit plans."""
+    shapes = sorted({s for n, b in ((2048, 20), (2048, 16), (256, 24),
+                                    (512, 24)) for s in _rounds(n, b)}
+                    | {s for nb in (64, 128, 256, 512, 1024)
+                       for s in _rounds(nb, 20)})
+    for c, r in shapes:
+        plan = _dot_plan(c, r, d)
+        assert plan[0] == (pk.STREAM_SPLIT if min(c, r) <= pk.DOT_CENTRALITY_S
+                           else pk.TILE_SPLIT), (c, r, plan)
+        ranks = plan[2]
+        assert pk.centrality_scratch(c, r, d, plan) == (ranks * c * r, 1)
+        x = torch.empty(c, 1)
+        scratch, partial, out = pk._centrality_buffers("dot_centrality", x,
+                                                       r, plan)
+        assert scratch.numel() == ranks * c * r and partial is None
+        assert out.shape == (c,)
+        assert plan[1] <= (2 if plan[0] == pk.STREAM_SPLIT else 1) * SMS
+        for other in (_dot_plan(c, r, d, "bfloat16"),
+                      pk.centrality_plan(c, r, d, SMS)):
+            assert other[0] in (pk.STREAM, pk.TILE)
+            _check_limits(c, r, d, other)
+
+
+@pytest.mark.parametrize("dtype", ("float32", "bfloat16"))
+def test_main_path_rounds_keep_their_plan_below_4096(dtype):
+    """No round the tests enumerate below SPLIT_MIN_WIDTH = 32000 columns
+    takes the split."""
+    assert pk.SPLIT_MIN_WIDTH == 32000
+    for c, r, d in _every_main_path_shape():
+        if d < 32000:
+            assert _dot_plan(c, r, d, dtype)[0] not in pk.SPLIT_PATHS, \
+                (c, r, d)
+
+
+def test_split_centrality_rejects_other_modes():
+    x, y = torch.rand(4, 8), torch.rand(5, 8)
+    plan = (pk.TILE_SPLIT, 2, 2)
+    with pytest.raises(ValueError, match="no d split"):
+        pk.launch_l1_centrality(x, y, None, plan)
+    with pytest.raises(ValueError, match="no d split"):
+        pk.launch_dot_centrality(x, y, None, None, None, plan, "cosine",
+                                 "bfloat16")

@@ -407,6 +407,77 @@ def test_gemm_path_matches_plain(cuda, shape, offset):
         ("dot_pairwise", pk.GEMM): 2, ("dot_centrality", pk.GEMM): 12})
 
 
+# the fp32 Gram kernels' d split: rounds of the embedding medoid at the
+# vocabulary widths of internlm2-1.8b and zamba2-2.7b (stream and tile
+# splits, both orientations, C- and R-short second passes), d % 4 != 0
+SPLIT_SHAPES = ((2048, 1, 92544), (1, 2048, 92544), (2048, 8, 92544),
+                (256, 14, 92544), (16, 232, 92544), (32, 116, 92544),
+                (128, 29, 92544), (64, 21, 92544), (8, 96, 92544),
+                (2, 1861, 32000), (128, 29, 32000), (16, 48, 32000),
+                (256, 14, 92543), (32, 116, 92543))
+
+
+@pytest.mark.parametrize("shape", SPLIT_SHAPES)
+@pytest.mark.parametrize("offset", (0, 1))
+def test_split_path_matches_plain(cuda, shape, offset):
+    """dot_pairwise and dot_centrality (l2, sql2, cosine; with and without
+    a mask) through their wrappers take the d split at these shapes, agree
+    with the plain versions (rtol 1e-5, a floor of 1e-5 of the largest
+    value, the l2 allowance), two launches bit-equal; the forced unsplit
+    plan agrees within the same tolerance; ``PATH_LAUNCHES`` counts the
+    launches by path. offset 1: x starts 4 bytes past a 16-byte boundary."""
+    c, r, d = shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    g = torch.Generator(device=cuda).manual_seed(c + r + d)
+    x = torch.rand(c * d + offset, device=cuda, generator=g)[offset:]
+    x = x.view(c, d)
+    y = torch.rand(r, d, device=cuda, generator=g)
+    w = (torch.rand(r, device=cuda, generator=g) > 0.3).float()
+    w[0] = 1.0
+    plan = pk.pairwise_plan(c, r, d, sms, fp32_gram=True)
+    unsplit = pk.pairwise_plan(c, r, d, sms)
+    assert plan[0] in pk.SPLIT_PATHS and unsplit[0] not in pk.SPLIT_PATHS
+    paths = pk.PATH_LAUNCHES.copy()
+    got, again = pk.dot_pairwise(x, y), pk.dot_pairwise(x, y)
+    want = pk.dot_pairwise_plain(x, y)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
+    for out in (got, pk.launch_pairwise("dot_pairwise", x, y, unsplit)):
+        assert bool(((out - want).abs() <= tol).all())
+    cplan = pk.centrality_plan(c, r, d, sms, crossover=DS, fp32_gram=True)
+    cun = pk.centrality_plan(c, r, d, sms, crossover=DS)
+    assert cplan[0] in pk.SPLIT_PATHS
+    for metric in ("l2", "sql2", "cosine"):
+        if metric == "cosine":
+            xk, yk, xn2, yn2 = ops._unit_rows(x), ops._unit_rows(y), None, \
+                None
+        else:
+            xk, yk, xn2, yn2 = x, y, ops._norms_sq(x), ops._norms_sq(y)
+        for mask in (None, w):
+            got = ops.kernel_centrality_sums(x, y, metric=metric,
+                                             ref_mask=mask)
+            again = ops.kernel_centrality_sums(x, y, metric=metric,
+                                               ref_mask=mask)
+            forced = pk.launch_dot_centrality(xk, yk, xn2, yn2, mask, cun,
+                                              metric)
+            want = pk.dot_centrality_plain(xk, yk, xn2, yn2, mask,
+                                           metric=metric)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again), (metric, mask is None)
+            tol = 1e-5 * want.abs() + 1e-5 * want.abs().max()
+            if metric == "l2":
+                refs = r if mask is None else float(mask.sum())
+                tol = tol + 1e-3 * float(
+                    torch.cat([x, y]).norm(dim=1).max()) * refs
+            for out in (got, forced):
+                assert bool(((out - want).abs() <= tol).all()), \
+                    (metric, mask is None)
+    assert pk.PATH_LAUNCHES - paths == Counter({
+        ("dot_pairwise", plan[0]): 2, ("dot_pairwise", unsplit[0]): 1,
+        ("dot_centrality", cplan[0]): 12, ("dot_centrality", cun[0]): 6})
+
+
 def test_kmedoids_on_card_matches_cpu(cuda):
     from repro_torch.data.medoid_datasets import planted_clusters
 
@@ -644,7 +715,7 @@ def test_corpus_pairwise_shapes_match_plain(cuda, cap, rows):
         x = y if rows == "square" else y[cap // 3:cap // 3 + 1]
         if name == "dot_pairwise":
             path = pk.pairwise_plan(x.shape[0], cap, d, sms,
-                                    gemm=pk.dot_gemm("float32"))[0]
+                                    fp32_gram=pk.dot_gemm("float32"))[0]
             assert path == (pk.GEMM if rows == "square" else pk.STREAM)
         kern = pk.dot_pairwise if name == "dot_pairwise" else pk.l1_pairwise
         plain = (pk.dot_pairwise_plain if name == "dot_pairwise"

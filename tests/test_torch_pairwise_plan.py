@@ -139,11 +139,11 @@ def test_gram_squares_take_the_gemm_path(c, r, d):
     an SM walking 128 x 128 tiles over all of d; l1_pairwise and the bf16
     mode keep the tile path. The block's offsets need 64 bits where C * R
     passes 2^31."""
-    plan = pk.pairwise_plan(c, r, d, SMS, gemm=GRAM_GEMM)
+    plan = pk.pairwise_plan(c, r, d, SMS, fp32_gram=GRAM_GEMM)
     _gemm_limits(c, r, plan)
     assert plan == (pk.GEMM, SMS, 1)
     for gemm in (False, pk.dot_gemm("bfloat16")):   # l1, bf16 mode
-        plan = pk.pairwise_plan(c, r, d, SMS, gemm=gemm)
+        plan = pk.pairwise_plan(c, r, d, SMS, fp32_gram=gemm)
         assert plan[0] == pk.TILE
         _check_limits(c, r, d, *plan)
     assert (c * r > 2 ** 31) == ((c, r) == (49152, 49152))
@@ -162,7 +162,7 @@ def test_gemm_crossover(c, r, want):
     4096): tile; 0.48 at (1024, 1024), (256, 4096), (128, 8192) and (48,
     16384), whose 48 rows the tile path pads to 64: gemm); ``gemm_plan``,
     which forces the path, fits the launch limits at each."""
-    plan = pk.pairwise_plan(c, r, 784, SMS, gemm=GRAM_GEMM)
+    plan = pk.pairwise_plan(c, r, 784, SMS, fp32_gram=GRAM_GEMM)
     assert plan[0] == want
     if want == pk.TILE:
         _check_limits(c, r, 784, *plan)
@@ -172,7 +172,126 @@ def test_gemm_crossover(c, r, want):
 @pytest.mark.parametrize("c, r", SHAPES)
 def test_round_shapes_keep_their_path(c, r):
     """No k-medoids or find_medoid round, cache or row takes the gemm
-    path: dot_pairwise's plan at every width equals the plan without one."""
+    path: dot_pairwise's plan at every width equals the plan without one,
+    or that plan's d split."""
+    unsplit = {pk.STREAM_SPLIT: pk.STREAM, pk.TILE_SPLIT: pk.TILE}
     for d in WIDTHS:
-        assert pk.pairwise_plan(c, r, d, SMS, gemm=GRAM_GEMM) == \
-            pk.pairwise_plan(c, r, d, SMS)
+        plan = pk.pairwise_plan(c, r, d, SMS, fp32_gram=GRAM_GEMM)
+        base = pk.pairwise_plan(c, r, d, SMS)
+        assert plan == base or (plan[0] in pk.SPLIT_PATHS
+                                and unsplit[plan[0]] == base[0]), (c, r, d)
+
+
+# --------------------------------------------------------------- d split
+EMBED_WIDTHS = (92544, 32000)              # internlm2-1.8b's V, zamba2's
+MAX_RANKS = 2 ** 16 - 1                    # gridDim.y
+
+
+def _embed_shapes():
+    """The Gram launches of the embedding medoid at n = 2048 (chip_smoke.py's
+    phases 8d and 10e): find_medoid's rounds (20 pulls per arm), k-medoids'
+    BUILD and SWAP rounds (16), its (n, 8) cache and (1, n) row, and the
+    shard server's buckets of 256 and 512 rows (24)."""
+    return sorted(set(_rounds(2048, 20) + _rounds(2048, 16)
+                      + _rounds(256, 24) + _rounds(512, 24)
+                      + [(2048, 8), (1, 2048)]))
+
+
+def _rounds(n, budget_per_arm):
+    return [(rd.survivors, rd.num_refs)
+            for rd in round_schedule(n, budget_per_arm * n)]
+
+
+def _split_slab(m, run):
+    """``split_slab`` of ``csrc/pairwise_tile.cuh``: the run in one buffer
+    where it fits, else two buffers of half the budget."""
+    if m * run * 4 <= STREAM_SMEM:
+        return run
+    return STREAM_SMEM // 2 // (m * 4 * SLAB_ALIGN) * SLAB_ALIGN
+
+
+def _split_limits(c, r, d, plan):
+    """A d-split plan's ranks: whole 256-column groups, none empty, each
+    but the last at least its path's floor; its grid within one wave and
+    the launch limits; the stream split's short-row buffers within the
+    block's budget."""
+    path, grid, ranks = plan
+    assert path in pk.SPLIT_PATHS and 2 <= ranks <= MAX_RANKS
+    run = pk.split_run(d, ranks)
+    assert run % pk.SPLIT_GROUP == 0 and run >= pk.SPLIT_MIN_D[path]
+    assert (ranks - 1) * run < d                  # every rank has columns
+    assert pk.split_scratch(c, r, plan) == ranks * c * r
+    if path == pk.STREAM_SPLIT:
+        m, n = min(c, r), max(c, r)
+        blocks = grid // ranks
+        assert grid == blocks * ranks and grid <= 2 * SMS
+        assert blocks == pk.pairwise_plan(c, r, d, SMS)[1]    # unsplit grid
+        slab = _split_slab(m, run)
+        assert slab % SLAB_ALIGN == 0 or slab == run
+        assert (1 if slab == run else 2) * m * slab * 4 <= STREAM_SMEM
+    else:
+        tiles = -(-c // TILE) * -(-r // TILE)
+        assert grid == tiles * ranks <= SMS
+        assert ranks > pk.pairwise_plan(c, r, d, SMS)[2]      # its cluster
+
+
+@pytest.mark.parametrize("d", EMBED_WIDTHS)
+def test_embedding_rounds_take_the_split(d):
+    """At the vocabulary-wide rows every Gram launch of phases 8d and 10e
+    plans the d split for dot_pairwise in fp32 (the stream path's where its
+    short side is at most PAIRWISE_S), within the limits; l1_pairwise and
+    the bf16 mode keep their unsplit plans."""
+    for c, r in _embed_shapes():
+        plan = pk.pairwise_plan(c, r, d, SMS, fp32_gram=GRAM_GEMM)
+        want = pk.STREAM_SPLIT if min(c, r) <= pk.PAIRWISE_S \
+            else pk.TILE_SPLIT
+        assert plan[0] == want, (c, r, plan)
+        _split_limits(c, r, d, plan)
+        bf16 = pk.dot_gemm("bfloat16")
+        for unsplit in (pk.pairwise_plan(c, r, d, SMS),
+                        pk.pairwise_plan(c, r, d, SMS, fp32_gram=bf16)):
+            assert unsplit[0] in (pk.STREAM, pk.TILE)
+            _check_limits(c, r, d, *unsplit)
+
+
+@pytest.mark.parametrize("c, r", SHAPES)
+def test_main_path_rounds_keep_their_plan(c, r):
+    """Below SPLIT_MIN_WIDTH = 32000 columns no round, cache or row of
+    find_medoid, k-medoids or serving takes the split (their Gram cells are
+    at d = 784 and 2048)."""
+    assert pk.SPLIT_MIN_WIDTH == 32000
+    for d in WIDTHS + (2048, 4095, 31999):
+        if d < 32000:
+            plan = pk.pairwise_plan(c, r, d, SMS, fp32_gram=GRAM_GEMM)
+            assert plan[0] not in pk.SPLIT_PATHS, (c, r, d)
+
+
+@pytest.mark.parametrize("d", (2048, 4096, 8191, 32000, 92543, 92544,
+                               262144))
+@pytest.mark.parametrize("want", (1, 2, 3, 41, 132, 264, 70000))
+@pytest.mark.parametrize("path", pk.SPLIT_PATHS)
+def test_split_ranks_take_whole_groups(d, want, path):
+    """``split_ranks`` gives at most ``want`` ranks and one per floor of
+    columns; each rank's run is whole 256-column groups, and the last rank
+    still has columns (as the C launcher checks)."""
+    ranks = pk.split_ranks(d, want, path)
+    assert 1 <= ranks <= max(1, min(want, d // pk.SPLIT_MIN_D[path]))
+    assert ranks == 1 or d >= pk.SPLIT_MIN_WIDTH
+    assert ranks <= MAX_RANKS
+    if ranks > 1:
+        run = pk.split_run(d, ranks)
+        assert run % pk.SPLIT_GROUP == 0 and run >= pk.SPLIT_MIN_D[path]
+        assert (ranks - 1) * run < d <= ranks * run
+
+
+def test_split_plans_are_for_the_fp32_gram_only():
+    """A forced split is a plan tuple like any other: the launchers reject
+    it for l1_pairwise and for the bf16 mode before touching a device."""
+    import torch
+
+    x, y = torch.rand(4, 8), torch.rand(5, 8)
+    plan = (pk.STREAM_SPLIT, 2, 2)
+    with pytest.raises(ValueError, match="no d split"):
+        pk.launch_pairwise("l1_pairwise", x, y, plan)
+    with pytest.raises(ValueError, match="no d split"):
+        pk.launch_pairwise("dot_pairwise", x, y, plan, "bfloat16")
